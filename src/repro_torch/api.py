@@ -1,0 +1,421 @@
+"""The typed filter façade: one ``FilterSpec -> open_filter()`` front door.
+
+Counterpart of ``repro/api.py`` for the single placement and key domains of
+``d <= 32`` bits (dtypes ``u8``, ``u16``, ``u32`` and ``f32``).  A
+:class:`FilterSpec` is validated exactly as in ``repro``, so the same spec
+describes the same filter in both packages; :func:`open_filter` returns a
+:class:`SingleFilter` that
+
+* routes every insert/point/range through the order-preserving codecs of
+  ``core/codecs.py``;
+* chooses the layout through ``core/tuning.py`` (the paper's §7 advisor) or
+  the tuning-free ``basic_layout``, as ``repro`` does;
+* dispatches to the CUDA kernels (``kernels/ops.py``) or to the plain
+  engine path.
+
+The filter lives on ``device``, which is ``"cuda"`` unless the caller asks
+for another; without a card :func:`open_filter` raises rather than quietly
+picking the CPU.  What is not ported yet raises ``NotImplementedError``
+naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .core import codecs as _cd
+from .core.bloomrf import resolve_device
+from .core.layout import basic_layout
+
+__all__ = ["FilterSpec", "open_filter", "chunked_probe", "SingleFilter"]
+
+_DTYPES = ("u8", "u16", "u32", "u64", "f32", "f64", "str", "multiattr")
+_PLACEMENTS = ("single", "bank", "tenant", "store")
+_BACKENDS = ("auto", "xla", "resident", "partitioned", "stacked")
+_TUNINGS = ("auto", "basic", "advised", "adaptive")
+_MUTABILITIES = ("insert_only", "deletable", "ttl")
+
+#: range budget (log2) up to which the tuning-free basic layout is advised
+_BASIC_RANGE_LOG2 = 14
+
+#: domain bits and codes per key of every dtype the spec accepts
+_DOMAIN = {"u8": (8, 1), "u16": (16, 1), "u32": (32, 1), "u64": (64, 1),
+           "f32": (32, 1), "f64": (64, 1), "str": (64, 1),
+           "multiattr": (64, 2)}
+
+
+# ---------------------------------------------------------------------------
+# key codecs: typed keys <-> the integer filter domain
+# ---------------------------------------------------------------------------
+
+class _Codec:
+    """Order-preserving map from a typed key space into a d-bit uint domain."""
+
+    name: str
+    d: int
+    codes_per_key = 1
+
+    def encode_insert(self, keys) -> np.ndarray:
+        return self.encode_point(keys)
+
+    def encode_point(self, qs) -> np.ndarray:
+        raise NotImplementedError
+
+    def encode_bounds(self, lo, hi) -> tuple:
+        return self.encode_point(lo), self.encode_point(hi)
+
+
+class _UIntCodec(_Codec):
+    def __init__(self, bits: int):
+        self.name = f"u{bits}"
+        self.d = bits
+
+    def encode_point(self, qs) -> np.ndarray:
+        arr = np.atleast_1d(np.asarray(qs, np.uint64))
+        if (arr >> np.uint64(self.d)).any():
+            raise ValueError(
+                f"{self.name} keys must fit the {self.d}-bit domain")
+        return arr
+
+
+class _Float32Codec(_Codec):
+    name = "f32"
+    d = 32
+
+    def encode_point(self, qs) -> np.ndarray:
+        arr = np.atleast_1d(np.asarray(qs, np.float32))
+        if np.isnan(arr).any():
+            raise ValueError("f32 keys must not be NaN (the order-preserving "
+                             "φ map has no total order for NaN)")
+        return _cd.float32_to_u32(arr).astype(np.uint64)
+
+
+def _codec_for(dtype: str) -> _Codec:
+    if dtype in ("u8", "u16", "u32"):
+        return _UIntCodec(int(dtype[1:]))
+    if dtype == "f32":
+        return _Float32Codec()
+    raise NotImplementedError(
+        f"dtype={dtype!r} needs a 64-bit key domain, which is not ported yet "
+        f"(ROADMAP A.1: mix64, unsigned modulo and the u64/f64/str/multiattr "
+        f"codecs)")
+
+
+# ---------------------------------------------------------------------------
+# the spec
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FilterSpec:
+    """Declarative description of a point-range filter deployment.
+
+    The same fields and validation as ``repro.FilterSpec``.  Exactly one of
+    ``bits_per_key`` / ``target_fpr`` sizes the filter (neither -> 16
+    bits/key).  ``range_log2`` is the log2 of the largest range the filter is
+    tuned for (the paper's R); ``tuning='auto'`` picks the tuning-free basic
+    layout up to R = 2^14 and the §7 advisor above.
+    """
+
+    dtype: str = "u64"                      # u8|u16|u32|u64|f32|f64|str|multiattr
+    n: int = 1 << 16                        # expected keys (per tenant if tenant)
+    bits_per_key: Optional[float] = None
+    target_fpr: Optional[float] = None      # range-FPR target at R=2^range_log2
+    range_log2: int = _BASIC_RANGE_LOG2     # log2 of the range budget R
+    placement: str = "single"               # single|bank|tenant|store
+    backend: str = "auto"                   # auto|xla|resident|partitioned|stacked
+    tuning: str = "auto"                    # auto|basic|advised
+    shards: int = 1                         # bank/tenant: power-of-two shard rows
+    tenants: int = 1                        # tenant: tenant rows
+    delta: Optional[int] = None             # layer distance override (1..7)
+    point_weight: float = 1.0               # advisor's point-vs-range weight
+    chunk: int = 1 << 18                    # host-side probe chunking
+    seed: int = 0x0B100F11
+    mutability: str = "insert_only"         # insert_only|deletable|ttl
+    generations: int = 4                    # ttl: retained TTL windows (>= 2)
+    store_backend: str = "bloomrf"
+    memtable_limit: int = 4096
+    fanout: int = 4
+    level0_runs: int = 4
+    purge_dead_frac: float = 0.25
+    durability: str = "none"                # store: "none" | "wal"
+    wal_dir: Optional[str] = None
+
+    def __post_init__(self):
+        def bad(msg):
+            raise ValueError(f"FilterSpec: {msg}")
+
+        if self.dtype not in _DTYPES:
+            bad(f"dtype must be one of {_DTYPES}, got {self.dtype!r}")
+        if self.placement not in _PLACEMENTS:
+            bad(f"placement must be one of {_PLACEMENTS}, "
+                f"got {self.placement!r}")
+        if self.backend not in _BACKENDS:
+            bad(f"backend must be one of {_BACKENDS}, got {self.backend!r}")
+        if self.tuning not in _TUNINGS:
+            bad(f"tuning must be one of {_TUNINGS}, got {self.tuning!r}")
+        if self.n < 1:
+            bad(f"n must be >= 1, got {self.n}")
+        if self.bits_per_key is not None and self.target_fpr is not None:
+            bad("give bits_per_key OR target_fpr, not both")
+        if self.bits_per_key is not None and self.bits_per_key <= 0:
+            bad(f"bits_per_key must be > 0, got {self.bits_per_key}")
+        if self.target_fpr is not None and not (0 < self.target_fpr < 1):
+            bad(f"target_fpr must be in (0, 1), got {self.target_fpr}")
+        d = _DOMAIN[self.dtype][0]
+        if not (0 <= self.range_log2 <= d):
+            bad(f"range_log2 must be in [0, {d}] for {self.dtype} keys, "
+                f"got {self.range_log2}")
+        if self.delta is not None and not (1 <= self.delta <= 7):
+            bad(f"delta must be in 1..7, got {self.delta}")
+        if self.shards < 1 or self.shards & (self.shards - 1):
+            bad(f"shards must be a power of two, got {self.shards}")
+        if self.tenants < 1:
+            bad(f"tenants must be >= 1, got {self.tenants}")
+        if self.chunk < 1:
+            bad(f"chunk must be >= 1, got {self.chunk}")
+        if self.backend in ("resident", "partitioned") \
+                and self.placement != "single":
+            bad(f"backend={self.backend!r} is a single-filter kernel "
+                f"dispatch; {self.placement!r} placements always probe "
+                f"through the stacked engine")
+        if self.backend == "stacked" and self.placement == "single":
+            bad("backend='stacked' needs a multi-row placement "
+                "(bank/tenant/store)")
+        if self.tuning == "advised" and self.placement != "single":
+            bad("tuning='advised' builds exact-bitmap layouts, which only "
+                "the single placement's engine path can probe (the stacked "
+                "plan and the kernels are hashed-layout only)")
+        if self.tuning == "adaptive" \
+                and self.placement not in ("store", "tenant"):
+            bad("tuning='adaptive' fits a workload model from live scans; "
+                "only the store placement (retune at compaction) and the "
+                "tenant placement (retune on promote) sample one")
+        if self.mutability not in _MUTABILITIES:
+            bad(f"mutability must be one of {_MUTABILITIES}, "
+                f"got {self.mutability!r}")
+        if self.mutability == "deletable" \
+                and self.placement not in ("single", "store"):
+            bad("mutability='deletable' needs counting lanes (single) or "
+                "compaction purges (store); bank/tenant placements age out "
+                "keys with mutability='ttl' instead")
+        if self.mutability == "ttl" \
+                and self.placement not in ("single", "tenant"):
+            bad("mutability='ttl' keeps generation lanes on the resident "
+                "state (single/tenant); the store expires via tombstones "
+                "plus mutability='deletable' compaction purges")
+        if self.generations < 2:
+            bad(f"generations must be >= 2 (current + retiring), "
+                f"got {self.generations}")
+        if not (0.0 < self.purge_dead_frac <= 1.0):
+            bad(f"purge_dead_frac must be in (0, 1], "
+                f"got {self.purge_dead_frac}")
+        if self.durability not in ("none", "wal"):
+            bad(f"durability must be 'none' or 'wal', "
+                f"got {self.durability!r}")
+        if self.durability == "wal" and self.placement != "store":
+            bad("durability='wal' is a store placement feature (resident "
+                "filters rebuild from their source of truth instead)")
+        if self.durability == "wal" and not self.wal_dir:
+            bad("durability='wal' requires wal_dir")
+
+    # -- derived sizing ---------------------------------------------------
+    def resolved_bits_per_key(self) -> float:
+        """bits/key from the explicit knob or the §6 model's FPR target."""
+        if self.bits_per_key is not None:
+            return float(self.bits_per_key)
+        if self.target_fpr is None:
+            return 16.0
+        from .core.model import basic_range_fpr
+
+        d, codes_per_key = _DOMAIN[self.dtype]
+        n = self.n * codes_per_key
+        R = 2.0 ** self.range_log2
+        delta = self.delta if self.delta is not None else 7
+        for bpk in range(6, 41):
+            if basic_range_fpr(d, n, bpk * n, R, delta=delta) \
+                    <= self.target_fpr:
+                return float(bpk)
+        raise ValueError(
+            f"FilterSpec: no bits_per_key <= 40 reaches target_fpr="
+            f"{self.target_fpr} at R=2^{self.range_log2}; relax the target "
+            f"or size with bits_per_key explicitly")
+
+    def describe(self) -> str:
+        bpk = self.resolved_bits_per_key()
+        return (f"FilterSpec({self.dtype}, n={self.n}, {bpk:g} b/key, "
+                f"R=2^{self.range_log2}, {self.placement}/{self.backend}"
+                + (f", shards={self.shards}" if self.shards > 1 else "")
+                + (f", tenants={self.tenants}" if self.tenants > 1 else "")
+                + ")")
+
+
+# ---------------------------------------------------------------------------
+# shared probe plumbing
+# ---------------------------------------------------------------------------
+
+def _codes_tensor(codes: np.ndarray, device) -> torch.Tensor:
+    """uint32 codes (held in uint64) -> an int64 carrier tensor on device."""
+    return torch.from_numpy(np.ascontiguousarray(codes, np.int64)).to(device)
+
+
+def chunked_probe(fn, state, arrays, device, chunk: int) -> np.ndarray:
+    """Drive a probe over host code arrays in fixed-size chunks on
+    ``device``; returns the verdicts as a numpy bool array."""
+    outs = []
+    B = len(arrays[0])
+    for s in range(0, B, chunk):
+        args = [_codes_tensor(a[s:s + chunk], device) for a in arrays]
+        outs.append(fn(state, *args).cpu().numpy())
+    return np.concatenate(outs) if outs else np.zeros(0, bool)
+
+
+def _plan_layout(spec: FilterSpec, codec: _Codec):
+    """Layout selection: tuning-free basic vs the §7 advisor."""
+    from .core.tuning import advise
+
+    n_codes = max(spec.n * codec.codes_per_key, 1)
+    bpk = spec.resolved_bits_per_key()
+    tuning = spec.tuning
+    if tuning == "auto":
+        tuning = "basic" if spec.range_log2 <= _BASIC_RANGE_LOG2 \
+            else "advised"
+    if tuning == "basic":
+        delta = spec.delta if spec.delta is not None else min(7, codec.d)
+        return basic_layout(codec.d, n_codes, bpk, delta=delta,
+                            seed=spec.seed), "basic"
+    return advise(codec.d, n_codes, int(n_codes * bpk),
+                  R=2.0 ** spec.range_log2, point_weight=spec.point_weight,
+                  seed=spec.seed).layout, "advised"
+
+
+class SingleFilter:
+    """One bloomRF on one device: the CUDA kernels or the plain engine path.
+
+    ``backend='auto'`` uses the kernels on a CUDA device wherever they
+    apply (hashed layout, d <= 32) and the engine path otherwise;
+    ``resident`` forces the kernels (exact layouts' range queries still take
+    the engine path); ``xla`` forces the plain engine path, on whatever
+    device the filter lives on.
+    """
+
+    def __init__(self, spec: FilterSpec, codec: _Codec, device):
+        from .core.bloomrf import BloomRF
+        from .kernels.ops import FilterOps
+
+        self.spec = spec
+        self.codec = codec
+        self.device = torch.device(device)
+        self.layout, self.tuning = _plan_layout(spec, codec)
+        backend = spec.backend
+        if backend == "auto":
+            backend = "kernels" if (self.device.type == "cuda"
+                                    and not self.layout.has_exact) else "xla"
+        self.backend = backend
+        self.filter = BloomRF(self.layout, device=self.device)
+        if backend == "xla":
+            self.ops = None
+            self._insert = self.filter.insert
+            self._point = self.filter.point
+            self._range = self.filter.range
+        else:
+            budget = (max(self.layout.total_u32, 1) if backend == "resident"
+                      else 0 if backend == "partitioned" else None)
+            self.ops = FilterOps(self.layout, vmem_budget_u32=budget)
+            self._insert = self.ops.insert
+            self._point = self.ops.point
+            self._range = self.ops.range
+        self._state = self.filter.init_state()
+
+    # -- state --------------------------------------------------------------
+    @property
+    def state(self) -> torch.Tensor:
+        """The filter's ``int32[total_u32]`` lanes (uint32 bits) on device."""
+        return self._state
+
+    def load_state(self, lanes: np.ndarray) -> None:
+        """Replace the state with ``uint32[total_u32]`` lanes, e.g. a
+        ``repro`` filter's ``np.asarray(handle.state)`` for the same spec."""
+        lanes = np.asarray(lanes)
+        if lanes.dtype != np.uint32 or lanes.shape != (self.layout.total_u32,):
+            raise ValueError(
+                f"state must be uint32[{self.layout.total_u32}], got "
+                f"{lanes.dtype}{list(lanes.shape)}")
+        self._state = torch.from_numpy(lanes.view(np.int32).copy()).to(
+            self.device)
+
+    def state_numpy(self) -> np.ndarray:
+        """A host copy of the state as ``uint32[total_u32]`` lanes."""
+        return self._state.cpu().numpy().view(np.uint32).copy()
+
+    # -- mutation -----------------------------------------------------------
+    def insert(self, keys) -> None:
+        codes = self.codec.encode_insert(keys)
+        for s in range(0, len(codes), self.spec.chunk):
+            cj = _codes_tensor(codes[s:s + self.spec.chunk], self.device)
+            self._state = self._insert(self._state, cj)
+
+    # -- probes -------------------------------------------------------------
+    def point(self, qs) -> np.ndarray:
+        codes = self.codec.encode_point(qs)
+        return chunked_probe(self._point, self._state, [codes], self.device,
+                             self.spec.chunk)
+
+    def range(self, lo, hi) -> np.ndarray:
+        clo, chi = self.codec.encode_bounds(lo, hi)
+        return chunked_probe(self._range, self._state, [clo, chi],
+                             self.device, self.spec.chunk)
+
+    def size_bits(self) -> int:
+        return self.layout.total_bits
+
+    # -- not ported yet -------------------------------------------------------
+    def grow(self, factor: int = 4) -> None:
+        raise NotImplementedError(
+            "in-place growth needs core/dynamic.py (ROADMAP A.2)")
+
+    def delete(self, keys) -> None:
+        raise NotImplementedError(
+            "deletable filters need core/dynamic.py (ROADMAP A.2)")
+
+    def advance_generation(self) -> None:
+        raise NotImplementedError(
+            "TTL filters need core/dynamic.py (ROADMAP A.2)")
+
+    def observed_fpr(self) -> dict:
+        raise NotImplementedError(
+            "live FPR telemetry needs obs/ (ROADMAP A.7)")
+
+    def range_where_b(self, b_const, a_lo, a_hi) -> np.ndarray:
+        raise NotImplementedError(
+            "multiattr keys need a 64-bit key domain (ROADMAP A.1)")
+
+
+# ---------------------------------------------------------------------------
+# the front door
+# ---------------------------------------------------------------------------
+
+_NOT_PORTED = {
+    "bank": "the filter bank (ROADMAP A.9)",
+    "tenant": "the tenant bank (ROADMAP A.9)",
+    "store": "the LSM store (ROADMAP A.3)",
+}
+
+
+def open_filter(spec: FilterSpec, device=None) -> SingleFilter:
+    """Build the filter deployment described by ``spec`` on ``device``
+    (default ``"cuda"``; raises when no card is present)."""
+    if not isinstance(spec, FilterSpec):
+        raise TypeError(f"open_filter takes a FilterSpec, got {type(spec)}")
+    if spec.placement != "single":
+        raise NotImplementedError(
+            f"placement={spec.placement!r} needs "
+            f"{_NOT_PORTED[spec.placement]}, which is not ported yet")
+    if spec.mutability != "insert_only":
+        raise NotImplementedError(
+            f"mutability={spec.mutability!r} needs core/dynamic.py "
+            f"(ROADMAP A.2)")
+    codec = _codec_for(spec.dtype)
+    return SingleFilter(spec, codec, resolve_device(device))

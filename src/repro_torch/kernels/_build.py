@@ -1,0 +1,160 @@
+"""Build and bind the CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface and loaded with ``ctypes``.  The
+build happens at the first CUDA launch (never at import, so the package
+imports on machines without a card or a compiler), starts one ``nvcc`` per
+source at once, and writes into ``build/repro_torch/`` at the root of the
+checkout (git-ignored).  A library's file name carries a hash of its
+sources and flags, so an edited source is rebuilt and never mistaken for
+a stale build.
+
+Also here: the per-layout descriptor table the kernels read
+(``csrc/bloomrf.cuh``), cached per layout and device.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..core.layout import FilterLayout
+
+__all__ = ["build_all", "launch", "layout_descriptor", "device_descriptor"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+#: C entry point of each source and its argument types
+_ENTRY = {
+    "insert": ("bloomrf_insert", (_P, _I64, _P, _P, _I, _P)),
+    "probe": ("bloomrf_point_probe", (_P, _I64, _P, _P, _I, _P, _P)),
+    "rangeprobe": ("bloomrf_range_probe", (_P, _P, _I64, _P, _P, _I, _P, _P)),
+}
+_HEADER = "bloomrf.cuh"
+
+_LIBS: dict = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit to build (sm_90a)")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for part in ((CSRC / f"{name}.cu").read_bytes(),
+                 (CSRC / _HEADER).read_bytes(), " ".join(NVCC_FLAGS).encode()):
+        h.update(part)
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> float:
+    """Compile every source whose library is missing, one ``nvcc`` each, all
+    started together; returns the seconds spent.  Each library is written
+    to a temporary name and renamed into place, so a process that builds
+    at the same time never loads a half-written file."""
+    t0 = time.perf_counter()
+    todo = [n for n in _ENTRY if not _lib_path(n).exists()]
+    if not todo:
+        return time.perf_counter() - t0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        jobs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    failed = []
+    for name, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{out.decode(errors='replace')}")
+            os.unlink(tmp)
+        else:
+            os.replace(tmp, _lib_path(name))
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def _library(name: str):
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all()
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        fn, argtypes = _ENTRY[name]
+        getattr(lib, fn).argtypes = list(argtypes)
+        getattr(lib, fn).restype = ctypes.c_int
+        lib.bloomrf_error_string.argtypes = [ctypes.c_int]
+        lib.bloomrf_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C entry point of ``csrc/<name>.cu`` on ``device``'s current
+    stream (appended as the last argument); raises if the launch failed."""
+    lib = _library(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, _ENTRY[name][0])(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{_ENTRY[name][0]}: CUDA error {rc} "
+                           f"({lib.bloomrf_error_string(rc).decode()})")
+
+
+# ---------------------------------------------------------------------------
+# layout descriptor (format: csrc/bloomrf.cuh, namespace bloomrf)
+# ---------------------------------------------------------------------------
+
+_HDR, _STRIDE = 8, 8
+#: the descriptor rides in dynamic shared memory, below the 48 KB default
+MAX_DESC_WORDS = 48 * 1024 // 4
+
+
+def layout_descriptor(layout: FilterLayout) -> np.ndarray:
+    """The kernels' uint32 view of a layout: a header (d, k, top level,
+    exact flag, exact offset, length), one record per layer (level, Δ, W,
+    nwords, segment offset in bits, replicas, first seed), then every
+    replica's seed cut to 32 bits as ``mix`` does."""
+    k = layout.k
+    seeds, layers = [], []
+    for i in range(k):
+        layers += [layout.levels[i], layout.deltas[i], layout.word_bits(i),
+                   layout.nwords(i),
+                   layout.seg_off_bits[layout.seg_of_layer[i]],
+                   layout.replicas[i], _HDR + _STRIDE * k + len(seeds), 0]
+        seeds += [int(s) & 0xFFFFFFFF
+                  for s in layout.seeds[i, :layout.replicas[i]]]
+    n = _HDR + len(layers) + len(seeds)
+    if n > MAX_DESC_WORDS:
+        raise ValueError(f"layout descriptor of {n} words exceeds "
+                         f"{MAX_DESC_WORDS}")
+    header = [layout.d, k, layout.top_level, int(layout.has_exact),
+              layout.exact_off_bits if layout.has_exact else 0, n, 0, 0]
+    return np.asarray(header + layers + seeds, dtype=np.uint32)
+
+
+@functools.lru_cache(maxsize=None)
+def device_descriptor(layout: FilterLayout, device: torch.device) -> torch.Tensor:
+    """The layout descriptor as an int32 tensor on ``device``, built once per
+    layout and device."""
+    return torch.from_numpy(layout_descriptor(layout).view(np.int32)).to(device)

@@ -1,0 +1,101 @@
+"""Dispatch over the CUDA kernels, with the plain engine path beside them.
+
+Counterpart of ``repro/kernels/ops.py``.  The resident/partitioned
+threshold keeps the reference's knob unchanged, so each layout picks the
+same tier as in ``repro``: filters of up to ``vmem_budget_u32`` lanes take
+the "resident" kernels.  The default comes from the
+``BLOOMRF_VMEM_BUDGET_U32`` environment variable (validated every time it
+is read: non-integer or <= 0 raises a ``ValueError`` naming the variable)
+and falls back to 2^22 lanes.  That figure sized a TPU core's VMEM; on
+Hopper the "resident" kernels read the filter through L2 and device memory,
+and a default measured on the card replaces this one later (ROADMAP).
+
+The partitioned tier (filters above the threshold) and the stacked probes
+are not ported yet: they raise ``NotImplementedError`` naming their ROADMAP
+items.
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+
+from ..core import FilterLayout
+from . import insert as _insert
+from . import probe as _probe
+from . import rangeprobe as _rangeprobe
+from .ref import check_kernel_layout, filter_for_layout
+
+__all__ = ["FilterOps", "DEFAULT_VMEM_BUDGET_U32", "read_vmem_budget_u32"]
+
+#: fallback resident/partitioned threshold in uint32 lanes
+DEFAULT_VMEM_BUDGET_U32 = 1 << 22
+
+
+def read_vmem_budget_u32() -> int:
+    """The resident/partitioned threshold in uint32 lanes.
+
+    Reads ``BLOOMRF_VMEM_BUDGET_U32`` on every call and validates it at read
+    time: a value that does not parse as an integer, or is <= 0, raises a
+    ``ValueError`` that names the variable."""
+    raw = os.environ.get("BLOOMRF_VMEM_BUDGET_U32")
+    if raw is None:
+        return DEFAULT_VMEM_BUDGET_U32
+    try:
+        val = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"BLOOMRF_VMEM_BUDGET_U32 must be an integer lane count, "
+            f"got {raw!r}") from None
+    if val <= 0:
+        raise ValueError(
+            f"BLOOMRF_VMEM_BUDGET_U32 must be > 0 lanes, got {val}")
+    return val
+
+
+class FilterOps:
+    """Layout-bound kernel dispatcher.
+
+    * filters of up to ``vmem_budget_u32`` lanes -> the resident kernels
+      (insert, point and range);
+    * exact-layer layouts (range) -> the plain engine path (its middle scan
+      is answered from the exact segment);
+    * larger filters -> the partitioned tier, not ported yet.
+
+    Each kernel wrapper launches on a CUDA state and takes its plain
+    version on a CPU state.
+    """
+
+    def __init__(self, layout: FilterLayout,
+                 vmem_budget_u32: int | None = None):
+        check_kernel_layout(layout)
+        self.layout = layout
+        self.vmem_budget_u32 = (read_vmem_budget_u32()
+                                if vmem_budget_u32 is None else vmem_budget_u32)
+        if layout.total_u32 > self.vmem_budget_u32:
+            raise NotImplementedError(
+                f"a filter of {layout.total_u32} lanes exceeds the resident "
+                f"budget of {self.vmem_budget_u32}; the partitioned kernels "
+                f"are not ported yet (ROADMAP B.7, B.8) — use "
+                f"backend='resident'")
+
+    def insert(self, state: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+        return _insert.insert_resident(self.layout, state, keys)
+
+    def point(self, state: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+        return _probe.point_probe_resident(self.layout, state, keys)
+
+    def range(self, state: torch.Tensor, lo: torch.Tensor,
+              hi: torch.Tensor) -> torch.Tensor:
+        if self.layout.has_exact:  # middle scan: the plain engine path
+            return filter_for_layout(self.layout, state.device).range(
+                state, lo, hi)
+        return _rangeprobe.range_probe_resident(self.layout, state, lo, hi)
+
+    def range_stacked(self, stack, lo, hi):
+        raise NotImplementedError(
+            "stacked range probes are not ported yet (ROADMAP B.5)")
+
+    def point_stacked(self, stack, keys):
+        raise NotImplementedError(
+            "stacked point probes are not ported yet (ROADMAP B.6)")

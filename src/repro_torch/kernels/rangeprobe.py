@@ -1,0 +1,55 @@
+"""bloomRF batched range probe: the CUDA kernel ``csrc/rangeprobe.cu``.
+
+Replaces the Pallas TPU kernel
+``repro/kernels/rangeprobe.py::range_probe_resident``.  One thread per
+query runs the engine's range plan and combine in registers, reading the
+filter through L2 and device memory.  On a CPU state the wrapper takes the
+plain version, the engine's ``range_batched``.
+
+Exact-bitmap layouts are rejected, as by the TPU kernel: ``FilterOps``
+routes their range queries to the engine path.  The stacked and
+partitioned range kernels are not ported yet (ROADMAP B.5, B.8).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import FilterLayout
+from . import _build
+from ._checks import check_keys, check_state
+from .ref import check_kernel_layout, filter_for_layout
+
+__all__ = ["range_probe_resident"]
+
+
+def _check_range_kernel_layout(layout: FilterLayout) -> None:
+    check_kernel_layout(layout)
+    if layout.has_exact:
+        raise ValueError("exact-layer layouts use the engine path (ops.py)")
+
+
+def range_probe_resident(layout: FilterLayout, state: torch.Tensor,
+                         lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """``bool[B]`` range verdicts for ``[lo, hi]`` (int64 carriers of uint32
+    codes; swapped bounds allowed) against ``state`` (int32 lanes)."""
+    _check_range_kernel_layout(layout)
+    check_state(layout, state)
+    check_keys("lo", lo, state.device)
+    check_keys("hi", hi, state.device)
+    if lo.shape != hi.shape:
+        raise ValueError(f"lo {list(lo.shape)} and hi {list(hi.shape)} differ")
+    if state.device.type == "cpu":
+        plain = filter_for_layout(layout, state.device)
+        return plain.engine.range_batched(state, lo, hi)
+    out = torch.empty(lo.shape[0], dtype=torch.bool, device=state.device)
+    if lo.numel():
+        desc = _build.device_descriptor(layout, state.device)
+        _build.launch("rangeprobe", state.device, lo.data_ptr(), hi.data_ptr(),
+                      lo.numel(), state.data_ptr(), desc.data_ptr(),
+                      desc.numel(), out.data_ptr())
+        range_probe_resident.launches += 1
+    return out
+
+
+#: kernel launches so far (a plain count; reset it by assignment)
+range_probe_resident.launches = 0

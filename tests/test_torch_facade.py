@@ -1,0 +1,122 @@
+"""The port's façade against ``repro``'s: the same ``FilterSpec`` and keys
+give the same state and verdicts; states carry across in both directions;
+what is not ported raises."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro
+import repro_torch
+from conftest import brute_force_range_truth
+from repro_torch.core import BloomRF, FilterLayout, basic_layout
+
+
+def _keys_and_queries(dtype, rng, n, q):
+    if dtype == "f32":
+        keys = rng.normal(0, 100, n).astype(np.float32)
+        lo = rng.normal(0, 100, q).astype(np.float32)
+        hi = lo + rng.exponential(0.5, q).astype(np.float32)
+        return keys, lo, hi
+    d = int(dtype[1:])
+    keys = rng.integers(0, 1 << d, n, dtype=np.uint64)
+    lo = rng.integers(0, 1 << d, q, dtype=np.uint64)
+    hi = np.minimum(lo + rng.integers(0, 1 << min(d - 2, 10), q,
+                                      dtype=np.uint64), (1 << d) - 1)
+    return keys, lo, hi
+
+
+@pytest.mark.parametrize("tuning", ["basic", "advised"])
+@pytest.mark.parametrize("dtype", ["u16", "u32", "f32"])
+def test_open_filter_matches_reference(dtype, tuning):
+    rng = np.random.default_rng(0xFACE)
+    kw = dict(dtype=dtype, n=3000, tuning=tuning, range_log2=10)
+    ref = repro.open_filter(repro.FilterSpec(backend="xla", **kw))
+    port = repro_torch.open_filter(repro_torch.FilterSpec(**kw), device="cpu")
+    kern = repro_torch.open_filter(
+        repro_torch.FilterSpec(backend="resident", **kw), device="cpu")
+    assert port.layout == FilterLayout.from_dict(
+        dataclasses.asdict(ref.layout))
+    assert port.backend == "xla" and port.tuning == ref.tuning
+    keys, lo, hi = _keys_and_queries(dtype, rng, 3000, 2048)
+    for h in (ref, port, kern):
+        h.insert(keys)
+    want_state = np.asarray(ref.state)
+    np.testing.assert_array_equal(port.state_numpy(), want_state)
+    np.testing.assert_array_equal(kern.state_numpy(), want_state)
+    want = ref.range(lo, hi)
+    np.testing.assert_array_equal(port.range(lo, hi), want)
+    np.testing.assert_array_equal(kern.range(lo, hi), want)
+    qs = np.concatenate([keys[:1000], lo[:1048]])
+    wp = ref.point(qs)
+    np.testing.assert_array_equal(port.point(qs), wp)
+    np.testing.assert_array_equal(kern.point(qs), wp)
+    assert wp[:1000].all()
+    if dtype != "f32":
+        truth = brute_force_range_truth(keys, lo, hi)
+        assert not (truth & ~want).any()
+    # states carry across both ways: a ``repro`` state loaded into the port,
+    # and the port's state (after more keys) loaded into ``repro``
+    carried = repro_torch.open_filter(repro_torch.FilterSpec(**kw),
+                                      device="cpu")
+    carried.load_state(np.asarray(ref.state))
+    np.testing.assert_array_equal(carried.range(lo, hi), want)
+    carried.insert(keys[::-1][:500] if dtype == "f32" else lo[:500])
+    ref.state = jnp.asarray(carried.state_numpy())
+    np.testing.assert_array_equal(ref.range(lo, hi), carried.range(lo, hi))
+    np.testing.assert_array_equal(ref.point(qs), carried.point(qs))
+    with pytest.raises(ValueError, match="uint32"):
+        carried.load_state(np.asarray(ref.state).astype(np.int64))
+
+
+def test_default_device_without_card_raises(monkeypatch):
+    """No entry point quietly picks the CPU: without a card the default
+    device raises, and ``device="cpu"`` is the explicit way to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.open_filter(repro_torch.FilterSpec(dtype="u32", n=100))
+    lay = basic_layout(32, 100, 16.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BloomRF(lay)
+    assert BloomRF(lay, device="cpu").init_state().device.type == "cpu"
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(dtype="u32", backend="partitioned"), "B.7"),
+    (dict(dtype="u32", placement="store"), "A.3"),
+    (dict(dtype="u32", placement="bank", shards=2), "A.9"),
+    (dict(dtype="u32", placement="tenant", tenants=2), "A.9"),
+    (dict(dtype="u64"), "A.1"),
+    (dict(dtype="f64"), "A.1"),
+    (dict(dtype="str"), "A.1"),
+    (dict(dtype="u32", mutability="deletable"), "A.2"),
+])
+def test_not_ported_raises(kw, match):
+    spec = repro_torch.FilterSpec(n=1000, **kw)
+    with pytest.raises(NotImplementedError, match=match):
+        repro_torch.open_filter(spec, device="cpu")
+
+
+def test_not_ported_methods_raise():
+    h = repro_torch.open_filter(repro_torch.FilterSpec(dtype="u32", n=100),
+                                device="cpu")
+    for call in (h.grow, h.observed_fpr, lambda: h.range_where_b(1, 2, 3),
+                 lambda: h.delete([1]), h.advance_generation):
+        with pytest.raises(NotImplementedError):
+            call()
+
+
+def test_spec_validation_matches_reference():
+    for kw in (dict(dtype="u99"), dict(n=0), dict(backend="stacked"),
+               dict(bits_per_key=4.0, target_fpr=0.1), dict(dtype="u16",
+                                                             range_log2=17)):
+        with pytest.raises(ValueError):
+            repro.FilterSpec(**kw)
+        with pytest.raises(ValueError):
+            repro_torch.FilterSpec(**kw)
+    for kw in (dict(dtype="u32", target_fpr=0.05, range_log2=4),
+               dict(dtype="f32", n=10)):
+        assert repro_torch.FilterSpec(**kw).resolved_bits_per_key() == \
+            repro.FilterSpec(**kw).resolved_bits_per_key()

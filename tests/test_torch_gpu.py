@@ -1,0 +1,110 @@
+"""The CUDA kernels on a card, held to their plain PyTorch versions on the
+same card, bit for bit.  Marked ``gpu``: they skip where no CUDA device is
+present, and run with ``python -m pytest -m gpu tests/test_torch_gpu.py``.
+This file imports neither ``jax`` nor ``repro``, so it runs on a machine
+that has only PyTorch."""
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import BloomRF, FilterLayout, basic_layout
+from repro_torch.kernels import (insert_resident, point_probe_resident,
+                                 range_probe_resident)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    """The card; decided here, never at import, so every pytest-xdist
+    worker collects the same tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+_LAYOUTS = {
+    **{f"d{d}_delta{dl}": (lambda d=d, dl=dl: basic_layout(d, 3000, 16.0,
+                                                           delta=dl))
+       for d in (8, 16, 24, 32) for dl in (1, 4, 7)},
+    "top_eq_d": lambda: basic_layout(32, 2, 16.0),
+    "w64_replicas": lambda: FilterLayout(
+        d=32, deltas=(7, 7), replicas=(1, 2), seg_of_layer=(0, 0),
+        seg_bits=(16384,)),
+    "multiseg": lambda: FilterLayout(
+        d=32, deltas=(6, 5, 4), replicas=(2, 1, 2), seg_of_layer=(0, 1, 0),
+        seg_bits=(8192, 4096)),
+}
+
+_EXACT = FilterLayout(d=32, deltas=(7, 7, 4, 2), replicas=(1, 1, 1, 2),
+                      seg_of_layer=(2, 2, 1, 1),
+                      seg_bits=(1 << 12, 4096, 8192), exact_seg=0)
+
+
+def _inputs(lay, device, n=3000, q=20_000, seed=0):
+    rng = np.random.default_rng(seed)
+    top = (1 << lay.d) - 1
+    keys = rng.integers(0, top + 1, n, dtype=np.uint64)
+    lo = rng.integers(0, top + 1, q, dtype=np.uint64)
+    hi = np.minimum(lo + rng.integers(0, 1 << min(lay.d - 1, 14), q,
+                                      dtype=np.uint64), top)
+    lo[:4] = [0, 0, top, 9]
+    hi[:4] = [top, 0, top, 2]          # full domain, lo = hi, lo > hi
+    as_t = [torch.from_numpy(a.astype(np.int64)).to(device)
+            for a in (keys, lo, hi)]
+    return as_t
+
+
+@pytest.mark.parametrize("name", list(_LAYOUTS))
+def test_kernels_match_plain_versions(cuda, name):
+    lay = _LAYOUTS[name]()
+    f = BloomRF(lay, device=cuda)
+    keys, lo, hi = _inputs(lay, cuda)
+    plain = f.insert(f.init_state(), keys)
+    n0 = insert_resident.launches
+    state = insert_resident(lay, f.init_state(), keys)
+    assert insert_resident.launches == n0 + 1
+    torch.testing.assert_close(state, plain, rtol=0, atol=0)
+    qs = torch.cat([keys[:1000], lo])
+    torch.testing.assert_close(point_probe_resident(lay, state, qs),
+                               f.engine.point_batched(state, qs))
+    torch.testing.assert_close(range_probe_resident(lay, state, lo, hi),
+                               f.engine.range_batched(state, lo, hi))
+    torch.testing.assert_close(range_probe_resident(lay, state, hi, lo),
+                               f.engine.range_batched(state, lo, hi))
+    torch.cuda.synchronize()
+
+
+def test_exact_layout_insert_and_point_kernels(cuda):
+    f = BloomRF(_EXACT, device=cuda)
+    keys, lo, _ = _inputs(_EXACT, cuda)
+    state = insert_resident(_EXACT, f.init_state(), keys)
+    torch.testing.assert_close(state, f.insert(f.init_state(), keys),
+                               rtol=0, atol=0)
+    qs = torch.cat([keys, lo])
+    torch.testing.assert_close(point_probe_resident(_EXACT, state, qs),
+                               f.engine.point_batched(state, qs))
+    with pytest.raises(ValueError, match="exact"):
+        range_probe_resident(_EXACT, state, lo, lo)
+
+
+def test_facade_auto_routes_through_kernels(cuda):
+    h = repro_torch.open_filter(repro_torch.FilterSpec(dtype="u32", n=50_000))
+    twin = repro_torch.open_filter(
+        repro_torch.FilterSpec(dtype="u32", n=50_000, backend="xla"))
+    assert h.backend == "kernels" and h.state.is_cuda
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, 1 << 32, 50_000, dtype=np.uint64)
+    lo = rng.integers(0, 1 << 32, 10_000, dtype=np.uint64)
+    hi = np.minimum(lo + np.uint64(1 << 10), np.uint64((1 << 32) - 1))
+    counts = (insert_resident.launches, point_probe_resident.launches,
+              range_probe_resident.launches)
+    h.insert(keys)
+    twin.insert(keys)
+    np.testing.assert_array_equal(h.state_numpy(), twin.state_numpy())
+    np.testing.assert_array_equal(h.range(lo, hi), twin.range(lo, hi))
+    assert h.point(keys).all()
+    assert (insert_resident.launches - counts[0],
+            point_probe_resident.launches - counts[1],
+            range_probe_resident.launches - counts[2]) == (1, 1, 1)

@@ -1,0 +1,37 @@
+"""The port stands alone: it imports neither ``jax`` nor anything of
+``repro``, so it runs where JAX is not installed."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+_SRC = Path(__file__).resolve().parent.parent / "src"
+
+
+def test_import_pulls_in_neither_jax_nor_repro():
+    code = ("import sys, repro_torch, repro_torch.api, repro_torch.kernels\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(_SRC)}
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_module_imports_jax_or_repro():
+    files = sorted((_SRC / "repro_torch").rglob("*.py"))
+    assert len(files) > 10
+    for f in files:
+        roots = set(_imported_roots(ast.parse(f.read_text(), str(f))))
+        assert not roots & {"jax", "jaxlib", "repro"}, f
