@@ -17,7 +17,21 @@ Phases, one line of output each:
    launches of the insert / point / range kernels;
 4. a 10,000,000-key filter (19.1 MiB of lanes) through ``backend="resident"``;
 5. per-kernel times with CUDA events at phase 3's shapes, beside the plain
-   versions' times and each kernel's memory bound.
+   versions' times and each kernel's memory bound;
+6. the store-scan kernel (B4) against its plain version, ``StackedProbe.
+   touch_all``, bit for bit over the run-stack classes of
+   tests/test_store_scan_kernel.py (mixed Δ, several segments, replicas,
+   the capacity ladder), both stack forms, quarantine masks and the edge
+   bounds; the stacked kernels (B5/B6) against ``StackedProbe`` over 4 rows
+   of phase 3's layout, then driven through ``FilterOps.range_stacked`` /
+   ``point_stacked`` (4 launches each) and timed at 262,144 queries;
+7. the LSM store at full size through ``open_filter(FilterSpec(placement=
+   "store"))``: 4,194,304 uniform u32 keys loaded by ``put``, then the
+   YCSB-E mix of benchmarks/store_bench.py (95% scans 256 codes wide in
+   batches of 512, 5% inserts); every scan equal to a numpy oracle, every
+   batch's ``(fence, touch)`` equal to the plain ``touch_all``, exactly one
+   B4 launch per scan batch and no kernel fallback; the device probe plane
+   and B4 timed per batch.
 
 It prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -248,6 +262,325 @@ def phase_times(device, lay, kernels):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the stacked and store-scan kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _scan_classes():
+    """The run-stack classes of tests/test_store_scan_kernel.py that the port
+    builds without core/dynamic.py: name -> row layouts."""
+    from repro_torch.core import FilterLayout, basic_layout
+
+    seg = FilterLayout(d=32, deltas=(6, 5, 4), replicas=(1, 1, 1),
+                       seg_of_layer=(0, 1, 0), seg_bits=(8192, 4096))
+    rep = FilterLayout(d=32, deltas=(7, 7), replicas=(1, 2),
+                       seg_of_layer=(0, 0), seg_bits=(16384,))
+    c0 = basic_layout(32, 400, 14.0, delta=6)
+    return {
+        "mixed_delta": [basic_layout(32, 500, 12.0, delta=dl)
+                        for dl in (4, 6, 7)],
+        "multi_segment": [seg, basic_layout(32, 400, 12.0, delta=6), seg],
+        "replicas": [rep, rep, basic_layout(32, 300, 14.0, delta=7)],
+        "capacity_ladder": [c0, c0, basic_layout(32, 1600, 14.0, delta=6),
+                            basic_layout(32, 6400, 14.0, delta=6)],
+    }
+
+
+def _scan_bounds_with_edges(rng, B, kmin, kmax):
+    """Scan bounds: uniform starts with widths up to 2^20, then the edges:
+    0, 2^32 - 1, the whole domain, swapped bounds, lo = hi on each fence and
+    ranges just off each fence."""
+    import numpy as np
+
+    top = (1 << 32) - 1
+    lo = rng.integers(0, top + 1, B, dtype=np.uint64)
+    hi = np.minimum(lo + rng.integers(0, 1 << 20, B, dtype=np.uint64), top)
+    edges = [(0, 0), (top, top), (0, top), (top, 0), (9, 2)]
+    for a, b in zip(kmin, kmax):
+        edges += [(a, a), (b, b), (b + 1, top), (0, max(a - 1, 0))]
+    for i, (a, b) in enumerate(edges):
+        lo[i], hi[i] = a, b
+    return lo, hi
+
+
+def phase_stacked_vs_plain(device, kernels, errs, big_layout):
+    """Phase 6: B4 over the run-stack classes and B5/B6 over 4 rows of the
+    phase-3 layout, each against its plain version on the card; then the
+    stacked kernels' path (``FilterOps``) with its launches counted, and
+    their times at 262,144 queries."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import BloomRF, stacked_probe
+    from repro_torch.kernels import (FilterOps, build_run_stack,
+                                     insert_resident)
+    from repro_torch.kernels.store_scan import store_scan_probe_flat
+
+    rng = np.random.default_rng(SEED + 6)
+    scan, rstack, pstack = (kernels[k]["fn"] for k in
+                            ("store_scan", "range_stacked", "point_stacked"))
+    cells = 0
+    for name, layouts in _scan_classes().items():
+        states, kmin, kmax = [], [], []
+        for lay in layouts:
+            keys = rng.integers(0, 1 << 32, 400, dtype=np.uint64)
+            f = BloomRF(lay, device=device)
+            states.append(insert_resident(lay, f.init_state(),
+                                          _i64(keys, device)))
+            kmin.append(int(keys.min()))
+            kmax.append(int(keys.max()))
+        R = len(layouts)
+        lo, hi = _scan_bounds_with_edges(rng, 4096, kmin, kmax)
+        tlo, thi = _i64(lo, device), _i64(hi, device)
+        tkmin, tkmax = _i64(kmin, device), _i64(kmax, device)
+        sizes = [lay.total_u32 for lay in layouts]
+        bases = tuple(int(b) for b in np.cumsum([0] + sizes[:-1]))
+        flat = torch.cat(states)
+        stack = build_run_stack(states)
+        plain = stacked_probe(tuple(layouts), bases, device)
+        for quar in (None, torch.arange(R, device=device) == 1):
+            want = plain.touch_all(flat, tkmin, tkmax, tlo, thi, quar)
+            got = [store_scan_probe_flat(layouts, bases, flat, tkmin, tkmax,
+                                         tlo, thi, quarantine=quar)]
+            got += [scan(layouts, stack, tkmin, tkmax, tlo, thi, 256, rpb,
+                         quar) for rpb in (0, 2)]
+            for f_k, t_k in got:
+                errs["store_scan"] = max(errs["store_scan"],
+                                         _max_err(f_k, want[0]),
+                                         _max_err(t_k, want[1]))
+                cells += f_k.numel()
+
+    # B5/B6: 4 rows of the phase-3 layout (4,000,000 lanes: resident tier)
+    lay, rows = big_layout, 4
+    f = BloomRF(lay, device=device)
+    stack = torch.stack([
+        insert_resident(lay, f.init_state(), _i64(
+            rng.integers(0, 1 << 32, 2_000_000, dtype=np.uint64), device))
+        for _ in range(rows)])
+    row_keys = rng.integers(0, 1 << 32, 1000, dtype=np.uint64)
+    for r in range(rows):                 # present keys in every row
+        insert_resident(lay, stack[r], _i64(row_keys, device))
+    pq, lo, hi = _queries(rng, CHUNK, row_keys, (1 << 32) - 1)
+    lo[:5] = [0, 0, (1 << 32) - 1, 9, (1 << 32) - 1]
+    hi[:5] = [(1 << 32) - 1, 0, (1 << 32) - 1, 2, 0]
+    tq, tlo, thi = _i64(pq, device), _i64(lo, device), _i64(hi, device)
+    probe = stacked_probe((lay,) * rows,
+                          tuple(r * lay.total_u32 for r in range(rows)),
+                          device)
+    flat = stack.reshape(-1)
+    errs["range_stacked"] = max(
+        _max_err(rstack(lay, stack, tlo, thi), probe._range_all(flat, tlo, thi)),
+        _max_err(rstack(lay, stack, thi, tlo), probe._range_all(flat, tlo, thi)))
+    errs["point_stacked"] = _max_err(pstack(lay, stack, tq),
+                                     probe._point_all(flat, tq))
+    torch.cuda.synchronize()
+    if any(errs[k] for k in ("store_scan", "range_stacked", "point_stacked")):
+        raise AssertionError(f"stacked kernel != plain version: {errs}")
+
+    # the stacked path a user calls, with its launches counted
+    big_q = 4 * CHUNK
+    pq4, lo4, hi4 = _queries(rng, big_q, row_keys, (1 << 32) - 1)
+    tq4, tlo4, thi4 = (_i64(a, device) for a in (pq4, lo4, hi4))
+    for k in kernels.values():
+        k["fn"].launches = 0
+    ops = FilterOps(lay)
+    hits = 0
+    for s in range(0, big_q, CHUNK):
+        hits += int(ops.range_stacked(stack, tlo4[s:s + CHUNK],
+                                      thi4[s:s + CHUNK]).sum())
+        hits += int(ops.point_stacked(stack, tq4[s:s + CHUNK]).sum())
+    launches = {k: v["fn"].launches for k, v in kernels.items()}
+    if (launches["range_stacked"], launches["point_stacked"]) != (4, 4) \
+            or sum(launches.values()) != 8:
+        raise AssertionError(f"stacked path launches {launches}")
+
+    stack_b = rows * lay.total_u32 * 4
+    times = {}
+    for name, kern, plain_fn, nbytes in (
+            ("range_stacked", lambda: rstack(lay, stack, tlo, thi),
+             lambda: probe._range_all(flat, tlo, thi),
+             CHUNK * 16 + stack_b + CHUNK * rows),
+            ("point_stacked", lambda: pstack(lay, stack, tq),
+             lambda: probe._point_all(flat, tq),
+             CHUNK * 8 + stack_b + CHUNK * rows)):
+        times[name] = {"ms": _cuda_ms(kern, 100),
+                       "plain_ms": _cuda_ms(plain_fn, 5),
+                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                       "bound_by": "bytes", "library_ms": None}
+    return {"scan_cells_checked": cells, "stacked_rows": rows,
+            "stack_lanes": rows * lay.total_u32, "path_queries": big_q,
+            "path_hits": hits,
+            "launches": {k: launches[k] for k in ("range_stacked",
+                                                  "point_stacked")},
+            "times": times}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the LSM store at full size (benchmarks/store_bench.py's YCSB-E)
+# ---------------------------------------------------------------------------
+
+STORE_KEYS = 1 << 22      # load-phase keys (uniform u32)
+STORE_OPS = 10_000        # mixed-phase operations
+SCAN_BATCH = 512          # scans per pruning batch
+RSIZE = 1 << 8            # scan width in codes
+NEAR_MISS = 0.2           # share of scans starting just past a stored key
+
+
+def _scan_starts(n, data, rng):
+    """store_bench's scan starts: uniform on [0, 2^31), or a stored key plus
+    a gap in [RSIZE, 32 RSIZE) (a near miss)."""
+    import numpy as np
+
+    take_near = rng.random(n) < NEAR_MISS
+    uni = rng.integers(0, 1 << 31, n, dtype=np.uint64)
+    gap = rng.integers(RSIZE, 32 * RSIZE, n, dtype=np.uint64)
+    anchor = data[rng.integers(0, len(data), n)]
+    near = np.minimum(anchor + gap, np.uint64((1 << 32) - 1))
+    return np.where(take_near, near, uni)
+
+
+def _scan_ends(lo):
+    import numpy as np
+
+    return np.minimum(lo + np.uint64(RSIZE - 1), np.uint64((1 << 32) - 1))
+
+
+def phase_store(device, kernels, errs):
+    """Phase 7: the store end to end, against a numpy oracle and the plain
+    scan plane, with B4's launches counted."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+
+    rng = np.random.default_rng(SEED + 7)
+    data = rng.integers(0, 1 << 32, STORE_KEYS, dtype=np.uint64)
+    n_scans = max(int(STORE_OPS * 0.95) // SCAN_BATCH, 1) * SCAN_BATCH
+    n_ins = STORE_OPS - n_scans
+    lo = _scan_starts(n_scans, data, rng)
+    hi = _scan_ends(lo)
+    ins = rng.integers(0, 1 << 32, n_ins, dtype=np.uint64)
+
+    for k in kernels.values():                       # counts of this run only
+        k["fn"].launches = 0
+    h = repro_torch.open_filter(repro_torch.FilterSpec(
+        dtype="u32", placement="store", memtable_limit=8192, level0_runs=8,
+        fanout=4, bits_per_key=14.0, delta=6))
+    t0 = time.perf_counter()
+    for i, k in enumerate(data):
+        h.put(int(k), i)
+    h.flush()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    results, done = [], []
+    done_ins = 0
+    for s in range(0, n_scans, SCAN_BATCH):
+        done.append(done_ins)
+        results += h.scan_many(lo[s:s + SCAN_BATCH], hi[s:s + SCAN_BATCH])
+        owed = round(n_ins * min(s + SCAN_BATCH, n_scans) / n_scans)
+        for k in ins[done_ins:owed]:
+            h.put(int(k), 0)
+        done_ins = owed
+    t2 = time.perf_counter()
+    launches = {name: k["fn"].launches for name, k in kernels.items()}
+    n_batches = n_scans // SCAN_BATCH
+    if launches["store_scan"] != n_batches or \
+            sum(launches.values()) != n_batches:
+        raise AssertionError(f"store path launches {launches}, "
+                             f"{n_batches} scan batches")
+    st = h.store
+    if st.stats.kernel_fallbacks:
+        raise AssertionError(f"{st.stats.kernel_fallbacks} kernel fallbacks")
+
+    # every scan against the numpy oracle (last write wins; the mixed
+    # phase's inserts carry value 0)
+    rev = data[::-1]
+    keys, first = np.unique(rev, return_index=True)
+    vals = len(data) - 1 - first
+    bad = 0
+    for b in range(n_batches):
+        extra = np.unique(ins[:done[b]])
+        for j in range(b * SCAN_BATCH, (b + 1) * SCAN_BATCH):
+            a = np.searchsorted(keys, lo[j], side="left")
+            z = np.searchsorted(keys, hi[j], side="right")
+            want = dict(zip(keys[a:z].tolist(), vals[a:z].tolist()))
+            ea = np.searchsorted(extra, lo[j], side="left")
+            ez = np.searchsorted(extra, hi[j], side="right")
+            want.update((int(k), 0) for k in extra[ea:ez])
+            bad += results[j] != sorted(want.items())
+    if bad:
+        raise AssertionError(f"{bad} scans differ from the oracle")
+
+    # every batch's (fence, touch) against the plain StackedProbe.touch_all
+    # (the mixed phase's inserts stayed in the memtable: one run stack)
+    kmin, kmax, quar = st._device_rows()
+    for s in range(0, n_scans, SCAN_BATCH):
+        flo, fhi = lo[s:s + SCAN_BATCH], hi[s:s + SCAN_BATCH]
+        fence, touch = st._touch_masks(flo, fhi)
+        pf, pt = st._probe.touch_all(st._flat, kmin, kmax, _i64(flo, device),
+                                     _i64(fhi, device), quar)
+        errs["store_scan"] = max(
+            errs["store_scan"],
+            _max_err(torch.from_numpy(fence), pf.cpu()),
+            _max_err(torch.from_numpy(touch), pt.cpu()))
+    if errs["store_scan"]:
+        raise AssertionError(f"store scan masks != plain: {errs}")
+
+    # the device probe plane (store_bench.run_device_one): bounds encoded on
+    # the card before the clock starts, sums accumulated on the card
+    drng = np.random.default_rng(SEED ^ 0xDE1CE)
+    dlo = _scan_starts(n_scans, data, drng)
+    clo, chi = h.encode_scan_bounds(dlo, _scan_ends(dlo))
+    dbytes = torch.tensor([r.data_bytes(st.cfg.value_bytes)
+                           for r in st.live_runs()], device=device)
+
+    def step(acc, s):
+        f, t = h.scan_probe_device(clo[s:s + SCAN_BATCH],
+                                   chi[s:s + SCAN_BATCH])
+        return (acc[0] + t.sum(), acc[1] + f.sum(),
+                acc[2] + (t.sum(dim=0) * dbytes).sum())
+
+    zero = tuple(torch.zeros((), dtype=torch.int64, device=device)
+                 for _ in range(3))
+    step(zero, 0)
+    torch.cuda.synchronize()
+    acc = zero
+    t3 = time.perf_counter()
+    for s in range(0, n_scans, SCAN_BATCH):
+        acc = step(acc, s)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+
+    R = len(st.live_runs())
+    b_lo, b_hi = clo[:SCAN_BATCH], chi[:SCAN_BATCH]
+    flat_b = st._flat.numel() * 4
+    times = {"ms": _cuda_ms(lambda: st._kernel_scan(b_lo, b_hi), 200),
+             "plain_ms": _cuda_ms(lambda: st._probe.touch_all(
+                 st._flat, kmin, kmax, b_lo, b_hi, quar), 20),
+             # bounds, fences and the filter state read once, two bool
+             # (B, R) outputs written once
+             "bound_ms": (SCAN_BATCH * 16 + R * 16 + flat_b
+                          + 2 * SCAN_BATCH * R) / HBM_BYTES_PER_S * 1e3,
+             "bound_by": "bytes", "library_ms": None}
+    stats = st.stats
+    return {
+        "keys": STORE_KEYS, "scans": n_scans, "inserts": n_ins,
+        "runs": R, "layouts": len({r.layout for r in st.live_runs()}),
+        "run_keys": [len(r) for r in st.live_runs()],
+        "flat_filter_mib": flat_b / 2**20,
+        "runs_probed_per_scan": stats.runs_probed_per_scan,
+        "scan_fp_read_rate": stats.scan_fp_read_rate,
+        "load_puts_per_s": STORE_KEYS / (t1 - t0),
+        "host_scans_per_s": n_scans / (t2 - t1),
+        "device_plane_us_per_scan": (t4 - t3) / n_scans * 1e6,
+        "device_runs_probed_per_scan": int(acc[0]) / n_scans,
+        "device_fence_pass_per_scan": int(acc[1]) / n_scans,
+        "launches": launches["store_scan"], "batches": n_batches,
+        "kernel_fallbacks": stats.kernel_fallbacks,
+        "times": times,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -256,51 +589,94 @@ def main() -> int:
         return 1
     from repro_torch.core import basic_layout
     from repro_torch.kernels import (insert_resident, point_probe_resident,
-                                     range_probe_resident)
+                                     point_probe_stacked_resident,
+                                     range_probe_resident,
+                                     range_probe_stacked_resident,
+                                     store_scan_probe)
     from repro_torch.kernels._build import build_all
 
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    print(f"[1/5] card: {smi} | torch: {name} | torch {torch.__version__} "
+    print(f"[1/7] card: {smi} | torch: {name} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
-    print(f"[1/5] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
+    print(f"[1/7] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
           flush=True)
 
+    src, rep = "src/repro_torch/csrc/", "src/repro/kernels/"
     kernels = {
-        "insert": {"fn": insert_resident, "source": "src/repro_torch/csrc/insert.cu",
-                   "replaces": "src/repro/kernels/insert.py:51"},
-        "point": {"fn": point_probe_resident,
-                  "source": "src/repro_torch/csrc/probe.cu",
-                  "replaces": "src/repro/kernels/probe.py:89"},
-        "range": {"fn": range_probe_resident,
-                  "source": "src/repro_torch/csrc/rangeprobe.cu",
-                  "replaces": "src/repro/kernels/rangeprobe.py:67"},
+        "insert": {"fn": insert_resident, "name": "insert_resident",
+                   "source": src + "insert.cu",
+                   "replaces": rep + "insert.py:51"},
+        "point": {"fn": point_probe_resident, "name": "point_probe_resident",
+                  "source": src + "probe.cu", "replaces": rep + "probe.py:89"},
+        "range": {"fn": range_probe_resident, "name": "range_probe_resident",
+                  "source": src + "rangeprobe.cu",
+                  "replaces": rep + "rangeprobe.py:67"},
+        "store_scan": {"fn": store_scan_probe, "name": "store_scan_probe",
+                       "source": src + "store_scan.cu",
+                       "replaces": rep + "store_scan.py:126"},
+        "range_stacked": {"fn": range_probe_stacked_resident,
+                          "name": "range_probe_stacked_resident",
+                          "source": src + "stacked.cu",
+                          "replaces": rep + "rangeprobe.py:106"},
+        "point_stacked": {"fn": point_probe_stacked_resident,
+                          "name": "point_probe_stacked_resident",
+                          "source": src + "stacked.cu",
+                          "replaces": rep + "probe.py:122"},
     }
+    single = {k: kernels[k] for k in ("insert", "point", "range")}
     big = basic_layout(32, 2_000_000, 16.0, delta=7)
-    errs = {"insert": 0, "point": 0, "range": 0}
+    errs = {k: 0 for k in kernels}
     t0 = time.perf_counter()
-    n_lay = phase_kernels_vs_plain(device, kernels, errs, big)
-    print(f"[2/5] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
+    n_lay = phase_kernels_vs_plain(device, single, errs, big)
+    print(f"[2/7] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
           f"top==d, W=64+replicas, multi-segment, exact, full size): "
           f"max_abs_err {errs} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     main_run = phase_main_path(2_000_000, "auto", name,
-                               {"insert": 8, "point": 4, "range": 4}, kernels)
+                               {"insert": 8, "point": 4, "range": 4}, single)
     if main_run["layout"]["deltas"] != big.deltas:
         raise AssertionError(f"main-path layout {main_run['layout']}")
-    print(f"[3/5] main path {json.dumps(main_run)}", flush=True)
+    print(f"[3/7] main path {json.dumps(main_run)}", flush=True)
     large = phase_main_path(10_000_000, "resident", name,
-                            {"insert": 39, "point": 4, "range": 4}, kernels)
-    print(f"[4/5] resident 10M {json.dumps(large)}", flush=True)
+                            {"insert": 39, "point": 4, "range": 4}, single)
+    print(f"[4/7] resident 10M {json.dumps(large)}", flush=True)
 
-    times = phase_times(device, big, kernels)
-    print(f"[5/5] times at {CHUNK} keys/queries, filter "
+    times = phase_times(device, big, single)
+    print(f"[5/7] times at {CHUNK} keys/queries, filter "
           f"{big.total_u32 * 4} B, on {smi}: {json.dumps(times)}", flush=True)
 
-    rows = [{"name": f"{k}_resident" if k == "insert" else
-             f"{k}_probe_resident", "route": "cuda", "source": v["source"],
-             "replaces": v["replaces"], "launches": main_run["launches"][k],
+    t0 = time.perf_counter()
+    stacked = phase_stacked_vs_plain(device, kernels, errs, big)
+    stacked_times = stacked.pop("times")
+    times.update(stacked_times)
+    print(f"[6/7] B4 == plain on {stacked['scan_cells_checked']} (scan, run) "
+          f"cells (mixed Δ, multi-segment, replicas, capacity ladder; padded "
+          f"and flat stacks, rpb 0/2, quarantine, edge bounds); B5/B6 == "
+          f"plain on {stacked['stacked_rows']} rows of the phase-3 layout: "
+          f"max_abs_err {errs}; {json.dumps(stacked)}; times at {CHUNK} "
+          f"queries on {smi}: {json.dumps(stacked_times)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    store = phase_store(device, kernels, errs)
+    times["store_scan"] = store.pop("times")
+    print(f"[7/7] store, {STORE_KEYS} keys loaded by put (the key count is "
+          f"set by the host's per-key Python load path, not by the card), "
+          f"YCSB-E: every scan == numpy oracle, every batch's (fence, touch) "
+          f"== plain touch_all, {store['launches']} B4 launches for "
+          f"{store['batches']} scan batches, kernel_fallbacks "
+          f"{store['kernel_fallbacks']}: {json.dumps(store)}; B4 per "
+          f"{SCAN_BATCH}-scan batch on {smi}: "
+          f"{json.dumps(times['store_scan'])} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    launches = dict(main_run["launches"])
+    launches.update(stacked["launches"])
+    launches["store_scan"] = store["launches"]
+    rows = [{"name": v["name"], "route": "cuda", "source": v["source"],
+             "replaces": v["replaces"], "launches": launches[k],
              "max_abs_err": errs[k], **times[k]} for k, v in kernels.items()]
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -9,12 +9,18 @@ front door is the same typed façade::
     f.insert(keys)                 # on "cuda" unless device="cpu" is given
     f.range(lo, hi)
 
+    st = repro_torch.open_filter(repro_torch.FilterSpec(dtype="u32",
+                                                        placement="store"))
+    st.put(key, value)
+    st.scan_many(los, his)         # the store-scan kernel prunes the runs
+
 This package imports ``torch`` and numpy, never ``jax`` and nothing of
 ``repro``.  Attribute access is lazy so ``import repro_torch`` stays cheap.
 """
 from __future__ import annotations
 
-__all__ = ["FilterSpec", "open_filter", "chunked_probe", "SingleFilter"]
+__all__ = ["FilterSpec", "open_filter", "chunked_probe", "SingleFilter",
+           "TypedStore"]
 
 
 def __getattr__(name: str):

@@ -1,9 +1,11 @@
 """The typed filter façade: one ``FilterSpec -> open_filter()`` front door.
 
-Counterpart of ``repro/api.py`` for the single placement and key domains of
-``d <= 32`` bits (dtypes ``u8``, ``u16``, ``u32`` and ``f32``).  A
-:class:`FilterSpec` is validated exactly as in ``repro``, so the same spec
-describes the same filter in both packages; :func:`open_filter` returns a
+Counterpart of ``repro/api.py`` for the single and store placements and
+key domains of ``d <= 32`` bits (dtypes ``u8``, ``u16``, ``u32`` and
+``f32``).  A :class:`FilterSpec` is validated exactly as in ``repro``, so
+the same spec describes the same filter in both packages.  For
+``placement="store"`` :func:`open_filter` returns a :class:`TypedStore`
+(the LSM store of ``store/`` behind the codecs); for ``"single"`` a
 :class:`SingleFilter` that
 
 * routes every insert/point/range through the order-preserving codecs of
@@ -13,10 +15,10 @@ describes the same filter in both packages; :func:`open_filter` returns a
 * dispatches to the CUDA kernels (``kernels/ops.py``) or to the plain
   engine path.
 
-The filter lives on ``device``, which is ``"cuda"`` unless the caller asks
-for another; without a card :func:`open_filter` raises rather than quietly
-picking the CPU.  What is not ported yet raises ``NotImplementedError``
-naming its ROADMAP item.
+The filter or store lives on ``device``, which is ``"cuda"`` unless the
+caller asks for another; without a card :func:`open_filter` raises rather
+than quietly picking the CPU.  What is not ported yet raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ from .core import codecs as _cd
 from .core.bloomrf import resolve_device
 from .core.layout import basic_layout
 
-__all__ = ["FilterSpec", "open_filter", "chunked_probe", "SingleFilter"]
+__all__ = ["FilterSpec", "open_filter", "chunked_probe", "SingleFilter",
+           "TypedStore"]
 
 _DTYPES = ("u8", "u16", "u32", "u64", "f32", "f64", "str", "multiattr")
 _PLACEMENTS = ("single", "bank", "tenant", "store")
@@ -91,6 +94,9 @@ class _Float32Codec(_Codec):
             raise ValueError("f32 keys must not be NaN (the order-preserving "
                              "φ map has no total order for NaN)")
         return _cd.float32_to_u32(arr).astype(np.uint64)
+
+    def decode(self, code):
+        return _cd.u32_to_float32(np.asarray(code, np.uint32))
 
 
 def _codec_for(dtype: str) -> _Codec:
@@ -393,6 +399,118 @@ class SingleFilter:
             "multiattr keys need a 64-bit key domain (ROADMAP A.1)")
 
 
+class TypedStore:
+    """The LSM run-store behind the codec boundary: typed put/get/scan.
+
+    Integer and float keys are bijective codes, so scans decode back to the
+    caller's key type exactly.  The store runs its scans through the
+    store-scan kernel on a CUDA device (``scan_backend="auto"``), or through
+    the plain ``StackedProbe`` when ``spec.backend == "xla"``, as in
+    ``repro``."""
+
+    def __init__(self, spec: FilterSpec, codec: _Codec, device):
+        from .store.store import Store, StoreConfig
+
+        self.spec = spec
+        self.codec = codec
+        delta = spec.delta if spec.delta is not None else 6
+        self.store = Store(StoreConfig(
+            d=codec.d, memtable_limit=spec.memtable_limit,
+            bits_per_key=spec.resolved_bits_per_key(),
+            delta=min(delta, codec.d), fanout=spec.fanout,
+            level0_runs=spec.level0_runs,
+            filter_backend=spec.store_backend,
+            # spec.backend='xla' pins the plain StackedProbe scan plane; any
+            # other backend lets the store pick the store-scan kernel
+            scan_backend="xla" if spec.backend == "xla" else "auto",
+            seed=spec.seed,
+            mutability=spec.mutability,
+            purge_dead_frac=spec.purge_dead_frac,
+            durability=spec.durability,
+            wal_dir=spec.wal_dir,
+            tuning="adaptive" if spec.tuning == "adaptive" else "static"),
+            device=device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.store.device
+
+    # -- write path -------------------------------------------------------
+    def _code1(self, key) -> int:
+        return int(self.codec.encode_point(key)[0])
+
+    def put(self, key, value) -> None:
+        self.store.put(self._code1(key), value)
+
+    def delete(self, key) -> None:
+        self.store.delete(self._code1(key))
+
+    def delete_many(self, keys) -> None:
+        """Batched deletes: one memtable-flush decision for the batch."""
+        self.store.delete_many(self.codec.encode_point(keys))
+
+    def flush(self) -> None:
+        self.store.flush()
+
+    def close(self) -> None:
+        self.store.close()
+
+    # -- read path --------------------------------------------------------
+    def get(self, key):
+        return self.store.get(self._code1(key))
+
+    def get_many(self, keys) -> list:
+        return self.store.get_many(self.codec.encode_point(keys))
+
+    def scan(self, lo, hi) -> list:
+        return self.scan_many([lo], [hi])[0]
+
+    def scan_many(self, los, his) -> list:
+        """Batched typed scans: one pruning step for the batch."""
+        clo, chi = self.codec.encode_bounds(np.asarray(los), np.asarray(his))
+        raw = self.store.scan_many(clo, chi)
+        if self.codec.name == "f32":
+            return [[(float(self.codec.decode(np.uint64(c))), v)
+                     for c, v in rows] for rows in raw]
+        return raw
+
+    # -- device-resident probe plane ----------------------------------------
+    def encode_scan_bounds(self, los, his):
+        """Typed scan bounds -> int64 carrier tensors of their codes on the
+        store's device (the operands :meth:`scan_probe_device` takes)."""
+        clo, chi = self.codec.encode_bounds(np.asarray(los), np.asarray(his))
+        return (_codes_tensor(clo, self.device),
+                _codes_tensor(chi, self.device))
+
+    def scan_probe_device(self, clo, chi):
+        """Device-resident scan pruning over encoded bounds: ``(fence,
+        touch)`` (B, R) bool tensors, no host round-trip."""
+        return self.store.scan_probe_device(clo, chi)
+
+    # -- introspection ----------------------------------------------------
+    @property
+    def stats(self):
+        return self.store.stats
+
+    @property
+    def n_runs(self) -> int:
+        return self.store.n_runs
+
+    def size_bits(self) -> int:
+        return self.store.filter_bits()
+
+    # -- not ported yet -------------------------------------------------------
+    def checkpoint(self) -> str:
+        return self.store.checkpoint()
+
+    def scrub(self, sample_keys: int = 64, seed: int = 0) -> dict:
+        return self.store.scrub(sample_keys=sample_keys, seed=seed)
+
+    def observed_fpr(self) -> dict:
+        raise NotImplementedError(
+            "live FPR telemetry needs obs/ (ROADMAP A.7)")
+
+
 # ---------------------------------------------------------------------------
 # the front door
 # ---------------------------------------------------------------------------
@@ -400,22 +518,24 @@ class SingleFilter:
 _NOT_PORTED = {
     "bank": "the filter bank (ROADMAP A.9)",
     "tenant": "the tenant bank (ROADMAP A.9)",
-    "store": "the LSM store (ROADMAP A.3)",
 }
 
 
-def open_filter(spec: FilterSpec, device=None) -> SingleFilter:
+def open_filter(spec: FilterSpec, device=None):
     """Build the filter deployment described by ``spec`` on ``device``
-    (default ``"cuda"``; raises when no card is present)."""
+    (default ``"cuda"``; raises when no card is present): a
+    :class:`SingleFilter` or a :class:`TypedStore`."""
     if not isinstance(spec, FilterSpec):
         raise TypeError(f"open_filter takes a FilterSpec, got {type(spec)}")
-    if spec.placement != "single":
+    if spec.placement in _NOT_PORTED:
         raise NotImplementedError(
             f"placement={spec.placement!r} needs "
             f"{_NOT_PORTED[spec.placement]}, which is not ported yet")
+    codec = _codec_for(spec.dtype)
+    if spec.placement == "store":
+        return TypedStore(spec, codec, device)
     if spec.mutability != "insert_only":
         raise NotImplementedError(
             f"mutability={spec.mutability!r} needs core/dynamic.py "
             f"(ROADMAP A.2)")
-    codec = _codec_for(spec.dtype)
     return SingleFilter(spec, codec, resolve_device(device))

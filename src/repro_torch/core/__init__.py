@@ -1,15 +1,16 @@
 """bloomRF core in PyTorch: layout, hashing, the filter and its probe engine.
 
 Counterpart of ``repro.core`` for key domains of ``d <= 32`` bits.  The
-dynamic-filter machinery (``core/dynamic.py``) and ``StackedProbe`` are not
-ported yet (ROADMAP A.2, A.3).
+dynamic-filter machinery (``core/dynamic.py``) is not ported yet
+(ROADMAP A.2).
 """
 from .bloomrf import BloomRF
 from .codecs import (float32_to_u32, float64_to_u64, multiattr_insert_codes,
                      multiattr_range_for_a_eq_b_range, pack2, pack2x32,
                      string_point_code, string_range_bounds, u32_to_float32,
                      u64_to_float64, unpack2, unpack2x32)
-from .engine import PointPlan, ProbeEngine, RangePlan
+from .engine import (PointPlan, ProbeEngine, RangePlan, StackedProbe,
+                     stacked_probe)
 from .hashing import dyadic_prefixes, key_dtype_for
 from .layout import FilterLayout, basic_layout
 
@@ -20,6 +21,8 @@ __all__ = [
     "ProbeEngine",
     "RangePlan",
     "PointPlan",
+    "StackedProbe",
+    "stacked_probe",
     "dyadic_prefixes",
     "key_dtype_for",
     "float64_to_u64",

@@ -35,17 +35,15 @@ _FULL = MASK32
 
 
 def resolve_device(device) -> torch.device:
-    """``device`` as given, or ``"cuda"`` when it is None; raises when no
-    card is present and no device was asked for (nothing in the port
-    quietly picks the CPU)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch runs on a CUDA device by default and none is "
-                "available; pass device='cpu' to run the plain path on the "
-                "CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    """``device`` as given, or ``"cuda"`` when it is None; raises when a
+    CUDA device is asked for, by default or by name, and no card is present
+    (nothing in the port quietly picks the CPU)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain path on the CPU")
+    return dev
 
 
 def lanes_u32(state: torch.Tensor, lane: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Plan -> gather -> combine probe engine, in plain PyTorch.
 
-Counterpart of ``repro/core/engine.py`` (``ProbeEngine``; ``StackedProbe``
-comes with the store slice, ROADMAP A.3).
+Counterpart of ``repro/core/engine.py``: ``ProbeEngine`` for one filter and
+``StackedProbe`` for ``R`` filter rows in one flat state.
 
 1. **plan** — a pass over the static layout emits, per query, the table of
    uint32 *lane* addresses the two-path dyadic decomposition needs.  The
@@ -18,10 +18,13 @@ answer the middle of the range with ``BloomRF._exact_range_any``.
 
 These are the plain versions of the point- and range-probe kernels
 (``kernels/probe.py``, ``kernels/rangeprobe.py``): a CUDA kernel computes
-the same plan and combine in one thread's registers.
+the same plan and combine in one thread's registers.  ``StackedProbe`` is
+the plain version of the stacked and store-scan kernels
+(``kernels/store_scan.py``), and the store's point-lookup path.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -29,7 +32,8 @@ import torch
 from .bloomrf import _FULL, MASK32, BloomRF, children_hit, lanes_u32
 from .hashing import mix
 
-__all__ = ["ProbeEngine", "RangePlan", "PointPlan"]
+__all__ = ["ProbeEngine", "RangePlan", "PointPlan", "StackedProbe",
+           "stacked_probe"]
 
 
 class _Slot(NamedTuple):
@@ -272,3 +276,147 @@ class ProbeEngine:
     def point_batched(self, state: torch.Tensor, ys) -> torch.Tensor:
         plan = self.plan_point(ys)
         return self.combine_point(self.gather(state, plan.lanes), plan)
+
+
+# ---------------------------------------------------------------------------
+# multi-filter stacked plan: R filter rows, ONE gather
+# ---------------------------------------------------------------------------
+
+class StackedProbe:
+    """Probe ``R`` stacked filter rows with one gather per query batch.
+
+    The rows live in one flat ``int32`` lane vector; row ``r`` starts at
+    lane ``bases[r]`` and is addressed by ``engines[r]`` (rows may use
+    different layouts: an LSM store stacks runs of several capacity
+    classes).  The plan emits every row's lane table with the row base
+    folded in, concatenates them along the lane axis, and reads them with a
+    single ``flat_state[lanes]`` of shape ``(B, sum_r A_r)``; each row is
+    then combined exactly as :meth:`ProbeEngine.combine_range` would combine
+    it alone.
+
+    Rows are processed as maximal *spans* of consecutive rows sharing a
+    layout.  Query bounds are shared across rows (``(B,)``) or per row
+    (``(B, R)``).  Exact-bitmap layouts are rejected: their middle scan
+    cannot join the static plan.  The probe runs on whatever device the
+    flat state lies on; ``device`` is where the row bases live.
+    """
+
+    def __init__(self, engines: Tuple[ProbeEngine, ...],
+                 bases: Tuple[int, ...], device=None):
+        if not engines:
+            raise ValueError("need at least one stacked row")
+        if len(engines) != len(bases):
+            raise ValueError(
+                f"{len(engines)} engines vs {len(bases)} row bases")
+        for e in engines:
+            if e.lay.has_exact:
+                raise ValueError(
+                    "exact-bitmap layouts cannot be stacked (their bounded "
+                    "middle scan is dynamic); use per-row engine probes")
+            if e.lay.d > 32:
+                raise ValueError("stacked rows must be d <= 32 domains")
+        self.engines = tuple(engines)
+        self.bases = tuple(int(b) for b in bases)
+        self.R = len(engines)
+        dev = torch.device(device) if device is not None \
+            else engines[0].filt.device
+        spans = []       # (engine, row0, row1, (1, G, 1) int64 row bases)
+        for r, e in enumerate(self.engines):
+            if spans and spans[-1][0].lay == e.lay:
+                spans[-1] = (spans[-1][0], spans[-1][1], r + 1)
+            else:
+                spans.append((e, r, r + 1))
+        self.spans = tuple(
+            (e, r0, r1, torch.tensor(self.bases[r0:r1], dtype=torch.int64,
+                                     device=dev).view(1, -1, 1))
+            for e, r0, r1 in spans)
+        #: columns of the one (B, A) range gather, summed over rows
+        self.range_gather_width = sum(
+            (r1 - r0) * e.range_gather_width for e, r0, r1, _ in self.spans)
+
+    # -- bounds handling --------------------------------------------------
+    def _bounds(self, a: torch.Tensor, r0: int, r1: int) -> torch.Tensor:
+        """Span slice of shared ``(B,)`` or per-row ``(B, R)`` bounds."""
+        if a.dim() == 1:
+            return a[:, None].expand(a.shape[0], r1 - r0)
+        if a.dim() != 2 or a.shape[1] != self.R:
+            raise ValueError(f"bounds must be (B,) or (B, {self.R}), "
+                             f"got {tuple(a.shape)}")
+        return a[:, r0:r1]
+
+    # -- fused probes ------------------------------------------------------
+    def _range_all(self, flat_state: torch.Tensor, lo, hi) -> torch.Tensor:
+        lo, hi = torch.atleast_1d(lo), torch.atleast_1d(hi)
+        B = lo.shape[0]
+        parts, plans = [], []
+        for e, r0, r1, base in self.spans:
+            plan = e.plan_range(self._bounds(lo, r0, r1),
+                                self._bounds(hi, r0, r1))  # lanes (B, G, A)
+            parts.append((plan.lanes + base).reshape(B, -1))
+            plans.append(plan)
+        g = lanes_u32(flat_state, torch.cat(parts, dim=-1))  # the one gather
+        out, off = [], 0
+        for (e, r0, r1, _), plan in zip(self.spans, plans):
+            G, A = r1 - r0, e.range_gather_width
+            gg = g[:, off:off + G * A].reshape(B, G, A)
+            off += G * A
+            out.append(e.combine_range(gg, plan))
+        return torch.cat(out, dim=-1)                         # (B, R)
+
+    def _point_all(self, flat_state: torch.Tensor, ys) -> torch.Tensor:
+        ys = torch.atleast_1d(ys)
+        B = ys.shape[0]
+        parts, plans = [], []
+        for e, r0, r1, base in self.spans:
+            plan = e.plan_point(ys)                         # lanes/sh (B, P)
+            parts.append((plan.lanes[:, None, :] + base).reshape(B, -1))
+            plans.append(plan)
+        g = lanes_u32(flat_state, torch.cat(parts, dim=-1))  # the one gather
+        out, off = [], 0
+        for (e, r0, r1, _), plan in zip(self.spans, plans):
+            G, P = r1 - r0, plan.lanes.shape[-1]
+            gg = g[:, off:off + G * P].reshape(B, G, P)
+            off += G * P
+            out.append((((gg >> plan.sh[:, None, :]) & 1) == 1).all(dim=-1))
+        return torch.cat(out, dim=-1)                         # (B, R)
+
+    def _touch_all(self, flat_state: torch.Tensor, kmin, kmax, lo, hi,
+                   quarantine: Optional[torch.Tensor] = None):
+        """Fence-fused range probe: the store's scan-pruning plane.
+
+        ``kmin``/``kmax`` are per-row key fences (``(R,)`` int64 carriers).
+        Returns ``(fence, touch)``, both ``(B, R)`` bool: ``fence`` is the
+        overlap of the query with the row's key range and ``touch = fence &
+        (verdict | quarantine)``.  A quarantined row's filter block failed
+        its checksum, so its verdict is forced to "maybe" (fence-only
+        pruning; a corrupt filter must never skip a run).  Bounds must
+        already be clamped into the filters' key domain.  The plain version
+        of the store-scan kernel."""
+        lo, hi = torch.atleast_1d(lo), torch.atleast_1d(hi)
+        fence = (hi[:, None] >= kmin[None, :]) & (lo[:, None] <= kmax[None, :])
+        filt = self._range_all(flat_state, lo, hi)
+        if quarantine is not None:
+            filt = filt | quarantine.to(torch.bool)[None, :]
+        return fence, fence & filt
+
+    # the reference's jit'd entry points; here the same functions, eager
+    range_all = _range_all
+    point_all = _point_all
+    touch_all = _touch_all
+
+
+@functools.lru_cache(maxsize=None)
+def _filter_for_layout(layout, device: torch.device) -> BloomRF:
+    """Cached :class:`BloomRF` for a layout on a device (the filter holds no
+    state; its methods run on the tensors they are given)."""
+    return BloomRF(layout, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def stacked_probe(layouts: tuple, bases: tuple, device) -> StackedProbe:
+    """Cached :class:`StackedProbe` for a row stack described by layouts:
+    call sites that re-stack the same row mix (a store after each refresh)
+    share one probe instance."""
+    device = torch.device(device)
+    engines = tuple(_filter_for_layout(lay, device).engine for lay in layouts)
+    return StackedProbe(engines, bases, device)

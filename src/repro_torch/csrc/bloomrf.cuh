@@ -1,6 +1,7 @@
 // Device code shared by the bloomRF kernels (insert.cu, probe.cu,
-// rangeprobe.cu): the layout descriptor, mix32, position and word
-// addressing, and the uint32 mask algebra of repro/core/bloomrf.py.
+// rangeprobe.cu, store_scan.cu, stacked.cu): the layout descriptor, mix32,
+// position and word addressing, the uint32 mask algebra of
+// repro/core/bloomrf.py, and the per-key point and range verdicts.
 //
 // All state arithmetic is uint32, as in the reference.  Where the reference
 // relies on XLA defining a shift by >= 32 as 0, the code here guards the
@@ -167,6 +168,107 @@ __device__ __forceinline__ bool cov_bit(const Desc& D, int i, uint32_t x,
     bit = off < 32u ? bit : bit_hi;
   }
   return bit != 0u;
+}
+
+// Range verdict for [L, R] (swapped bounds allowed) against the filter at
+// `state` (ProbeEngine.plan_range + combine_range of repro/core/engine.py,
+// with the clip and select order of BloomRF._range_one), in one thread's
+// registers, top layer first.  The words of a path that is already dead
+// are not loaded, the right path reuses the left path's words before the
+// split, and the thread returns as soon as the verdict is known: skipped
+// words are exactly those the reference masks out, so verdicts are
+// unchanged.  Hashed layouts only (no exact segment).  Shared by
+// rangeprobe.cu (B3), store_scan.cu (B4) and stacked.cu (B5).
+__device__ inline bool range_one(const uint32_t* __restrict__ state,
+                                 const Desc& D, uint32_t L, uint32_t R) {
+  if (L > R) {  // swapped bounds are allowed (L, R = min, max)
+    const uint32_t t = L;
+    L = R;
+    R = t;
+  }
+  const uint32_t top = D.top();
+  bool split = false, left_alive = true, right_alive = false;
+  if (top < D.d()) {
+    const uint32_t lt = shr(L, top), rt = shr(R, top);
+    // saturated top levels: a middle gap of >= 1 top-level DI is positive
+    if (rt - lt >= 2u) return true;
+    split = lt != rt;
+    right_alive = split;
+  }
+  for (int i = D.k() - 1; i >= 0; --i) {
+    const uint32_t* lay = D.layer(i);
+    const uint32_t li = lay[L_LEVEL];
+    const uint32_t delta = lay[L_DELTA];
+    const bool bottom = i == 0;
+    const uint32_t edge = bottom ? 0u : 1u;
+    const uint32_t Lp = shr(L, li), Rp = shr(R, li);
+    const uint32_t Lpar = shr(L, li + delta);
+    const uint32_t Rpar = shr(R, li + delta);
+
+    // child words: the left pair while the left path lives; the right pair
+    // while the right path lives or may split off below this layer
+    Word wLA{0u, 0u}, wLB{0u, 0u}, wRA{0u, 0u}, wRB{0u, 0u};
+    const bool need_l = left_alive;
+    const bool need_r = right_alive || (!split && left_alive && !bottom);
+    if (need_l) {
+      wLA = load_word(state, D, i, Lpar << 1);
+      wLB = load_word(state, D, i, (Lpar << 1) | 1u);
+    }
+    if (need_r && need_l && Rpar == Lpar) {
+      wRA = wLA;
+      wRB = wLB;
+    } else if (need_r) {
+      wRA = load_word(state, D, i, Rpar << 1);
+      wRB = load_word(state, D, i, (Rpar << 1) | 1u);
+    }
+
+    // left path (doubles as the single pre-split path); uint32 wraps as in
+    // the reference, and every wrapped bound is masked by its nonempty flag
+    const uint32_t l_end = (Lpar << delta) | ((1u << delta) - 1u);
+    const uint32_t l_qlo = Lp + edge;
+    const uint32_t l_qhi = split ? l_end : Rp - edge;
+    const bool l_nonempty =
+        bottom || (split ? (Lp != l_end) : (Rp - Lp >= 2u));
+    if (l_nonempty && left_alive &&
+        children_hit(delta, Lpar, l_qlo, l_qhi, wLA, wLB))
+      return true;
+
+    // right path (only live after the split)
+    const uint32_t r_start = Rpar << delta;
+    const uint32_t r_qhi = Rp - edge;
+    const bool r_nonempty = bottom || (Rp != r_start);
+    if (r_nonempty && right_alive &&
+        children_hit(delta, Rpar, r_start, r_qhi, wRA, wRB))
+      return true;
+
+    // covering continuation (early stop as mask AND)
+    if (!bottom) {
+      const bool covL = cov_bit(D, i, L, wLA, wLB);
+      const bool covR = cov_bit(D, i, R, wRA, wRB);
+      const bool new_split = split || (Lp != Rp);
+      const bool nxt_left = left_alive && covL;
+      const bool nxt_right =
+          (split ? right_alive : (left_alive && new_split)) && covR;
+      left_alive = nxt_left;
+      right_alive = nxt_right;
+      split = new_split;
+      if (!left_alive && !right_alive) return false;
+    }
+  }
+  return false;
+}
+
+// Point verdict for key x against the filter at `state`: the AND of every
+// position's bit, stopping at the first clear one.  Shared by probe.cu (B2)
+// and stacked.cu (B6).
+__device__ inline bool point_one(const uint32_t* __restrict__ state,
+                                 const Desc& D, uint32_t x) {
+  bool all = true;
+  for_each_position(D, x, [&](uint32_t pos) {
+    all = ((__ldg(state + (pos >> 5)) >> (pos & 31u)) & 1u) != 0u;
+    return all;
+  });
+  return all;
 }
 
 constexpr int kThreads = 256;

@@ -22,13 +22,7 @@ __global__ void point_probe_kernel(const int64_t* __restrict__ keys, int64_t n,
   const bloomrf::Desc D = bloomrf::load_desc(gdesc, sdesc, desc_len);
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= n) return;
-  const uint32_t x = static_cast<uint32_t>(keys[t]);
-  bool all = true;
-  bloomrf::for_each_position(D, x, [&](uint32_t pos) {
-    all = ((__ldg(state + (pos >> 5)) >> (pos & 31u)) & 1u) != 0u;
-    return all;
-  });
-  out[t] = all;
+  out[t] = bloomrf::point_one(state, D, static_cast<uint32_t>(keys[t]));
 }
 
 }  // namespace

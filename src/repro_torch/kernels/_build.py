@@ -10,7 +10,9 @@ sources and flags, so an edited source is rebuilt and never mistaken for
 a stale build.
 
 Also here: the per-layout descriptor table the kernels read
-(``csrc/bloomrf.cuh``), cached per layout and device.
+(``csrc/bloomrf.cuh``), cached per layout and device, and the stack
+descriptor of a row stack (the store-scan kernel), cached per row stack and
+device.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ import torch
 
 from ..core.layout import FilterLayout
 
-__all__ = ["build_all", "launch", "layout_descriptor", "device_descriptor"]
+__all__ = ["build_all", "launch", "layout_descriptor", "device_descriptor",
+           "stack_descriptor"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -37,12 +40,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-#: C entry point of each source and its argument types
+#: each C entry point: its source ``csrc/<source>.cu`` and argument types,
+#: the last of which is always the stream
 _ENTRY = {
-    "insert": ("bloomrf_insert", (_P, _I64, _P, _P, _I, _P)),
-    "probe": ("bloomrf_point_probe", (_P, _I64, _P, _P, _I, _P, _P)),
-    "rangeprobe": ("bloomrf_range_probe", (_P, _P, _I64, _P, _P, _I, _P, _P)),
+    "bloomrf_insert": ("insert", (_P, _I64, _P, _P, _I, _P)),
+    "bloomrf_point_probe": ("probe", (_P, _I64, _P, _P, _I, _P, _P)),
+    "bloomrf_range_probe": ("rangeprobe", (_P, _P, _I64, _P, _P, _I, _P, _P)),
+    "bloomrf_store_scan": ("store_scan", (_P, _P, _I64, _P, _P, _I, _P, _P,
+                                          _P, _P, _I, _I, _P, _P, _P)),
+    "bloomrf_range_stacked": ("stacked", (_P, _P, _I64, _P, _I64, _I, _P, _I,
+                                          _P, _P)),
+    "bloomrf_point_stacked": ("stacked", (_P, _I64, _P, _I64, _I, _P, _I, _P,
+                                          _P)),
 }
+SOURCES = tuple(dict.fromkeys(src for src, _ in _ENTRY.values()))
 _HEADER = "bloomrf.cuh"
 
 _LIBS: dict = {}
@@ -70,7 +81,7 @@ def build_all() -> float:
     to a temporary name and renamed into place, so a process that builds
     at the same time never loads a half-written file."""
     t0 = time.perf_counter()
-    todo = [n for n in _ENTRY if not _lib_path(n).exists()]
+    todo = [n for n in SOURCES if not _lib_path(n).exists()]
     if not todo:
         return time.perf_counter() - t0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -95,29 +106,30 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def _library(name: str):
-    lib = _LIBS.get(name)
+def _library(source: str):
+    lib = _LIBS.get(source)
     if lib is None:
         build_all()
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        fn, argtypes = _ENTRY[name]
-        getattr(lib, fn).argtypes = list(argtypes)
-        getattr(lib, fn).restype = ctypes.c_int
+        lib = ctypes.CDLL(str(_lib_path(source)))
+        for fn, (src, argtypes) in _ENTRY.items():
+            if src == source:
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
         lib.bloomrf_error_string.argtypes = [ctypes.c_int]
         lib.bloomrf_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+        _LIBS[source] = lib
     return lib
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Call the C entry point of ``csrc/<name>.cu`` on ``device``'s current
-    stream (appended as the last argument); raises if the launch failed."""
-    lib = _library(name)
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``entry`` on ``device``'s current stream
+    (appended as the last argument); raises if the launch failed."""
+    lib = _library(_ENTRY[entry][0])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, _ENTRY[name][0])(*args, stream)
+        rc = getattr(lib, entry)(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{_ENTRY[name][0]}: CUDA error {rc} "
+        raise RuntimeError(f"{entry}: CUDA error {rc} "
                            f"({lib.bloomrf_error_string(rc).decode()})")
 
 
@@ -158,3 +170,29 @@ def device_descriptor(layout: FilterLayout, device: torch.device) -> torch.Tenso
     """The layout descriptor as an int32 tensor on ``device``, built once per
     layout and device."""
     return torch.from_numpy(layout_descriptor(layout).view(np.int32)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def stack_descriptor(layouts: tuple, bases: tuple, device: torch.device):
+    """The store-scan kernel's view of a row stack, built once per row stack
+    and device: ``(desc, rowtab, max_len)``.
+
+    ``desc`` concatenates the descriptors of the distinct layouts (int32 on
+    ``device``); ``rowtab`` is ``int64[R, 2]``, per row the word offset of
+    its layout's descriptor in ``desc`` and its base lane in the flat
+    state; ``max_len`` is the longest descriptor (the shared memory a block
+    needs).  The row fences and the quarantine mask change with the data,
+    not the layouts, so they ride beside this as their own ``(R,)``
+    operands."""
+    if len(layouts) != len(bases):
+        raise ValueError(f"{len(layouts)} layouts vs {len(bases)} bases")
+    distinct = list(dict.fromkeys(layouts))
+    descs = [layout_descriptor(lay) for lay in distinct]
+    offs = np.cumsum([0] + [len(d) for d in descs[:-1]])
+    where = {lay: int(off) for lay, off in zip(distinct, offs)}
+    rowtab = np.asarray([[where[lay], int(b)]
+                         for lay, b in zip(layouts, bases)], np.int64)
+    words = np.concatenate(descs)
+    return (torch.from_numpy(words.view(np.int32)).to(device),
+            torch.from_numpy(rowtab).to(device),
+            max(len(d) for d in descs))

@@ -30,8 +30,9 @@ def insert_resident(layout: FilterLayout, state: torch.Tensor,
         return state.copy_(plain.insert(state, keys))
     if keys.numel():
         desc = _build.device_descriptor(layout, state.device)
-        _build.launch("insert", state.device, keys.data_ptr(), keys.numel(),
-                      state.data_ptr(), desc.data_ptr(), desc.numel())
+        _build.launch("bloomrf_insert", state.device, keys.data_ptr(),
+                      keys.numel(), state.data_ptr(), desc.data_ptr(),
+                      desc.numel())
         insert_resident.launches += 1
     return state
 

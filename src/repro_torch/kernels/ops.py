@@ -10,9 +10,11 @@ and falls back to 2^22 lanes.  That figure sized a TPU core's VMEM; on
 Hopper the "resident" kernels read the filter through L2 and device memory,
 and a default measured on the card replaces this one later (ROADMAP).
 
-The partitioned tier (filters above the threshold) and the stacked probes
-are not ported yet: they raise ``NotImplementedError`` naming their ROADMAP
-items.
+Stacked probes over ``R`` same-layout rows dispatch as in ``repro``: the
+stacked kernels while ``R * total_u32`` fits the budget, the plain
+``StackedProbe`` above it, and per-row plain probes for exact layouts.  The
+partitioned tier (single filters above the threshold) is not ported yet:
+it raises ``NotImplementedError`` naming its ROADMAP items.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import os
 import torch
 
 from ..core import FilterLayout
+from ..core.engine import stacked_probe
 from . import insert as _insert
 from . import probe as _probe
 from . import rangeprobe as _rangeprobe
@@ -60,7 +63,9 @@ class FilterOps:
       (insert, point and range);
     * exact-layer layouts (range) -> the plain engine path (its middle scan
       is answered from the exact segment);
-    * larger filters -> the partitioned tier, not ported yet.
+    * larger filters -> the partitioned tier, not ported yet;
+    * stacked rows -> the stacked kernels within the budget, the plain
+      ``StackedProbe`` above it, per-row plain probes for exact layouts.
 
     Each kernel wrapper launches on a CUDA state and takes its plain
     version on a CPU state.
@@ -92,10 +97,32 @@ class FilterOps:
                 state, lo, hi)
         return _rangeprobe.range_probe_resident(self.layout, state, lo, hi)
 
-    def range_stacked(self, stack, lo, hi):
-        raise NotImplementedError(
-            "stacked range probes are not ported yet (ROADMAP B.5)")
+    # -- stacked-run probes (R same-layout rows, one launch) --------------
+    def _stacked(self, stack: torch.Tensor):
+        R, u = stack.shape
+        return stacked_probe((self.layout,) * R,
+                             tuple(r * u for r in range(R)), stack.device)
 
-    def point_stacked(self, stack, keys):
-        raise NotImplementedError(
-            "stacked point probes are not ported yet (ROADMAP B.6)")
+    def range_stacked(self, stack: torch.Tensor, lo: torch.Tensor,
+                      hi: torch.Tensor) -> torch.Tensor:
+        """(B, R) range verdicts over an ``int32[R, total_u32]`` stack."""
+        if self.layout.has_exact:
+            plain = filter_for_layout(self.layout, stack.device)
+            return torch.stack([plain.range(row, lo, hi) for row in stack],
+                               dim=1)
+        if stack.shape[0] * self.layout.total_u32 <= self.vmem_budget_u32:
+            return _rangeprobe.range_probe_stacked_resident(
+                self.layout, stack, lo, hi)
+        return self._stacked(stack).range_all(stack.reshape(-1), lo, hi)
+
+    def point_stacked(self, stack: torch.Tensor,
+                      keys: torch.Tensor) -> torch.Tensor:
+        """(B, R) point verdicts over an ``int32[R, total_u32]`` stack."""
+        if self.layout.has_exact:
+            plain = filter_for_layout(self.layout, stack.device)
+            return torch.stack([plain.point(row, keys) for row in stack],
+                               dim=1)
+        if stack.shape[0] * self.layout.total_u32 <= self.vmem_budget_u32:
+            return _probe.point_probe_stacked_resident(self.layout, stack,
+                                                       keys)
+        return self._stacked(stack).point_all(stack.reshape(-1), keys)

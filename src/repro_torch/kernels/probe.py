@@ -6,19 +6,23 @@ pinned in VMEM; on Hopper the kernel reads it through L2 and device memory,
 one thread per key.  On a CPU state the wrapper takes the plain version,
 the engine's ``point_batched``.
 
-The stacked and partitioned point kernels (``point_probe_stacked_resident``,
-``point_probe_partitioned``) are not ported yet (ROADMAP B.6, B.7).
+``point_probe_stacked_resident`` replaces
+``repro/kernels/probe.py::point_probe_stacked_resident``: the same probe
+over ``R`` same-layout rows in one launch (``csrc/stacked.cu``); its plain
+version is ``StackedProbe._point_all``.  The partitioned point kernel is
+not ported yet (ROADMAP B.7).
 """
 from __future__ import annotations
 
 import torch
 
 from ..core import FilterLayout
+from ..core.engine import stacked_probe
 from . import _build
-from ._checks import check_keys, check_state
+from ._checks import check_keys, check_stack, check_state
 from .ref import check_kernel_layout, filter_for_layout
 
-__all__ = ["point_probe_resident"]
+__all__ = ["point_probe_resident", "point_probe_stacked_resident"]
 
 
 def point_probe_resident(layout: FilterLayout, state: torch.Tensor,
@@ -34,12 +38,42 @@ def point_probe_resident(layout: FilterLayout, state: torch.Tensor,
     out = torch.empty(keys.shape[0], dtype=torch.bool, device=state.device)
     if keys.numel():
         desc = _build.device_descriptor(layout, state.device)
-        _build.launch("probe", state.device, keys.data_ptr(), keys.numel(),
-                      state.data_ptr(), desc.data_ptr(), desc.numel(),
-                      out.data_ptr())
+        _build.launch("bloomrf_point_probe", state.device, keys.data_ptr(),
+                      keys.numel(), state.data_ptr(), desc.data_ptr(),
+                      desc.numel(), out.data_ptr())
         point_probe_resident.launches += 1
     return out
 
 
 #: kernel launches so far (a plain count; reset it by assignment)
 point_probe_resident.launches = 0
+
+
+def point_probe_stacked_resident(layout: FilterLayout, stack: torch.Tensor,
+                                 keys: torch.Tensor) -> torch.Tensor:
+    """``bool[B, R]`` point verdicts for ``keys`` (int64 carriers of uint32
+    codes) against each row of ``stack`` (``int32[R, total_u32]`` lanes of
+    one hashed layout)."""
+    check_kernel_layout(layout)
+    if layout.has_exact:
+        raise ValueError("exact-layer layouts use per-row probes (ops.py)")
+    check_stack(layout, stack)
+    check_keys("keys", keys, stack.device)
+    R, u = stack.shape
+    if stack.device.type == "cpu":
+        probe = stacked_probe((layout,) * R, tuple(r * u for r in range(R)),
+                              stack.device)
+        return probe.point_all(stack.reshape(-1), keys)
+    out = torch.empty((keys.shape[0], R), dtype=torch.bool,
+                      device=stack.device)
+    if keys.numel():
+        desc = _build.device_descriptor(layout, stack.device)
+        _build.launch("bloomrf_point_stacked", stack.device, keys.data_ptr(),
+                      keys.numel(), stack.data_ptr(), u, R, desc.data_ptr(),
+                      desc.numel(), out.data_ptr())
+        point_probe_stacked_resident.launches += 1
+    return out
+
+
+#: kernel launches so far (a plain count; reset it by assignment)
+point_probe_stacked_resident.launches = 0

@@ -9,11 +9,10 @@ the same inputs.  Kernels operate on 32-bit sub-domains (d <= 32).
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from ..core import BloomRF, FilterLayout
+from ..core import FilterLayout
+from ..core.engine import _filter_for_layout as filter_for_layout
 
 
 def check_kernel_layout(layout: FilterLayout) -> None:
@@ -21,13 +20,6 @@ def check_kernel_layout(layout: FilterLayout) -> None:
         raise ValueError(
             "bloomRF kernels operate on 32-bit sub-domains; range-partition "
             "the 64-bit key space across shards first (DESIGN.md §3)")
-
-
-@functools.lru_cache(maxsize=None)
-def filter_for_layout(layout: FilterLayout, device: torch.device) -> BloomRF:
-    """Cached :class:`BloomRF` for a layout on a device (the filter holds no
-    state; its methods run on the tensors they are given)."""
-    return BloomRF(layout, device=device)
 
 
 def point_ref(layout: FilterLayout, state: torch.Tensor, keys: torch.Tensor):

@@ -85,7 +85,7 @@ def test_default_device_without_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(dtype="u32", backend="partitioned"), "B.7"),
-    (dict(dtype="u32", placement="store"), "A.3"),
+    (dict(dtype="u32", placement="store", store_backend="rosetta"), "A.3"),
     (dict(dtype="u32", placement="bank", shards=2), "A.9"),
     (dict(dtype="u32", placement="tenant", tenants=2), "A.9"),
     (dict(dtype="u64"), "A.1"),

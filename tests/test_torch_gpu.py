@@ -8,9 +8,14 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.core import BloomRF, FilterLayout, basic_layout
-from repro_torch.kernels import (insert_resident, point_probe_resident,
-                                 range_probe_resident)
+from repro_torch.core import BloomRF, FilterLayout, basic_layout, stacked_probe
+from repro_torch.kernels import (FilterOps, build_run_stack, insert_resident,
+                                 point_probe_resident,
+                                 point_probe_stacked_resident,
+                                 range_probe_resident,
+                                 range_probe_stacked_resident,
+                                 store_scan_probe, store_scan_probe_flat)
+from repro_torch.store import Store, StoreConfig
 
 pytestmark = pytest.mark.gpu
 
@@ -108,3 +113,102 @@ def test_facade_auto_routes_through_kernels(cuda):
     assert (insert_resident.launches - counts[0],
             point_probe_resident.launches - counts[1],
             range_probe_resident.launches - counts[2]) == (1, 1, 1)
+
+
+# ---------------------------------------------------------------------------
+# the stacked kernels (B5/B6) and the store-scan kernel (B4)
+# ---------------------------------------------------------------------------
+
+def _rows(layouts, device, rng, n=800):
+    """One filled row per layout, with its key fences."""
+    states, kmin, kmax = [], [], []
+    for lay in layouts:
+        keys = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+        f = BloomRF(lay, device=device)
+        states.append(f.insert(f.init_state(),
+                               torch.from_numpy(keys.astype(np.int64)).to(
+                                   device)))
+        kmin.append(int(keys.min()))
+        kmax.append(int(keys.max()))
+    return states, kmin, kmax
+
+
+@pytest.mark.parametrize("name", ["d32_delta4", "d32_delta7", "w64_replicas",
+                                  "multiseg", "top_eq_d"])
+def test_stacked_kernels_match_plain_versions(cuda, name):
+    lay = _LAYOUTS[name]()
+    rng = np.random.default_rng(5)
+    states, _, _ = _rows([lay] * 3, cuda, rng)
+    stack = torch.stack(states)
+    keys, lo, hi = _inputs(lay, cuda)
+    plain = stacked_probe((lay,) * 3, tuple(r * lay.total_u32
+                                            for r in range(3)), cuda)
+    flat = stack.reshape(-1)
+    n0 = (range_probe_stacked_resident.launches,
+          point_probe_stacked_resident.launches)
+    torch.testing.assert_close(range_probe_stacked_resident(lay, stack, lo, hi),
+                               plain.range_all(flat, lo, hi))
+    torch.testing.assert_close(range_probe_stacked_resident(lay, stack, hi, lo),
+                               plain.range_all(flat, lo, hi))
+    qs = torch.cat([keys[:1000], lo])
+    torch.testing.assert_close(point_probe_stacked_resident(lay, stack, qs),
+                               plain.point_all(flat, qs))
+    assert (range_probe_stacked_resident.launches - n0[0],
+            point_probe_stacked_resident.launches - n0[1]) == (2, 1)
+    ops = FilterOps(lay)                   # the dispatcher takes the kernels
+    torch.testing.assert_close(ops.range_stacked(stack, lo, hi),
+                               plain.range_all(flat, lo, hi))
+    torch.cuda.synchronize()
+
+
+def test_store_scan_kernel_matches_plain_version(cuda):
+    rng = np.random.default_rng(6)
+    c0 = basic_layout(32, 400, 14.0, delta=6)
+    layouts = (c0, c0, _LAYOUTS["w64_replicas"](), _LAYOUTS["multiseg"](),
+               basic_layout(32, 6400, 14.0, delta=6))
+    states, kmin, kmax = _rows(layouts, cuda, rng)
+    _, lo, hi = _inputs(layouts[0], cuda)
+    lo[4:8] = torch.tensor(kmin[:4], device=cuda)
+    hi[4:8] = lo[4:8]                                 # lo = hi on a fence
+    lo[8:10] = torch.tensor(kmax[:2], device=cuda) + 1  # just off a fence
+    R = len(layouts)
+    sizes = [lay.total_u32 for lay in layouts]
+    bases = tuple(int(b) for b in np.cumsum([0] + sizes[:-1]))
+    flat = torch.cat(states)
+    tk = [torch.tensor(v, dtype=torch.int64, device=cuda) for v in (kmin, kmax)]
+    plain = stacked_probe(layouts, bases, cuda)
+    stack = build_run_stack(states)
+    for quar in (None, torch.arange(R, device=cuda) == 2):
+        want = plain.touch_all(flat, *tk, lo, hi, quar)
+        n0 = store_scan_probe.launches
+        got = [store_scan_probe_flat(layouts, bases, flat, *tk, lo, hi,
+                                     quarantine=quar)]
+        got += [store_scan_probe(layouts, stack, *tk, lo, hi, 128, rpb, quar)
+                for rpb in (0, 2)]
+        assert store_scan_probe.launches == n0 + 3
+        for fence, touch in got:
+            torch.testing.assert_close(fence, want[0])
+            torch.testing.assert_close(touch, want[1])
+    torch.cuda.synchronize()
+
+
+def test_store_on_the_card_scans_through_the_kernel(cuda):
+    cfg = dict(memtable_limit=256, level0_runs=2, fanout=2)
+    st, twin = Store(StoreConfig(**cfg)), Store(StoreConfig(
+        scan_backend="xla", **cfg))
+    rng = np.random.default_rng(8)
+    keys = rng.integers(0, 1 << 32, 4000, dtype=np.uint64)
+    for i, k in enumerate(keys):
+        st.put(int(k), i)
+        twin.put(int(k), i)
+    st.live_runs()                         # the mode follows the live stack
+    assert st.device.type == "cuda" and st._scan_kernel_mode() == "kernel"
+    twin.live_runs()
+    assert twin._scan_kernel_mode() == "xla"
+    lo = rng.integers(0, 1 << 32, 300, dtype=np.uint64)
+    hi = lo + np.uint64(1 << 22)                  # some past the domain
+    n0 = store_scan_probe.launches
+    assert st.scan_many(lo, hi) == twin.scan_many(lo, hi)
+    assert store_scan_probe.launches == n0 + 1
+    assert st.stats.as_dict() == twin.stats.as_dict()
+    assert st.stats.kernel_fallbacks == 0 and len(st.live_runs()) > 1

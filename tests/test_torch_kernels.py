@@ -122,11 +122,16 @@ def test_filter_ops_tiers_not_ported_raise():
     lay = basic_layout(32, 1000, 12.0, delta=6)
     with pytest.raises(NotImplementedError, match="B.7"):
         FilterOps(lay, vmem_budget_u32=1)
+    # the stacked tier is ported (B5/B6, tests/test_torch_stacked.py): each
+    # row of a stack answers as that filter alone
     ops = FilterOps(lay)
-    with pytest.raises(NotImplementedError, match="B.5"):
-        ops.range_stacked(None, None, None)
-    with pytest.raises(NotImplementedError, match="B.6"):
-        ops.point_stacked(None, None)
+    keys = _i64(np.arange(0, 1 << 30, 1 << 20, dtype=np.uint64))
+    state = kref.filter_for_layout(lay, _CPU).build(keys)
+    stack = torch.stack([state, torch.zeros_like(state)])
+    pts = ops.point_stacked(stack, keys)
+    assert pts[:, 0].all() and not pts[:, 1].any()
+    rng_v = ops.range_stacked(stack, keys, keys + 5)
+    assert rng_v[:, 0].all() and not rng_v[:, 1].any()
 
 
 def test_vmem_budget_env_is_validated(monkeypatch):
