@@ -16,8 +16,9 @@ Phases, one line of output each:
    same verdicts as the ``backend="xla"`` twin, and exactly 8 / 4 / 4
    launches of the insert / point / range kernels;
 4. a 10,000,000-key filter (19.1 MiB of lanes) through ``backend="resident"``;
-5. per-kernel times with CUDA events at phase 3's shapes, beside the plain
-   versions' times and each kernel's memory bound;
+5. per-kernel times at phase 3's shapes (the kernel alone, replayed from a
+   CUDA graph; the plain version and the wrapper's back-to-back calls by
+   CUDA events), beside each kernel's memory bound;
 6. the store-scan kernel (B4) against its plain version, ``StackedProbe.
    touch_all``, bit for bit over the run-stack classes of
    tests/test_store_scan_kernel.py (mixed Δ, several segments, replicas,
@@ -31,7 +32,8 @@ Phases, one line of output each:
    batches of 512, 5% inserts); every scan equal to a numpy oracle, every
    batch's ``(fence, touch)`` equal to the plain ``touch_all``, exactly one
    B4 launch per scan batch and no kernel fallback; the device probe plane
-   and B4 timed per batch.
+   and B4 timed per batch, B4's bound counting the filter sectors that
+   the batch's range plans reach.
 
 It prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -94,6 +96,107 @@ def _cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
+    """Device milliseconds per call of a kernel wrapper ``fn``, host dispatch
+    excluded: ``reps`` calls captured in one CUDA graph, replayed
+    ``replays`` times between CUDA events after a warm-up replay."""
+    import torch
+
+    fn()                              # builds and caches the descriptors
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def _range_read_sectors(probe, flat, lo, hi, run=None) -> int:
+    """Distinct 32-byte sectors of ``flat`` that ``range_one``
+    (``csrc/bloomrf.cuh``) reads for this batch over ``probe``'s rows: the
+    words of each cell's range plan that it loads before its verdict is
+    known.  A dead path's words are skipped, the right path reuses the
+    left path's words before the split, and a cell stops at its first hit
+    or when both paths die.  Only the cells in ``run`` ((B, R) bool; all
+    when None) run the plan.  Mirrors ``ProbeEngine.combine_range``, and
+    checks its verdicts against the plain ``_range_all``."""
+    import torch
+
+    from repro_torch.core.bloomrf import MASK32, children_hit, lanes_u32
+
+    lo, hi = torch.atleast_1d(lo), torch.atleast_1d(hi)
+    want = probe._range_all(flat, lo, hi)
+    read = []
+    for e, r0, r1, base in probe.spans:
+        f, lay = e.filt, e.lay
+        plan = e.plan_range(probe._bounds(lo, r0, r1),
+                            probe._bounds(hi, r0, r1))
+        L, R = plan.L, plan.R
+        lanes = plan.lanes + base
+        g = lanes_u32(flat, lanes)
+        alive = torch.ones_like(L, dtype=torch.bool) if run is None \
+            else run[:, r0:r1].clone()
+        cells = alive.clone()
+        result = torch.zeros_like(alive)
+        split, la, ra = result.clone(), torch.ones_like(alive), result.clone()
+        if lay.top_level < lay.d:
+            lt, rt = f._shr(L, lay.top_level), f._shr(R, lay.top_level)
+            result = (rt - lt) >= 2
+            split, ra = lt != rt, lt != rt
+        alive &= ~result
+        mask = torch.zeros_like(lanes, dtype=torch.bool)
+        for i in reversed(range(lay.k)):
+            bottom, delta = i == 0, lay.deltas[i]
+            Lp, Rp = f._shr(L, lay.levels[i]), f._shr(R, lay.levels[i])
+            Lpar = f._shr(L, lay.levels[i + 1])
+            Rpar = f._shr(R, lay.levels[i + 1])
+            need_l = alive & la
+            need_r = alive & (ra if bottom else ra | (~split & la))
+            need_r &= ~(need_l & (Rpar == Lpar))
+            slots = plan.layers[i]
+            for name, need in (("LA", need_l), ("LB", need_l),
+                               ("RA", need_r), ("RB", need_r)):
+                for sl in slots[name]:
+                    for c in ((sl.col, sl.col + 1)
+                              if lay.word_bits(i) == 64 else (sl.col,)):
+                        mask[..., c] |= need
+            w = {name: e._word(g, i, sl) for name, sl in slots.items()}
+            edge = 0 if bottom else 1
+            l_end = (Lpar << delta) | ((1 << delta) - 1)
+            l_qhi = torch.where(split, l_end, (Rp - edge) & MASK32)
+            l_ne = torch.ones_like(alive) if bottom else \
+                torch.where(split, Lp != l_end, (Rp - Lp) >= 2)
+            r_ne = torch.ones_like(alive) if bottom else Rp != (Rpar << delta)
+            hit = children_hit(delta, Lpar, (Lp + edge) & MASK32, l_qhi,
+                               l_ne & la & alive, w["LA"], w["LB"]) \
+                | children_hit(delta, Rpar, Rpar << delta,
+                               (Rp - edge) & MASK32, r_ne & ra & alive,
+                               w["RA"], w["RB"])
+            result |= hit
+            alive &= ~hit
+            if not bottom:
+                covL = e._cov_bit(i, L, w["LA"], w["LB"])
+                covR = e._cov_bit(i, R, w["RA"], w["RB"])
+                new_split = split | (Lp != Rp)
+                la, ra = la & covL, torch.where(split, ra,
+                                                la & new_split) & covR
+                split = new_split
+                alive &= la | ra
+        if not torch.equal(result & cells, want[:, r0:r1] & cells):
+            raise AssertionError("range read count: verdicts != plain")
+        read.append(lanes[mask])
+    return int(torch.unique(torch.cat(read) >> 3).numel())
 
 
 def _queries(rng, n_keys, keys, top):
@@ -228,9 +331,20 @@ def phase_main_path(n, backend, device_name, expect_launches, kernels):
     }
 
 
+def _times(kern, plain, plain_reps: int, nbytes: int) -> dict:
+    """A kernel's row of the kernels line: its device time alone (CUDA
+    graph), its plain version's time (CUDA events over back-to-back calls),
+    the memory bound of ``nbytes``; and under ``call_ms`` the kernel
+    wrapper's time by CUDA events over 200 back-to-back calls, host
+    dispatch included (popped before the kernels line)."""
+    return {"ms": _graph_ms(kern), "plain_ms": _cuda_ms(plain, plain_reps),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None, "call_ms": _cuda_ms(kern, 200)}
+
+
 def phase_times(device, lay, kernels):
-    """Phase 5: CUDA-event times of each kernel and its plain version at the
-    main path's chunk shape, beside the memory bound."""
+    """Phase 5: times of each kernel and its plain version at the main
+    path's chunk shape, beside the memory bound."""
     import numpy as np
 
     from repro_torch.core import BloomRF
@@ -256,9 +370,7 @@ def phase_times(device, lay, kernels):
             ("range", lambda: rg(lay, state, tlo, thi),
              lambda: f.engine.range_batched(state, tlo, thi),
              CHUNK * 16 + state_b + CHUNK)):
-        out[name] = {"ms": _cuda_ms(kern, 200), "plain_ms": _cuda_ms(plain, 10),
-                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                     "bound_by": "bytes", "library_ms": None}
+        out[name] = _times(kern, plain, 10, nbytes)
     return out
 
 
@@ -394,21 +506,24 @@ def phase_stacked_vs_plain(device, kernels, errs, big_layout):
             or sum(launches.values()) != 8:
         raise AssertionError(f"stacked path launches {launches}")
 
+    # B5 reads the 32-byte sectors its range plans reach, B6 (most point
+    # probes need most sectors at this batch) the whole stack once
     stack_b = rows * lay.total_u32 * 4
+    sectors = _range_read_sectors(probe, flat, tlo, thi)
     times = {}
     for name, kern, plain_fn, nbytes in (
             ("range_stacked", lambda: rstack(lay, stack, tlo, thi),
              lambda: probe._range_all(flat, tlo, thi),
-             CHUNK * 16 + stack_b + CHUNK * rows),
+             CHUNK * 16 + min(sectors * 32, stack_b) + CHUNK * rows),
             ("point_stacked", lambda: pstack(lay, stack, tq),
              lambda: probe._point_all(flat, tq),
              CHUNK * 8 + stack_b + CHUNK * rows)):
-        times[name] = {"ms": _cuda_ms(kern, 100),
-                       "plain_ms": _cuda_ms(plain_fn, 5),
-                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                       "bound_by": "bytes", "library_ms": None}
+        times[name] = _times(kern, plain_fn, 5, nbytes)
     return {"scan_cells_checked": cells, "stacked_rows": rows,
-            "stack_lanes": rows * lay.total_u32, "path_queries": big_q,
+            "stack_lanes": rows * lay.total_u32,
+            "range_sectors_read": sectors,
+            "range_sector_share": sectors * 32 / stack_b,
+            "path_queries": big_q,
             "path_hits": hits,
             "launches": {k: launches[k] for k in ("range_stacked",
                                                   "point_stacked")},
@@ -452,6 +567,7 @@ def phase_store(device, kernels, errs):
     import torch
 
     import repro_torch
+    from repro_torch.kernels.store_scan import store_scan_probe_flat
 
     rng = np.random.default_rng(SEED + 7)
     data = rng.integers(0, 1 << 32, STORE_KEYS, dtype=np.uint64)
@@ -551,17 +667,29 @@ def phase_store(device, kernels, errs):
     torch.cuda.synchronize()
     t4 = time.perf_counter()
 
+    # B4 on one batch: the kernel alone, and the store's call of it
     R = len(st.live_runs())
     b_lo, b_hi = clo[:SCAN_BATCH], chi[:SCAN_BATCH]
     flat_b = st._flat.numel() * 4
-    times = {"ms": _cuda_ms(lambda: st._kernel_scan(b_lo, b_hi), 200),
-             "plain_ms": _cuda_ms(lambda: st._probe.touch_all(
-                 st._flat, kmin, kmax, b_lo, b_hi, quar), 20),
-             # bounds, fences and the filter state read once, two bool
-             # (B, R) outputs written once
-             "bound_ms": (SCAN_BATCH * 16 + R * 16 + flat_b
-                          + 2 * SCAN_BATCH * R) / HBM_BYTES_PER_S * 1e3,
-             "bound_by": "bytes", "library_ms": None}
+    layouts = tuple(r.layout for r in st.live_runs())
+    run = (b_hi[:, None] >= kmin[None, :]) & (b_lo[:, None] <= kmax[None, :])
+    if quar is not None:
+        run &= ~quar[None, :]
+    sectors = _range_read_sectors(st._probe, st._flat, b_lo, b_hi, run)
+    # bounds and fences read once, the 32-byte sectors of the flat state
+    # that the fenced cells' range plans reach, two bool (B, R) outputs
+    times = _times(lambda: store_scan_probe_flat(
+                       layouts, st._bases, st._flat, kmin, kmax, b_lo, b_hi,
+                       quar),
+                   lambda: st._probe.touch_all(st._flat, kmin, kmax, b_lo,
+                                               b_hi, quar), 20,
+                   SCAN_BATCH * 16 + R * 16 + min(sectors * 32, flat_b)
+                   + 2 * SCAN_BATCH * R)
+    t5 = time.perf_counter()
+    for _ in range(200):
+        st._kernel_scan(b_lo, b_hi)
+    torch.cuda.synchronize()
+    store_call_ms = (time.perf_counter() - t5) / 200 * 1e3
     stats = st.stats
     return {
         "keys": STORE_KEYS, "scans": n_scans, "inserts": n_ins,
@@ -577,6 +705,8 @@ def phase_store(device, kernels, errs):
         "device_fence_pass_per_scan": int(acc[1]) / n_scans,
         "launches": launches["store_scan"], "batches": n_batches,
         "kernel_fallbacks": stats.kernel_fallbacks,
+        "b4_sectors_read": sectors, "b4_sector_share": sectors * 32 / flat_b,
+        "b4_store_call_ms": store_call_ms,
         "times": times,
     }
 
@@ -672,6 +802,11 @@ def main() -> int:
           f"{json.dumps(times['store_scan'])} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    call_ms = {k: t.pop("call_ms") for k, t in times.items()}
+    print(f"[7/7] kernel wrappers' ms per call by CUDA events over 200 "
+          f"back-to-back calls, host dispatch included (the kernels line's "
+          f"ms is the kernel alone, from a CUDA graph): "
+          f"{json.dumps(call_ms)}", flush=True)
     launches = dict(main_run["launches"])
     launches.update(stacked["launches"])
     launches["store_scan"] = store["launches"]

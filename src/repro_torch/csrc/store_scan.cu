@@ -65,12 +65,11 @@ extern "C" int bloomrf_store_scan(const int64_t* lo, const int64_t* hi,
                                   const uint32_t* desc, int max_desc_len,
                                   const int64_t* rowtab, const int64_t* kmin,
                                   const int64_t* kmax, const bool* quar, int R,
-                                  int tile, bool* fence, bool* touch,
-                                  void* stream) {
+                                  bool* fence, bool* touch, void* stream) {
   if (n <= 0 || R <= 0) return 0;
-  const dim3 grid(static_cast<unsigned>((n + tile - 1) / tile),
-                  static_cast<unsigned>(R));
-  store_scan_kernel<<<grid, tile, max_desc_len * sizeof(uint32_t),
+  const dim3 grid(bloomrf::grid_for(n), static_cast<unsigned>(R));
+  store_scan_kernel<<<grid, bloomrf::kThreads,
+                      max_desc_len * sizeof(uint32_t),
                       static_cast<cudaStream_t>(stream)>>>(
       lo, hi, n, state, desc, rowtab, kmin, kmax, quar, R, fence, touch);
   return static_cast<int>(cudaGetLastError());

@@ -47,7 +47,7 @@ _ENTRY = {
     "bloomrf_point_probe": ("probe", (_P, _I64, _P, _P, _I, _P, _P)),
     "bloomrf_range_probe": ("rangeprobe", (_P, _P, _I64, _P, _P, _I, _P, _P)),
     "bloomrf_store_scan": ("store_scan", (_P, _P, _I64, _P, _P, _I, _P, _P,
-                                          _P, _P, _I, _I, _P, _P, _P)),
+                                          _P, _P, _I, _P, _P, _P)),
     "bloomrf_range_stacked": ("stacked", (_P, _P, _I64, _P, _I64, _I, _P, _I,
                                           _P, _P)),
     "bloomrf_point_stacked": ("stacked", (_P, _I64, _P, _I64, _I, _P, _I, _P,
@@ -172,10 +172,12 @@ def device_descriptor(layout: FilterLayout, device: torch.device) -> torch.Tenso
     return torch.from_numpy(layout_descriptor(layout).view(np.int32)).to(device)
 
 
-@functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=8)
 def stack_descriptor(layouts: tuple, bases: tuple, device: torch.device):
     """The store-scan kernel's view of a row stack, built once per row stack
-    and device: ``(desc, rowtab, max_len)``.
+    and device: ``(desc, rowtab, max_len)``.  The cache is bounded: a store
+    scans only its current stack, and every flush or compaction makes a
+    new one.
 
     ``desc`` concatenates the descriptors of the distinct layouts (int32 on
     ``device``); ``rowtab`` is ``int64[R, 2]``, per row the word offset of

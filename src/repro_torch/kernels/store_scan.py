@@ -30,7 +30,9 @@ from .rangeprobe import _check_bounds, _check_range_kernel_layout
 __all__ = ["store_scan_probe", "store_scan_probe_flat", "build_run_stack",
            "DEFAULT_TILE"]
 
-DEFAULT_TILE = 256           # scan queries per block
+#: the reference's default query tile; accepted by :func:`store_scan_probe`
+#: and unused (every launch runs blocks of ``bloomrf::kThreads`` queries)
+DEFAULT_TILE = 256
 
 
 def build_run_stack(states) -> torch.Tensor:
@@ -63,7 +65,6 @@ def _check_rows(layouts: tuple, bases: tuple, lanes: int) -> None:
 def store_scan_probe_flat(layouts: tuple, bases: tuple, flat: torch.Tensor,
                           kmin: torch.Tensor, kmax: torch.Tensor,
                           lo: torch.Tensor, hi: torch.Tensor,
-                          tile: int = DEFAULT_TILE,
                           quarantine: torch.Tensor | None = None):
     """``(fence, touch)``, both ``bool[B, R]``, over run rows of ``flat``
     (``int32`` lanes; row ``r`` starts at lane ``bases[r]``).
@@ -93,8 +94,6 @@ def store_scan_probe_flat(layouts: tuple, bases: tuple, flat: torch.Tensor,
             raise ValueError(f"quarantine must be bool[{R}] on "
                              f"{flat.device}")
         quarantine = quarantine.contiguous()
-    if not 1 <= tile <= 1024:
-        raise ValueError(f"tile must be in 1..1024 queries, got {tile}")
     if flat.device.type == "cpu":
         probe = stacked_probe(layouts, bases, flat.device)
         return probe.touch_all(flat, kmin, kmax, lo, hi, quarantine)
@@ -109,7 +108,7 @@ def store_scan_probe_flat(layouts: tuple, bases: tuple, flat: torch.Tensor,
                       max_len, rowtab.data_ptr(), kmin.data_ptr(),
                       kmax.data_ptr(),
                       None if quarantine is None else quarantine.data_ptr(),
-                      R, tile, fence.data_ptr(), touch.data_ptr())
+                      R, fence.data_ptr(), touch.data_ptr())
         store_scan_probe.launches += 1
     return fence, touch
 
@@ -120,9 +119,9 @@ def store_scan_probe(layouts: tuple, stack: torch.Tensor, kmin, kmax, lo, hi,
     """Fused store-scan pruning over a padded ``int32[R, rowpad]`` stack
     (:func:`build_run_stack`): ``(fence, touch)``, both ``bool[B, R]``.
 
-    The reference's signature.  ``runs_per_block`` split the run axis into
-    VMEM-sized blocks on the TPU; here every block reads its own row, so it
-    is accepted and has no effect on the result."""
+    The reference's signature.  ``tile`` and ``runs_per_block`` sized the
+    TPU's VMEM blocks; here every block reads its own row with a fixed
+    thread count, so both are accepted and have no effect on the result."""
     if runs_per_block < 0:
         raise ValueError(f"runs_per_block must be >= 0, got {runs_per_block}")
     if stack.dim() != 2 or stack.shape[0] != len(layouts):
@@ -135,7 +134,7 @@ def store_scan_probe(layouts: tuple, stack: torch.Tensor, kmin, kmax, lo, hi,
                              f"{lay.total_u32}")
     bases = tuple(r * rowpad for r in range(len(layouts)))
     return store_scan_probe_flat(layouts, bases, stack.reshape(-1), kmin,
-                                 kmax, lo, hi, tile, quarantine)
+                                 kmax, lo, hi, quarantine)
 
 
 #: kernel launches so far, from either entry (a plain count; reset it by

@@ -46,7 +46,6 @@ from ..core.engine import _filter_for_layout, stacked_probe
 from ..core.layout import basic_layout
 from ..kernels.insert import insert_resident
 from ..kernels.ops import read_vmem_budget_u32
-from ..kernels.store_scan import DEFAULT_TILE as STORE_SCAN_TILE
 from ..kernels.store_scan import store_scan_probe_flat
 from .compaction import merge_filter_state, merge_sorted_runs
 from .faults import FaultPlan, InjectedDispatchFault
@@ -510,12 +509,21 @@ class Store:
 
     def _kernel_scan(self, lo: torch.Tensor, hi: torch.Tensor):
         """One store-scan kernel launch over the live stack (its plain
-        version on the CPU)."""
-        self._fault("kernel.dispatch")
+        version on the CPU): ``(fence, touch)``.  ``None`` after an
+        injected dispatch fault under ``scan_backend="auto"`` (counted in
+        ``kernel_fallbacks``), where the caller takes the plain path; any
+        other error propagates."""
+        try:
+            self._fault("kernel.dispatch")
+        except InjectedDispatchFault:
+            if self.cfg.scan_backend != "auto":
+                raise
+            self.stats.kernel_fallbacks += 1
+            return None
         kmin, kmax, quar = self._device_rows()
         return store_scan_probe_flat(
             tuple(r.layout for r in self._runs), self._bases, self._flat,
-            kmin, kmax, lo, hi, STORE_SCAN_TILE, quar)
+            kmin, kmax, lo, hi, quar)
 
     def _touch_masks(self, lo: np.ndarray,
                      hi: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -525,26 +533,22 @@ class Store:
         if not self._runs:
             z = np.zeros((len(lo), 0), bool)
             return z, z
+        dmax = np.uint64((1 << self.cfg.d) - 1)
+        masks = None
         if self._scan_kernel_mode() == "kernel":
-            dmax = np.uint64((1 << self.cfg.d) - 1)
-            try:
-                f, t = self._kernel_scan(self._codes(np.minimum(lo, dmax)),
-                                         self._codes(np.minimum(hi, dmax)))
-            except InjectedDispatchFault:
-                if self.cfg.scan_backend != "auto":
-                    raise
-                self.stats.kernel_fallbacks += 1
-            else:
-                fence, touch = f.cpu().numpy(), t.cpu().numpy()
-                # the clamp is exact for every in-domain `lo`; intervals
-                # entirely above the domain are fenced off here
-                dead = lo > dmax
-                if dead.any():
-                    fence[dead] = touch[dead] = False
-                if self._quar.any():
-                    self.stats.degraded_probes += int(
-                        (fence & self._quar[None, :]).sum())
-                return fence, touch
+            masks = self._kernel_scan(self._codes(np.minimum(lo, dmax)),
+                                      self._codes(np.minimum(hi, dmax)))
+        if masks is not None:
+            fence, touch = masks[0].cpu().numpy(), masks[1].cpu().numpy()
+            # the clamp is exact for every in-domain `lo`; intervals
+            # entirely above the domain are fenced off here
+            dead = lo > dmax
+            if dead.any():
+                fence[dead] = touch[dead] = False
+            if self._quar.any():
+                self.stats.degraded_probes += int(
+                    (fence & self._quar[None, :]).sum())
+            return fence, touch
         fence, filt = self.probe_runs(lo, hi, point=False)
         return fence, fence & filt
 
@@ -564,12 +568,9 @@ class Store:
                             device=self.device)
             return z, z
         if self._scan_kernel_mode() == "kernel":
-            try:
-                return self._kernel_scan(lo, hi)
-            except InjectedDispatchFault:
-                if self.cfg.scan_backend != "auto":
-                    raise
-                self.stats.kernel_fallbacks += 1
+            masks = self._kernel_scan(lo, hi)
+            if masks is not None:
+                return masks
         kmin, kmax, quar = self._device_rows()
         if self.cfg.filter_backend == "bloomrf":
             return self._probe.touch_all(self._flat, kmin, kmax, lo, hi, quar)
