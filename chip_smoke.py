@@ -8,14 +8,16 @@ Phases, one line of output each:
 
 1. environment: the card (``nvidia-smi`` name and power limit) and the
    seconds it takes ``nvcc`` to build the kernels from ``src/repro_torch/csrc``;
-2. each CUDA kernel against its plain PyTorch version on the card, bit for
-   bit, over a sweep of layouts and the edge bounds;
+2. each single-filter CUDA kernel against its plain PyTorch version on the
+   card, bit for bit, over a sweep of layouts and the edge bounds; the
+   partitioned kernels (B7/B8) at blocks of 256, 2048 and 16384 lanes;
 3. the main path at full size: ``open_filter`` of a 2,000,000-key u32 filter
    at 16 bits/key on the default device and backend, 2,000,000 inserts,
    1,048,576 point and 1,048,576 range queries; no false negatives, the
    same verdicts as the ``backend="xla"`` twin, and exactly 8 / 4 / 4
-   launches of the insert / point / range kernels;
-4. a 10,000,000-key filter (19.1 MiB of lanes) through ``backend="resident"``;
+   launches of the insert / point / range kernels and none of any other;
+4. a 10,000,000-key filter (19.1 MiB of lanes) through ``backend="resident"``
+   (under ``auto`` this size takes the partitioned tier);
 5. per-kernel times at phase 3's shapes (the kernel alone, replayed from a
    CUDA graph; the plain version and the wrapper's back-to-back calls by
    CUDA events), beside each kernel's memory bound;
@@ -33,7 +35,18 @@ Phases, one line of output each:
    batch's ``(fence, touch)`` equal to the plain ``touch_all``, exactly one
    B4 launch per scan batch and no kernel fallback; the device probe plane
    and B4 timed per batch, B4's bound counting the filter sectors that
-   the batch's range plans reach.
+   the batch's range plans reach;
+8. the HBM-scale single filter: ``open_filter`` of a 25,000,000-key u32
+   filter at 16 bits/key under ``auto`` (12,500,000 lanes, above the
+   resident budget: the partitioned tier), 25,000,000 inserts, 1,048,576
+   point and 1,048,576 range queries, then ``grow(4)`` in place (50,000,000
+   lanes, 190.7 MiB), 75,000,000 more inserts and the same queries again;
+   no false negatives over all 100,000,000 keys (truth sorted on the card),
+   state and verdicts equal to the ``xla`` twin after each round, exactly
+   8 B7, 8 B8 and 383 B1 launches and none of any other; a deletable and a
+   TTL filter (4 generations) of 2,000,000 keys through
+   ``backend="partitioned"`` equal to their twins; B7/B8 timed on the
+   grown filter beside B2/B3 on the same filter and chunk.
 
 It prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -120,6 +133,36 @@ def _graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * replays)
+
+
+def _device_busy(fn, reps: int = 4):
+    """``fn``'s wall milliseconds per call (host clock, closed by a
+    synchronize) beside the device time of the kernels and copies it ran
+    and their count per call, from a ``torch.profiler`` trace of ``reps``
+    calls (the profiler's own cost included in the wall time); None when
+    the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us, ops = 0.0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us += e.time_range.elapsed_us()
+            ops += 1
+    if not dev_us:
+        return None
+    return {"wall_ms": wall / reps * 1e3, "device_ms": dev_us / reps / 1e3,
+            "device_busy_share": dev_us / 1e6 / wall,
+            "device_ops_per_call": ops / reps}
 
 
 def _range_read_sectors(probe, flat, lo, hi, run=None) -> int:
@@ -230,6 +273,9 @@ def phase_kernels_vs_plain(device, kernels, errs, big_layout):
     import torch
 
     from repro_torch.core import BloomRF, FilterLayout, basic_layout
+    from repro_torch.kernels import DEFAULT_TILE
+    from repro_torch.kernels.probe import point_partitioned_plain
+    from repro_torch.kernels.rangeprobe import range_partitioned_plain
 
     layouts = [basic_layout(d, 3000, 16.0, delta=dl)
                for d in (8, 16, 24, 32) for dl in range(1, 8)]
@@ -245,7 +291,8 @@ def phase_kernels_vs_plain(device, kernels, errs, big_layout):
                          seg_of_layer=(2, 2, 1, 1),
                          seg_bits=(1 << 12, 4096, 8192), exact_seg=0)
     rng = np.random.default_rng(SEED)
-    ins, pt, rg = (kernels[k] for k in ("insert", "point", "range"))
+    ins, pt, rg, ppart, rpart = (kernels[k] for k in (
+        "insert", "point", "range", "point_part", "range_part"))
     checked = 0
     for lay in layouts + [exact]:
         f = BloomRF(lay, device=device)
@@ -269,6 +316,24 @@ def phase_kernels_vs_plain(device, kernels, errs, big_layout):
             errs["range"] = max(errs["range"], _max_err(
                 rg["fn"](lay, state, tlo, thi), plain),
                 _max_err(rg["fn"](lay, state, thi, tlo), plain))
+        # B7/B8: against their plain versions (the same plan and bucketing,
+        # a torch gather) and against the engine
+        for blk in (256, 2048, 16384):
+            got = ppart["fn"](lay, state, tq, DEFAULT_TILE, blk)
+            errs["point_part"] = max(
+                errs["point_part"], _max_err(got, point_partitioned_plain(
+                    lay, state, tq, DEFAULT_TILE, blk)),
+                _max_err(got, f.engine.point_batched(state, tq)))
+            if lay.has_exact:
+                continue
+            want = range_partitioned_plain(lay, state, tlo, thi,
+                                           DEFAULT_TILE, blk)
+            errs["range_part"] = max(
+                errs["range_part"], _max_err(rpart["fn"](
+                    lay, state, tlo, thi, DEFAULT_TILE, blk), want),
+                _max_err(rpart["fn"](lay, state, thi, tlo, DEFAULT_TILE,
+                                     blk), want),
+                _max_err(want, plain))
         checked += 1
     torch.cuda.synchronize()
     if any(errs.values()):
@@ -331,15 +396,16 @@ def phase_main_path(n, backend, device_name, expect_launches, kernels):
     }
 
 
-def _times(kern, plain, plain_reps: int, nbytes: int) -> dict:
+def _times(kern, plain, plain_reps: int, nbytes: int, call=None) -> dict:
     """A kernel's row of the kernels line: its device time alone (CUDA
     graph), its plain version's time (CUDA events over back-to-back calls),
     the memory bound of ``nbytes``; and under ``call_ms`` the kernel
     wrapper's time by CUDA events over 200 back-to-back calls, host
-    dispatch included (popped before the kernels line)."""
+    dispatch included (popped before the kernels line).  ``call`` is the
+    wrapper call when ``kern`` launches the kernel alone."""
     return {"ms": _graph_ms(kern), "plain_ms": _cuda_ms(plain, plain_reps),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": None, "call_ms": _cuda_ms(kern, 200)}
+            "library_ms": None, "call_ms": _cuda_ms(call or kern, 200)}
 
 
 def phase_times(device, lay, kernels):
@@ -711,6 +777,301 @@ def phase_store(device, kernels, errs):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the HBM-scale single filter (partitioned tier), growth, deletes, TTL
+# ---------------------------------------------------------------------------
+
+HBM_KEYS = 25_000_000     # the filter's planned keys (12,500,000 lanes)
+GROW = 4                  # grown in place to hold 100,000,000
+MUT_KEYS = 2_000_000      # the deletable and TTL filters
+
+
+def _chunks(n: int) -> int:
+    return -(-n // CHUNK)
+
+
+def _truth_on_card(sorted_keys, pq, lo, hi, device):
+    """Point and range truth from keys sorted on the card."""
+    import torch
+
+    n = sorted_keys.numel()
+    q = _i64(pq, device)
+    ptruth = sorted_keys[torch.searchsorted(sorted_keys, q).clamp(
+        max=n - 1)] == q
+    tlo, thi = _i64(lo, device), _i64(hi, device)
+    j = torch.searchsorted(sorted_keys, tlo)
+    rtruth = (j < n) & (sorted_keys[j.clamp(max=n - 1)] <= thi)
+    return ptruth.cpu().numpy(), rtruth.cpu().numpy()
+
+
+def _point_read_sectors(f, state, keys) -> int:
+    """Distinct 32-byte sectors a point probe needs: each key's positions
+    in order up to its first clear bit (``point_one``'s early exit)."""
+    import torch
+
+    from repro_torch.core.bloomrf import lanes_u32
+
+    pos = f.positions(keys)
+    lane = pos >> 5
+    bit = (lanes_u32(state, lane) >> (pos & 31)) & 1
+    need = torch.ones_like(bit, dtype=torch.bool)
+    need[:, 1:] = torch.cumprod(bit, dim=1)[:, :-1] == 1
+    return int(torch.unique(lane[need] >> 3).numel())
+
+
+def _mutable_twins(rng, errs):
+    """A deletable and a TTL filter of MUT_KEYS keys through
+    ``backend="partitioned"``, each against its ``xla`` twin: half the keys
+    deleted, or four TTL windows with the first expired."""
+    import numpy as np
+
+    import repro_torch
+
+    top = (1 << 32) - 1
+    keys = rng.integers(0, top + 1, MUT_KEYS, dtype=np.uint64)
+    pq, lo, hi = _queries(rng, CHUNK, keys, top)
+    out = {}
+    quarter = MUT_KEYS // 4
+    for mut in ("deletable", "ttl"):
+        kw = dict(dtype="u32", n=MUT_KEYS, bits_per_key=16.0, mutability=mut,
+                  generations=4)
+        h, twin = (repro_torch.open_filter(repro_torch.FilterSpec(
+            backend=b, **kw)) for b in ("partitioned", "xla"))
+        for x in (h, twin):
+            if mut == "deletable":
+                x.insert(keys)
+                x.delete(keys[:MUT_KEYS // 2])
+            else:
+                for w in range(4):
+                    x.insert(keys[w * quarter:(w + 1) * quarter])
+                    x.advance_generation()
+        gone, live = ((keys[:MUT_KEYS // 2], keys[MUT_KEYS // 2:])
+                      if mut == "deletable" else (keys[:quarter],
+                                                  keys[quarter:]))
+        same = np.array_equal(h.state_numpy(), twin.state_numpy())
+        if mut == "deletable":
+            same &= np.array_equal(h.counts.counts, twin.counts.counts)
+        else:
+            same &= all(np.array_equal(a.cpu().numpy(), b.cpu().numpy())
+                        for a, b in zip(h.gens.gens, twin.gens.gens))
+        hp, hr = h.point(pq), h.range(lo, hi)
+        tp, tr = twin.point(pq), twin.range(lo, hi)
+        errs["point_part"] = max(errs["point_part"], int((hp != tp).any()))
+        errs["range_part"] = max(errs["range_part"], int((hr != tr).any()))
+        if not same or (hp != tp).any() or (hr != tr).any():
+            raise AssertionError(f"{mut} filter differs from its xla twin")
+        if h.ops.resident or not h.point(live).all():
+            raise AssertionError(f"{mut} filter: false negatives or the "
+                                 f"resident tier")
+        out[mut] = {"lanes": h.layout.total_u32, "live_keys": len(live),
+                    "gone_still_positive": float(h.point(gone).mean())}
+    return out
+
+
+def phase_hbm(device, kernels, errs):
+    """Phase 8: the HBM-scale filter end to end with its launches counted,
+    against truth on the card and the ``xla`` twin; the mutable filters;
+    B7/B8 and B2/B3 timed on the grown filter."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.core import BloomRF, stacked_probe
+    from repro_torch.kernels import DEFAULT_BLOCK_U32, DEFAULT_TILE, _build
+    from repro_torch.kernels.probe import (_bucket_probes, _check_tiling,
+                                           _point_buckets,
+                                           point_partitioned_plain)
+    from repro_torch.kernels.rangeprobe import (_range_buckets,
+                                                range_partitioned_plain)
+
+    rng = np.random.default_rng(SEED + 8)
+    top = (1 << 32) - 1
+    n_all = HBM_KEYS * GROW
+    keys = rng.integers(0, top + 1, n_all, dtype=np.uint64)
+    parts = (keys[:HBM_KEYS], keys[HBM_KEYS:])
+    rounds = [_queries(rng, 1 << 20, keys[:HBM_KEYS], top),
+              _queries(rng, 1 << 20, keys, top)]
+    kw = dict(dtype="u32", n=HBM_KEYS, bits_per_key=16.0)
+
+    for k in kernels.values():                       # counts of this run only
+        k["fn"].launches = 0
+    h = repro_torch.open_filter(repro_torch.FilterSpec(**kw))
+    verdicts, rates, lanes, first_state = [], [], [], None
+    for r, ins in enumerate(parts):
+        if r:
+            first_state = h.state.clone()
+            h.grow(GROW)
+        if h.backend != "kernels" or h.ops.resident:
+            raise AssertionError(f"round {r}: {h.backend}, not partitioned")
+        lanes.append(h.layout.total_u32)
+        pq, lo, hi = rounds[r]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h.insert(ins)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pres = h.point(pq)
+        t2 = time.perf_counter()
+        rres = h.range(lo, hi)
+        t3 = time.perf_counter()
+        verdicts.append((pres, rres))
+        rates.append({"insert_keys_per_s": len(ins) / (t1 - t0),
+                      "point_queries_per_s": len(pq) / (t2 - t1),
+                      "range_queries_per_s": len(lo) / (t3 - t2)})
+    launches = {name: k["fn"].launches for name, k in kernels.items()}
+    want = {k: 0 for k in kernels}
+    want.update(insert=_chunks(len(parts[0])) + _chunks(len(parts[1])),
+                point_part=2 * _chunks(1 << 20),
+                range_part=2 * _chunks(1 << 20))
+    if launches != want:
+        raise AssertionError(f"HBM path launches {launches} != {want}")
+
+    # truth from the keys sorted on the card, then every key probed
+    kt = _i64(keys, device)
+    fpr = []
+    for r, n in enumerate((HBM_KEYS, n_all)):
+        ptruth, rtruth = _truth_on_card(torch.sort(kt[:n]).values,
+                                        *rounds[r], device)
+        pres, rres = verdicts[r]
+        fn_p, fn_r = int((ptruth & ~pres).sum()), int((rtruth & ~rres).sum())
+        if fn_p or fn_r:
+            raise AssertionError(f"round {r}: false negatives: point {fn_p}, "
+                                 f"range {fn_r}")
+        fpr.append({
+            "point_fpr": float((pres & ~ptruth).sum() / max((~ptruth).sum(),
+                                                            1)),
+            "range_fpr": float((rres & ~rtruth).sum() / max((~rtruth).sum(),
+                                                            1))})
+    del kt
+    all_present = h.point(keys)
+    if not all_present.all():
+        raise AssertionError(f"{int((~all_present).sum())} of {n_all} "
+                             f"inserted keys probe absent")
+
+    # the xla twin through the same steps
+    twin = repro_torch.open_filter(repro_torch.FilterSpec(backend="xla",
+                                                          **kw))
+    for r, ins in enumerate(parts):
+        if r:
+            if not torch.equal(twin.state, first_state):
+                raise AssertionError("round 0: state differs from the twin")
+            twin.grow(GROW)
+        twin.insert(ins)
+        pq, lo, hi = rounds[r]
+        tp, tr = twin.point(pq), twin.range(lo, hi)
+        errs["point_part"] = max(errs["point_part"],
+                                 int((tp != verdicts[r][0]).any()))
+        errs["range_part"] = max(errs["range_part"],
+                                 int((tr != verdicts[r][1]).any()))
+    if not torch.equal(twin.state, h.state) or errs["point_part"] \
+            or errs["range_part"]:
+        raise AssertionError(f"HBM filter differs from the xla twin: {errs}")
+    del twin, first_state
+
+    mutable = _mutable_twins(rng, errs)
+
+    # B7/B8 alone, per wrapper call and plain on the grown filter at one
+    # chunk; B2/B3 on the same filter and chunk (the tier comparison)
+    lay, state = h.layout, h.state
+    f = BloomRF(lay, device=device)
+    pq, lo, hi = _queries(np.random.default_rng(SEED + 88), CHUNK, keys, top)
+    tq, tlo, thi = _i64(pq, device), _i64(lo, device), _i64(hi, device)
+    tile, blk = DEFAULT_TILE, DEFAULT_BLOCK_U32
+    nblocks = _check_tiling(lay, tile, blk)
+    lane_b, sh_b, key_b, tile_block = _point_buckets(lay, state, tq, tile,
+                                                     blk, nblocks)
+    acc = torch.ones(CHUNK + 1, dtype=torch.uint8, device=device)
+    plan, rlane_b, flat_b, rtile = _range_buckets(lay, state, tlo, thi, tile,
+                                                  blk, nblocks)
+    g = torch.zeros(plan.lanes.numel() + 1, dtype=torch.int32, device=device)
+
+    def b7():
+        _build.launch("bloomrf_point_partitioned", device, lane_b.data_ptr(),
+                      sh_b.data_ptr(), key_b.data_ptr(),
+                      tile_block.data_ptr(), lane_b.numel(), tile, blk,
+                      state.data_ptr(), acc.data_ptr())
+
+    def b8():
+        _build.launch("bloomrf_range_partitioned", device, rlane_b.data_ptr(),
+                      flat_b.data_ptr(), rtile.data_ptr(), rlane_b.numel(),
+                      tile, blk, state.data_ptr(), g.data_ptr())
+
+    ppart, rpart, pt, rg = (kernels[k]["fn"] for k in (
+        "point_part", "range_part", "point", "range"))
+    b7()
+    b8()
+    combined = f.engine.combine_range(
+        (g[:-1].to(torch.int64) & 0xFFFFFFFF).reshape(plan.lanes.shape), plan)
+    errs["point_part"] = max(errs["point_part"], _max_err(
+        acc[:CHUNK] != 0, point_partitioned_plain(lay, state, tq)))
+    errs["range_part"] = max(errs["range_part"], _max_err(
+        combined, range_partitioned_plain(lay, state, tlo, thi)))
+    # bytes either function must move: keys or bounds as int64 carriers, a
+    # byte per verdict, and the 32-byte sectors its probes need (a point
+    # probe stops at its first clear bit; a range plan skips dead paths)
+    psec = _point_read_sectors(f, state, tq)
+    rsec = _range_read_sectors(stacked_probe((lay,), (0,), device), state,
+                               tlo, thi)
+    pbytes = CHUNK * 8 + CHUNK + psec * 32
+    rbytes = CHUNK * 16 + CHUNK + rsec * 32
+    times = {
+        "point_part": _times(b7, lambda: point_partitioned_plain(lay, state,
+                                                                 tq),
+                             5, pbytes, call=lambda: ppart(lay, state, tq)),
+        "range_part": _times(b8, lambda: range_partitioned_plain(
+            lay, state, tlo, thi), 5, rbytes,
+            call=lambda: rpart(lay, state, tlo, thi)),
+    }
+    tiers = {
+        "point_resident_B2": _times(lambda: pt(lay, state, tq),
+                                    lambda: f.engine.point_batched(state, tq),
+                                    5, pbytes),
+        "range_resident_B3": _times(lambda: rg(lay, state, tlo, thi),
+                                    lambda: f.engine.range_batched(state, tlo,
+                                                                   thi),
+                                    5, rbytes),
+    }
+    for k in ("point_part", "range_part"):
+        tiers[k] = {"ms": times[k]["ms"], "call_ms": times[k]["call_ms"]}
+    # where a wrapper call's time goes: its stages one by one (CUDA events
+    # over back-to-back calls), then profiler traces of the wrapper calls
+    # and of one façade chunk (device busy share of the wall time)
+    eng = f.engine
+    flat_lanes = plan.lanes.reshape(-1)
+    words = (g[:-1].to(torch.int64) & 0xFFFFFFFF).reshape(plan.lanes.shape)
+    stages = {
+        "point_plan": _cuda_ms(lambda: eng.plan_point(tq), 20),
+        "point_plan_and_bucket": _cuda_ms(lambda: _point_buckets(
+            lay, state, tq, tile, blk, nblocks), 20),
+        "range_plan": _cuda_ms(lambda: eng.plan_range(tlo, thi), 10),
+        "range_bucket": _cuda_ms(lambda: _bucket_probes(
+            flat_lanes, tile, blk, nblocks), 10),
+        "range_combine": _cuda_ms(lambda: eng.combine_range(words, plan), 10),
+    }
+    traces = {
+        "point_part_call": _device_busy(lambda: ppart(lay, state, tq)),
+        "range_part_call": _device_busy(lambda: rpart(lay, state, tlo, thi)),
+        "facade_point_chunk": _device_busy(lambda: h.point(pq)),
+        "facade_range_chunk": _device_busy(lambda: h.range(lo, hi)),
+    }
+    if errs["point_part"] or errs["range_part"]:
+        raise AssertionError(f"partitioned kernel != plain: {errs}")
+    return {
+        "n": [HBM_KEYS, n_all], "lanes": lanes,
+        "layout": {"deltas": lay.deltas, "replicas": lay.replicas},
+        "launches": {k: v for k, v in launches.items() if v},
+        "rounds": [{**a, **b} for a, b in zip(rates, fpr)],
+        "all_keys_present": n_all, "mutable": mutable,
+        "chunk_probe_slots": {"point": int(lane_b.numel()),
+                              "point_real": int((lane_b >= 0).sum()),
+                              "range": int(rlane_b.numel()),
+                              "range_real": int((rlane_b >= 0).sum())},
+        "point_sectors": psec, "range_sectors": rsec,
+        "tiers": tiers, "call_stages_ms": stages, "traces": traces,
+        "times": times,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -718,8 +1079,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.core import basic_layout
-    from repro_torch.kernels import (insert_resident, point_probe_resident,
+    from repro_torch.kernels import (insert_resident, point_probe_partitioned,
+                                     point_probe_resident,
                                      point_probe_stacked_resident,
+                                     range_probe_partitioned,
                                      range_probe_resident,
                                      range_probe_stacked_resident,
                                      store_scan_probe)
@@ -728,9 +1091,9 @@ def main() -> int:
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    print(f"[1/7] card: {smi} | torch: {name} | torch {torch.__version__} "
+    print(f"[1/8] card: {smi} | torch: {name} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
-    print(f"[1/7] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
+    print(f"[1/8] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
           flush=True)
 
     src, rep = "src/repro_torch/csrc/", "src/repro/kernels/"
@@ -754,34 +1117,47 @@ def main() -> int:
                           "name": "point_probe_stacked_resident",
                           "source": src + "stacked.cu",
                           "replaces": rep + "probe.py:122"},
+        "point_part": {"fn": point_probe_partitioned,
+                       "name": "point_probe_partitioned",
+                       "source": src + "partitioned.cu",
+                       "replaces": rep + "probe.py:170"},
+        "range_part": {"fn": range_probe_partitioned,
+                       "name": "range_probe_partitioned",
+                       "source": src + "partitioned.cu",
+                       "replaces": rep + "rangeprobe.py:155"},
     }
-    single = {k: kernels[k] for k in ("insert", "point", "range")}
+
+    def expect(**nonzero):
+        return {k: nonzero.get(k, 0) for k in kernels}
+
     big = basic_layout(32, 2_000_000, 16.0, delta=7)
     errs = {k: 0 for k in kernels}
     t0 = time.perf_counter()
-    n_lay = phase_kernels_vs_plain(device, single, errs, big)
-    print(f"[2/7] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
-          f"top==d, W=64+replicas, multi-segment, exact, full size): "
-          f"max_abs_err {errs} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    n_lay = phase_kernels_vs_plain(device, kernels, errs, big)
+    print(f"[2/8] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
+          f"top==d, W=64+replicas, multi-segment, exact, full size; B7/B8 "
+          f"at blocks of 256, 2048, 16384 lanes): max_abs_err {errs} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     main_run = phase_main_path(2_000_000, "auto", name,
-                               {"insert": 8, "point": 4, "range": 4}, single)
+                               expect(insert=8, point=4, range=4), kernels)
     if main_run["layout"]["deltas"] != big.deltas:
         raise AssertionError(f"main-path layout {main_run['layout']}")
-    print(f"[3/7] main path {json.dumps(main_run)}", flush=True)
+    print(f"[3/8] main path {json.dumps(main_run)}", flush=True)
     large = phase_main_path(10_000_000, "resident", name,
-                            {"insert": 39, "point": 4, "range": 4}, single)
-    print(f"[4/7] resident 10M {json.dumps(large)}", flush=True)
+                            expect(insert=39, point=4, range=4), kernels)
+    print(f"[4/8] resident 10M {json.dumps(large)}", flush=True)
 
+    single = {k: kernels[k] for k in ("insert", "point", "range")}
     times = phase_times(device, big, single)
-    print(f"[5/7] times at {CHUNK} keys/queries, filter "
+    print(f"[5/8] times at {CHUNK} keys/queries, filter "
           f"{big.total_u32 * 4} B, on {smi}: {json.dumps(times)}", flush=True)
 
     t0 = time.perf_counter()
     stacked = phase_stacked_vs_plain(device, kernels, errs, big)
     stacked_times = stacked.pop("times")
     times.update(stacked_times)
-    print(f"[6/7] B4 == plain on {stacked['scan_cells_checked']} (scan, run) "
+    print(f"[6/8] B4 == plain on {stacked['scan_cells_checked']} (scan, run) "
           f"cells (mixed Δ, multi-segment, replicas, capacity ladder; padded "
           f"and flat stacks, rpb 0/2, quarantine, edge bounds); B5/B6 == "
           f"plain on {stacked['stacked_rows']} rows of the phase-3 layout: "
@@ -792,7 +1168,7 @@ def main() -> int:
     t0 = time.perf_counter()
     store = phase_store(device, kernels, errs)
     times["store_scan"] = store.pop("times")
-    print(f"[7/7] store, {STORE_KEYS} keys loaded by put (the key count is "
+    print(f"[7/8] store, {STORE_KEYS} keys loaded by put (the key count is "
           f"set by the host's per-key Python load path, not by the card), "
           f"YCSB-E: every scan == numpy oracle, every batch's (fence, touch) "
           f"== plain touch_all, {store['launches']} B4 launches for "
@@ -802,14 +1178,27 @@ def main() -> int:
           f"{json.dumps(times['store_scan'])} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    t0 = time.perf_counter()
+    hbm = phase_hbm(device, kernels, errs)
+    times.update(hbm.pop("times"))
+    print(f"[8/8] HBM-scale filter, {HBM_KEYS} keys under auto, grown x{GROW} "
+          f"in place to {HBM_KEYS * GROW}: no false negatives over all keys "
+          f"(truth sorted on the card), state and verdicts == xla twin, "
+          f"launches {json.dumps(hbm['launches'])}; deletable and TTL "
+          f"filters == their twins: {json.dumps(hbm)}; B7/B8 beside B2/B3 "
+          f"on the grown filter at {CHUNK} keys/ranges on {smi} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
     call_ms = {k: t.pop("call_ms") for k, t in times.items()}
-    print(f"[7/7] kernel wrappers' ms per call by CUDA events over 200 "
+    print(f"[8/8] kernel wrappers' ms per call by CUDA events over 200 "
           f"back-to-back calls, host dispatch included (the kernels line's "
           f"ms is the kernel alone, from a CUDA graph): "
           f"{json.dumps(call_ms)}", flush=True)
     launches = dict(main_run["launches"])
     launches.update(stacked["launches"])
     launches["store_scan"] = store["launches"]
+    launches.update(point_part=hbm["launches"]["point_part"],
+                    range_part=hbm["launches"]["range_part"])
     rows = [{"name": v["name"], "route": "cuda", "source": v["source"],
              "replaces": v["replaces"], "launches": launches[k],
              "max_abs_err": errs[k], **times[k]} for k, v in kernels.items()]

@@ -12,8 +12,10 @@ the same spec describes the same filter in both packages.  For
   ``core/codecs.py``;
 * chooses the layout through ``core/tuning.py`` (the paper's §7 advisor) or
   the tuning-free ``basic_layout``, as ``repro`` does;
-* dispatches to the CUDA kernels (``kernels/ops.py``) or to the plain
-  engine path.
+* dispatches to the CUDA kernels (``kernels/ops.py``: the resident or the
+  partitioned tier by size) or to the plain engine path;
+* deletes keys, ages them out, and grows in place through
+  ``core/dynamic.py`` (``mutability="deletable"`` / ``"ttl"``, ``grow``).
 
 The filter or store lives on ``device``, which is ``"cuda"`` unless the
 caller asks for another; without a card :func:`open_filter` raises rather
@@ -301,95 +303,192 @@ class SingleFilter:
     """One bloomRF on one device: the CUDA kernels or the plain engine path.
 
     ``backend='auto'`` uses the kernels on a CUDA device wherever they
-    apply (hashed layout, d <= 32) and the engine path otherwise;
-    ``resident`` forces the kernels (exact layouts' range queries still take
-    the engine path); ``xla`` forces the plain engine path, on whatever
-    device the filter lives on.
+    apply (hashed layout, d <= 32) and the engine path otherwise; the
+    kernels' tier (resident or partitioned) follows the filter's size, as
+    in ``repro``.  ``resident`` and ``partitioned`` force a tier (exact
+    layouts' range queries still take the engine path); ``xla`` forces the
+    plain engine path, on whatever device the filter lives on.
+
+    ``mutability='deletable'`` keeps host counting lanes beside the state
+    (:meth:`delete`); ``'ttl'`` keeps ``spec.generations`` generation
+    states and probes their OR (:meth:`advance_generation`).  :meth:`grow`
+    promotes any of them in place to a larger layout.
     """
 
     def __init__(self, spec: FilterSpec, codec: _Codec, device):
-        from .core.bloomrf import BloomRF
-        from .kernels.ops import FilterOps
+        from .core.dynamic import CountingLanes, Generations
 
         self.spec = spec
         self.codec = codec
         self.device = torch.device(device)
-        self.layout, self.tuning = _plan_layout(spec, codec)
+        layout, self.tuning = _plan_layout(spec, codec)
         backend = spec.backend
         if backend == "auto":
             backend = "kernels" if (self.device.type == "cuda"
-                                    and not self.layout.has_exact) else "xla"
+                                    and not layout.has_exact) else "xla"
         self.backend = backend
-        self.filter = BloomRF(self.layout, device=self.device)
-        if backend == "xla":
+        self._bind_layout(layout)
+        self.counts = None      # deletable: per-bit reference counters
+        self.gens = None        # ttl: generation lanes
+        self._state = self.filter.init_state()
+        if spec.mutability == "deletable":
+            self.counts = CountingLanes(layout.total_bits)
+        elif spec.mutability == "ttl":
+            self.gens = Generations(self.filter.init_state, spec.generations)
+
+    def _bind_layout(self, layout) -> None:
+        """(Re)build the filter and the kernel dispatch for ``layout``:
+        shared by ``__init__`` and :meth:`grow`."""
+        from .core.bloomrf import BloomRF
+        from .kernels.ops import FilterOps
+
+        self.layout = layout
+        self.filter = BloomRF(layout, device=self.device)
+        if self.backend == "xla":
             self.ops = None
             self._insert = self.filter.insert
             self._point = self.filter.point
             self._range = self.filter.range
         else:
-            budget = (max(self.layout.total_u32, 1) if backend == "resident"
-                      else 0 if backend == "partitioned" else None)
-            self.ops = FilterOps(self.layout, vmem_budget_u32=budget)
+            budget = (max(layout.total_u32, 1) if self.backend == "resident"
+                      else 0 if self.backend == "partitioned" else None)
+            self.ops = FilterOps(layout, vmem_budget_u32=budget)
             self._insert = self.ops.insert
             self._point = self.ops.point
             self._range = self.ops.range
-        self._state = self.filter.init_state()
 
     # -- state --------------------------------------------------------------
     @property
     def state(self) -> torch.Tensor:
-        """The filter's ``int32[total_u32]`` lanes (uint32 bits) on device."""
-        return self._state
+        """The probed ``int32[total_u32]`` lanes (uint32 bits) on device:
+        a TTL filter's is the OR of its generations."""
+        return self.gens.collapsed if self.gens is not None else self._state
 
-    def load_state(self, lanes: np.ndarray) -> None:
-        """Replace the state with ``uint32[total_u32]`` lanes, e.g. a
-        ``repro`` filter's ``np.asarray(handle.state)`` for the same spec."""
+    def _lanes(self, lanes) -> torch.Tensor:
         lanes = np.asarray(lanes)
         if lanes.dtype != np.uint32 or lanes.shape != (self.layout.total_u32,):
             raise ValueError(
                 f"state must be uint32[{self.layout.total_u32}], got "
                 f"{lanes.dtype}{list(lanes.shape)}")
-        self._state = torch.from_numpy(lanes.view(np.int32).copy()).to(
-            self.device)
+        return torch.from_numpy(lanes.view(np.int32).copy()).to(self.device)
+
+    def load_state(self, lanes=None, counts=None, generations=None,
+                   current: int = 0) -> None:
+        """Replace the state with ``uint32[total_u32]`` lanes, e.g. a
+        ``repro`` filter's ``np.asarray(handle.state)`` for the same spec.
+
+        A deletable filter also takes its ``uint8[total_bits]`` counters
+        (``handle.counts.counts``).  A TTL filter takes its generation
+        states instead of ``lanes`` (``[np.asarray(g) for g in
+        handle.gens.gens]``) and the index of the ``current`` one."""
+        from .core.dynamic import CountingLanes, Generations
+
+        if (counts is not None) != (self.counts is not None):
+            raise ValueError("counts go with mutability='deletable' and "
+                             "only with it")
+        if (generations is not None) != (self.gens is not None) \
+                or (self.gens is not None and lanes is not None):
+            raise ValueError("a TTL filter loads its generations (and no "
+                             "lanes); other filters load lanes")
+        if self.gens is not None:
+            if len(generations) != self.gens.n_generations \
+                    or not 0 <= current < len(generations):
+                raise ValueError(
+                    f"{len(generations)} generations (current {current}) "
+                    f"for a filter of {self.gens.n_generations}")
+            gens = Generations(self.filter.init_state, len(generations))
+            gens.gens = [self._lanes(g) for g in generations]
+            gens.current = current
+            self.gens = gens
+            return
+        state = self._lanes(lanes)
+        if counts is not None:
+            self.counts = CountingLanes(self.layout.total_bits, counts=counts)
+        self._state = state
 
     def state_numpy(self) -> np.ndarray:
-        """A host copy of the state as ``uint32[total_u32]`` lanes."""
-        return self._state.cpu().numpy().view(np.uint32).copy()
+        """A host copy of the probed state as ``uint32[total_u32]`` lanes."""
+        return self.state.cpu().numpy().view(np.uint32).copy()
 
     # -- mutation -----------------------------------------------------------
-    def insert(self, keys) -> None:
+    def _chunks(self, keys):
         codes = self.codec.encode_insert(keys)
         for s in range(0, len(codes), self.spec.chunk):
-            cj = _codes_tensor(codes[s:s + self.spec.chunk], self.device)
-            self._state = self._insert(self._state, cj)
+            yield _codes_tensor(codes[s:s + self.spec.chunk], self.device)
+
+    def _positions(self, cj: torch.Tensor) -> np.ndarray:
+        return self.filter.positions(cj).cpu().numpy()
+
+    def insert(self, keys) -> None:
+        for cj in self._chunks(keys):
+            if self.gens is not None:
+                self.gens.insert(self._insert, cj)
+            else:
+                self._state = self._insert(self._state, cj)
+            if self.counts is not None:
+                self.counts.add(self._positions(cj))
+
+    def delete(self, keys) -> None:
+        """Remove previously inserted keys (``mutability='deletable'``).
+
+        Decrements the counting lanes; bits whose counters drain to zero
+        are cleared, so deleted keys stop costing false positives (up to
+        counter saturation).  Deleting keys never inserted is a contract
+        violation, as with any counting Bloom filter."""
+        from .core.dynamic import clear_bits
+
+        if self.counts is None:
+            raise ValueError(
+                "delete() needs FilterSpec(mutability='deletable')")
+        for cj in self._chunks(keys):
+            zeroed = self.counts.remove(self._positions(cj))
+            self._state = clear_bits(self._state, zeroed)
+
+    def advance_generation(self) -> None:
+        """Close the current TTL window (``mutability='ttl'``): the oldest
+        generation's keys stop costing false positives; keys not
+        re-inserted within ``spec.generations`` windows expire."""
+        if self.gens is None:
+            raise ValueError(
+                "advance_generation() needs FilterSpec(mutability='ttl')")
+        self.gens.advance()
+
+    def grow(self, factor: int = 4) -> None:
+        """In-place capacity promotion (``core/dynamic.py``): segment-tile
+        the state onto a ``factor``-times larger layout with no key
+        re-hashing, and re-bind the kernel dispatch to it (a filter that
+        outgrows the resident budget moves to the partitioned tier).
+        Every inserted key keeps probing positive."""
+        from .core.dynamic import promote_layout, promote_state
+
+        old = self.layout
+        new = promote_layout(old, factor)
+        self._bind_layout(new)
+        if self.gens is not None:
+            self.gens = self.gens.map(
+                lambda st: promote_state(st, old, new),
+                zero_fn=self.filter.init_state)
+        else:
+            self._state = promote_state(self._state, old, new)
+        if self.counts is not None:
+            self.counts = self.counts.promoted(old, new)
+        self.spec = dataclasses.replace(self.spec, n=self.spec.n * factor)
 
     # -- probes -------------------------------------------------------------
     def point(self, qs) -> np.ndarray:
         codes = self.codec.encode_point(qs)
-        return chunked_probe(self._point, self._state, [codes], self.device,
+        return chunked_probe(self._point, self.state, [codes], self.device,
                              self.spec.chunk)
 
     def range(self, lo, hi) -> np.ndarray:
         clo, chi = self.codec.encode_bounds(lo, hi)
-        return chunked_probe(self._range, self._state, [clo, chi],
+        return chunked_probe(self._range, self.state, [clo, chi],
                              self.device, self.spec.chunk)
 
     def size_bits(self) -> int:
         return self.layout.total_bits
 
     # -- not ported yet -------------------------------------------------------
-    def grow(self, factor: int = 4) -> None:
-        raise NotImplementedError(
-            "in-place growth needs core/dynamic.py (ROADMAP A.2)")
-
-    def delete(self, keys) -> None:
-        raise NotImplementedError(
-            "deletable filters need core/dynamic.py (ROADMAP A.2)")
-
-    def advance_generation(self) -> None:
-        raise NotImplementedError(
-            "TTL filters need core/dynamic.py (ROADMAP A.2)")
-
     def observed_fpr(self) -> dict:
         raise NotImplementedError(
             "live FPR telemetry needs obs/ (ROADMAP A.7)")
@@ -534,8 +633,4 @@ def open_filter(spec: FilterSpec, device=None):
     codec = _codec_for(spec.dtype)
     if spec.placement == "store":
         return TypedStore(spec, codec, device)
-    if spec.mutability != "insert_only":
-        raise NotImplementedError(
-            f"mutability={spec.mutability!r} needs core/dynamic.py "
-            f"(ROADMAP A.2)")
     return SingleFilter(spec, codec, resolve_device(device))

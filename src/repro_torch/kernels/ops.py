@@ -10,11 +10,16 @@ and falls back to 2^22 lanes.  That figure sized a TPU core's VMEM; on
 Hopper the "resident" kernels read the filter through L2 and device memory,
 and a default measured on the card replaces this one later (ROADMAP).
 
+Larger filters take the partitioned kernels for point and range probes,
+as in ``repro``.  Inserts take the insert kernel on both tiers: the
+reference's partitioned insert is the XLA engine, whose counterpart here
+would be the plain version on a CUDA tensor, and the insert kernel has no
+size limit on Hopper (one global ``atomicOr`` per bit).  The state is bit
+for bit the same either way.
+
 Stacked probes over ``R`` same-layout rows dispatch as in ``repro``: the
 stacked kernels while ``R * total_u32`` fits the budget, the plain
-``StackedProbe`` above it, and per-row plain probes for exact layouts.  The
-partitioned tier (single filters above the threshold) is not ported yet:
-it raises ``NotImplementedError`` naming its ROADMAP items.
+``StackedProbe`` above it, and per-row plain probes for exact layouts.
 """
 from __future__ import annotations
 
@@ -59,11 +64,12 @@ def read_vmem_budget_u32() -> int:
 class FilterOps:
     """Layout-bound kernel dispatcher.
 
-    * filters of up to ``vmem_budget_u32`` lanes -> the resident kernels
-      (insert, point and range);
+    * filters of up to ``vmem_budget_u32`` lanes (``resident``) -> the
+      resident point and range kernels;
+    * larger filters -> the partitioned point and range kernels;
+    * inserts -> the insert kernel on both tiers;
     * exact-layer layouts (range) -> the plain engine path (its middle scan
       is answered from the exact segment);
-    * larger filters -> the partitioned tier, not ported yet;
     * stacked rows -> the stacked kernels within the budget, the plain
       ``StackedProbe`` above it, per-row plain probes for exact layouts.
 
@@ -77,25 +83,24 @@ class FilterOps:
         self.layout = layout
         self.vmem_budget_u32 = (read_vmem_budget_u32()
                                 if vmem_budget_u32 is None else vmem_budget_u32)
-        if layout.total_u32 > self.vmem_budget_u32:
-            raise NotImplementedError(
-                f"a filter of {layout.total_u32} lanes exceeds the resident "
-                f"budget of {self.vmem_budget_u32}; the partitioned kernels "
-                f"are not ported yet (ROADMAP B.7, B.8) — use "
-                f"backend='resident'")
+        self.resident = layout.total_u32 <= self.vmem_budget_u32
 
     def insert(self, state: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
         return _insert.insert_resident(self.layout, state, keys)
 
     def point(self, state: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
-        return _probe.point_probe_resident(self.layout, state, keys)
+        if self.resident:
+            return _probe.point_probe_resident(self.layout, state, keys)
+        return _probe.point_probe_partitioned(self.layout, state, keys)
 
     def range(self, state: torch.Tensor, lo: torch.Tensor,
               hi: torch.Tensor) -> torch.Tensor:
         if self.layout.has_exact:  # middle scan: the plain engine path
             return filter_for_layout(self.layout, state.device).range(
                 state, lo, hi)
-        return _rangeprobe.range_probe_resident(self.layout, state, lo, hi)
+        if self.resident:
+            return _rangeprobe.range_probe_resident(self.layout, state, lo, hi)
+        return _rangeprobe.range_probe_partitioned(self.layout, state, lo, hi)
 
     # -- stacked-run probes (R same-layout rows, one launch) --------------
     def _stacked(self, stack: torch.Tensor):

@@ -12,21 +12,33 @@ per-thread plan over ``R`` same-layout rows, one launch for the whole
 ``(B, R)`` verdict matrix (``csrc/stacked.cu``); its plain version is
 ``StackedProbe._range_all``.
 
+``range_probe_partitioned`` replaces
+``repro/kernels/rangeprobe.py::range_probe_partitioned``, the tier of
+filters above the resident budget: the engine's range plan, its ``B * A``
+lanes bucketed by filter block (``probe._bucket_probes``), one launch of
+``csrc/partitioned.cu`` that reads each lane and writes it to its place in
+the ``(B, A)`` word matrix, then the engine's combine.  Plan and combine
+stay torch ops on the card, as they stay XLA in the reference; the plain
+version reads the lanes with a torch gather (``range_partitioned_plain``).
+
 Exact-bitmap layouts are rejected, as by the TPU kernels: ``FilterOps``
-routes their range queries to the engine path.  The partitioned range
-kernel is not ported yet (ROADMAP B.8).
+routes their range queries to the engine path.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core import FilterLayout
+from ..core.bloomrf import MASK32
 from ..core.engine import stacked_probe
 from . import _build
 from ._checks import check_keys, check_stack, check_state
+from .probe import (DEFAULT_BLOCK_U32, DEFAULT_TILE, _bucket_probes,
+                    _check_tiling, gather_partitioned)
 from .ref import check_kernel_layout, filter_for_layout
 
-__all__ = ["range_probe_resident", "range_probe_stacked_resident"]
+__all__ = ["range_probe_resident", "range_probe_stacked_resident",
+           "range_probe_partitioned", "range_partitioned_plain"]
 
 
 def _check_range_kernel_layout(layout: FilterLayout) -> None:
@@ -92,3 +104,87 @@ def range_probe_stacked_resident(layout: FilterLayout, stack: torch.Tensor,
 
 #: kernel launches so far (a plain count; reset it by assignment)
 range_probe_stacked_resident.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# partitioned tier (filters above the resident budget)
+# ---------------------------------------------------------------------------
+
+def range_partitioned_words(state, lane_b, flat_b, tile_block, nprobe: int,
+                            tile: int, block_u32: int,
+                            plain: bool = False) -> torch.Tensor:
+    """The ``nprobe`` planned lanes as uint32 values in int64, in plan
+    order, from their bucketed slots (``flat_b``: each slot's index in the
+    plan, ``nprobe`` = the scrap slot at padding).  Launches the kernel on
+    a CUDA state unless ``plain``; the torch gather otherwise."""
+    if plain or state.device.type == "cpu":
+        vals = gather_partitioned(state, lane_b, tile_block, tile, block_u32)
+        g = torch.zeros(nprobe + 1, dtype=torch.int64, device=state.device)
+        g[flat_b.to(torch.int64)] = vals
+        return g[:nprobe]
+    g = torch.zeros(nprobe + 1, dtype=torch.int32, device=state.device)
+    _build.launch("bloomrf_range_partitioned", state.device,
+                  lane_b.data_ptr(), flat_b.data_ptr(), tile_block.data_ptr(),
+                  lane_b.numel(), tile, block_u32, state.data_ptr(),
+                  g.data_ptr())
+    range_probe_partitioned.launches += 1
+    return g[:nprobe].to(torch.int64) & MASK32
+
+
+def _range_buckets(layout, state, lo, hi, tile, block_u32, nblocks):
+    """The range plan and its ``B * A`` lanes bucketed by block: ``(plan,
+    lane_b, flat_b, tile_block)``, plan index ``B * A`` (a scrap slot) at
+    padding."""
+    plan = filter_for_layout(layout, state.device).engine.plan_range(lo, hi)
+    B, A = plan.lanes.shape
+    if B * A >= 1 << 31:
+        raise ValueError(f"{B} ranges x {A} plan lanes exceed the int32 "
+                         f"word index; probe in smaller batches")
+    order, slot, lane_b, tile_block, capr = _bucket_probes(
+        plan.lanes.reshape(-1), tile, block_u32, nblocks)
+    flat_b = torch.full((capr,), B * A, dtype=torch.int32,
+                        device=state.device)
+    flat_b[slot] = order.to(torch.int32)
+    return plan, lane_b, flat_b, tile_block
+
+
+def _range_partitioned(layout, state, lo, hi, tile, block_u32, plain):
+    _check_range_kernel_layout(layout)
+    check_state(layout, state)
+    _check_bounds(lo, hi, state.device)
+    nblocks = _check_tiling(layout, tile, block_u32)
+    if not lo.numel():
+        return torch.zeros(0, dtype=torch.bool, device=state.device)
+    plan, lane_b, flat_b, tile_block = _range_buckets(
+        layout, state, lo, hi, tile, block_u32, nblocks)
+    B, A = plan.lanes.shape
+    g = range_partitioned_words(state, lane_b, flat_b, tile_block, B * A,
+                                tile, block_u32, plain)
+    return filter_for_layout(layout, state.device).engine.combine_range(
+        g.reshape(B, A), plan)
+
+
+def range_probe_partitioned(layout: FilterLayout, state: torch.Tensor,
+                            lo: torch.Tensor, hi: torch.Tensor,
+                            tile: int = DEFAULT_TILE,
+                            block_u32: int = DEFAULT_BLOCK_U32
+                            ) -> torch.Tensor:
+    """``bool[B]`` range verdicts for ``[lo, hi]`` (int64 carriers of uint32
+    codes; swapped bounds allowed) against ``state`` (int32 lanes) of a
+    filter of any size: one kernel launch per call on a CUDA state, the
+    plain version on a CPU state."""
+    return _range_partitioned(layout, state, lo, hi, tile, block_u32, False)
+
+
+def range_partitioned_plain(layout: FilterLayout, state: torch.Tensor,
+                            lo: torch.Tensor, hi: torch.Tensor,
+                            tile: int = DEFAULT_TILE,
+                            block_u32: int = DEFAULT_BLOCK_U32
+                            ) -> torch.Tensor:
+    """The plain version of :func:`range_probe_partitioned` on any device:
+    the same plan, bucketing and combine, the read as a torch gather."""
+    return _range_partitioned(layout, state, lo, hi, tile, block_u32, True)
+
+
+#: kernel launches so far (a plain count; reset it by assignment)
+range_probe_partitioned.launches = 0

@@ -12,8 +12,9 @@ Counterpart of ``repro/store/compaction.py``.  Two invariants carry it:
   surviving keys.  The ``purge`` policy rebuilds from the surviving keys
   when too many merged entries are dead.
 
-In-place promotion (segment tiling, ``core/dynamic.py``) is not ported
-yet (ROADMAP A.2): ``allow_promote=True`` raises.
+Promote merges (segment tiling with ``core/dynamic.py``, guarded by
+``promote_max_hops`` and the density slack) are not ported yet (ROADMAP
+A.2b): ``allow_promote=True`` raises.
 """
 from __future__ import annotations
 
@@ -81,7 +82,7 @@ def merge_filter_state(runs: List[Run], target_layout: FilterLayout,
     """
     if allow_promote:
         raise NotImplementedError(
-            "promote merges need core/dynamic.py (ROADMAP A.2)")
+            "promote merges are not ported yet (ROADMAP A.2b)")
     del promote_density_slack       # a promote-only knob
     purge = purge_dead_frac is not None and dead_frac > purge_dead_frac
     if purge:

@@ -54,7 +54,7 @@ class Run:
         self.layout = layout
         self.state = state            # int32[layout.total_u32] filter block
         # promote hops this filter block has survived without a rebuild
-        # (always 0 until promote merges are ported, ROADMAP A.2)
+        # (always 0 until promote merges are ported, ROADMAP A.2b)
         self.promotions = int(promotions)
         # a quarantined run's filter block failed its checksum: the probe
         # plane must treat the row as always-maybe (fence-only pruning)

@@ -28,7 +28,7 @@ seam; every other error of the kernel (a failed build or launch)
 propagates.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``d > 32`` (A.1), ``mutability="deletable"`` (A.2), the
+item: ``d > 32`` (A.1), ``mutability="deletable"`` (A.2b), the
 ``repro.filters`` baselines as ``filter_backend`` (A.3c),
 ``durability="wal"`` with snapshots, checkpoints and scrubs (A.3b),
 observability (A.7) and ``tuning="adaptive"`` (A.8).
@@ -140,8 +140,8 @@ def _check_ported(cfg: StoreConfig) -> None:
             f"d={cfg.d} needs a 64-bit key domain (ROADMAP A.1)")
     if cfg.mutability == "deletable":
         raise NotImplementedError(
-            "mutability='deletable' needs promote merges from "
-            "core/dynamic.py (ROADMAP A.2)")
+            "mutability='deletable' needs promote merges and purges, "
+            "which are not ported yet (ROADMAP A.2b)")
     if cfg.tuning == "adaptive":
         raise NotImplementedError(
             "tuning='adaptive' needs the tune/ package (ROADMAP A.8)")

@@ -84,14 +84,14 @@ def test_default_device_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(dtype="u32", backend="partitioned"), "B.7"),
+    (dict(dtype="u32", placement="store", tuning="adaptive"), "A.8"),
     (dict(dtype="u32", placement="store", store_backend="rosetta"), "A.3"),
     (dict(dtype="u32", placement="bank", shards=2), "A.9"),
     (dict(dtype="u32", placement="tenant", tenants=2), "A.9"),
     (dict(dtype="u64"), "A.1"),
     (dict(dtype="f64"), "A.1"),
     (dict(dtype="str"), "A.1"),
-    (dict(dtype="u32", mutability="deletable"), "A.2"),
+    (dict(dtype="u32", placement="store", mutability="deletable"), "A.2"),
 ])
 def test_not_ported_raises(kw, match):
     spec = repro_torch.FilterSpec(n=1000, **kw)
@@ -102,10 +102,47 @@ def test_not_ported_raises(kw, match):
 def test_not_ported_methods_raise():
     h = repro_torch.open_filter(repro_torch.FilterSpec(dtype="u32", n=100),
                                 device="cpu")
-    for call in (h.grow, h.observed_fpr, lambda: h.range_where_b(1, 2, 3),
-                 lambda: h.delete([1]), h.advance_generation):
+    for call in (h.observed_fpr, lambda: h.range_where_b(1, 2, 3)):
         with pytest.raises(NotImplementedError):
             call()
+
+
+def test_partitioned_backend_opens_and_answers():
+    """``backend="partitioned"`` is ported (it raised naming B.7 before):
+    the handle takes the partitioned tier and answers like ``auto``."""
+    rng = np.random.default_rng(0xB7)
+    keys = rng.integers(0, 1 << 32, 1000, dtype=np.uint64)
+    part, auto = (repro_torch.open_filter(repro_torch.FilterSpec(
+        dtype="u32", n=1000, backend=b), device="cpu")
+        for b in ("partitioned", "auto"))
+    assert not part.ops.resident
+    for h in (part, auto):
+        h.insert(keys)
+    np.testing.assert_array_equal(part.state_numpy(), auto.state_numpy())
+    assert part.point(keys).all() and part.range(keys, keys + 3).all()
+
+
+@pytest.mark.parametrize("mutability", ["deletable", "ttl"])
+def test_single_mutable_filters_open(mutability):
+    """``mutability="deletable"`` (it raised naming A.2 before) and
+    ``"ttl"`` open a single filter whose delete / advance_generation and
+    grow work; tests/test_torch_dynamic.py holds them to ``repro``."""
+    rng = np.random.default_rng(0xA2)
+    keys = rng.integers(0, 1 << 32, 1000, dtype=np.uint64)
+    h = repro_torch.open_filter(repro_torch.FilterSpec(
+        dtype="u32", n=1000, mutability=mutability, generations=2),
+        device="cpu")
+    h.insert(keys)
+    if mutability == "deletable":
+        h.delete(keys[:500])
+        assert h.point(keys[:500]).mean() < 0.1
+    else:
+        h.advance_generation()
+        h.advance_generation()
+        assert not h.state_numpy().any()
+        h.insert(keys[500:])
+    h.grow(4)
+    assert h.point(keys[500:]).all()
 
 
 def test_spec_validation_matches_reference():

@@ -10,11 +10,15 @@ import torch
 import repro_torch
 from repro_torch.core import BloomRF, FilterLayout, basic_layout, stacked_probe
 from repro_torch.kernels import (FilterOps, build_run_stack, insert_resident,
+                                 point_probe_partitioned,
                                  point_probe_resident,
                                  point_probe_stacked_resident,
+                                 range_probe_partitioned,
                                  range_probe_resident,
                                  range_probe_stacked_resident,
                                  store_scan_probe, store_scan_probe_flat)
+from repro_torch.kernels.probe import point_partitioned_plain
+from repro_torch.kernels.rangeprobe import range_partitioned_plain
 from repro_torch.store import Store, StoreConfig
 
 pytestmark = pytest.mark.gpu
@@ -113,6 +117,97 @@ def test_facade_auto_routes_through_kernels(cuda):
     assert (insert_resident.launches - counts[0],
             point_probe_resident.launches - counts[1],
             range_probe_resident.launches - counts[2]) == (1, 1, 1)
+
+
+# ---------------------------------------------------------------------------
+# the partitioned kernels (B7/B8)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("block_u32", [256, 2048, 16384])
+@pytest.mark.parametrize("name", ["d16_delta4", "d32_delta1", "d32_delta7",
+                                  "top_eq_d", "w64_replicas", "multiseg"])
+def test_partitioned_kernels_match_plain_versions(cuda, name, block_u32):
+    lay = _LAYOUTS[name]()
+    f = BloomRF(lay, device=cuda)
+    keys, lo, hi = _inputs(lay, cuda)
+    state = insert_resident(lay, f.init_state(), keys)
+    qs = torch.cat([keys[:1000], lo])
+    n0 = (point_probe_partitioned.launches, range_probe_partitioned.launches)
+    pts = point_probe_partitioned(lay, state, qs, 512, block_u32)
+    rgs = range_probe_partitioned(lay, state, lo, hi, 512, block_u32)
+    assert (point_probe_partitioned.launches - n0[0],
+            range_probe_partitioned.launches - n0[1]) == (1, 1)
+    torch.testing.assert_close(
+        pts, point_partitioned_plain(lay, state, qs, 512, block_u32))
+    torch.testing.assert_close(pts, f.engine.point_batched(state, qs))
+    torch.testing.assert_close(
+        rgs, range_partitioned_plain(lay, state, lo, hi, 512, block_u32))
+    torch.testing.assert_close(rgs, f.engine.range_batched(state, lo, hi))
+    torch.testing.assert_close(
+        range_probe_partitioned(lay, state, hi, lo, 512, block_u32), rgs)
+    if name == "d32_delta7":          # the exact layout's points, too
+        xf = BloomRF(_EXACT, device=cuda)
+        xs = insert_resident(_EXACT, xf.init_state(), keys)
+        torch.testing.assert_close(
+            point_probe_partitioned(_EXACT, xs, qs, 512, block_u32),
+            xf.engine.point_batched(xs, qs))
+
+
+def test_facade_auto_above_the_budget_takes_the_partitioned_kernels(cuda):
+    """Under ``auto`` a filter above the resident budget launches B7/B8 and
+    never B2/B3; after ``grow`` it stays there and agrees with the ``xla``
+    twin."""
+    kw = dict(dtype="u32", n=600_000)
+    twin = repro_torch.open_filter(repro_torch.FilterSpec(backend="xla",
+                                                          **kw))
+    rng = np.random.default_rng(4)
+    keys = rng.integers(0, 1 << 32, 600_000, dtype=np.uint64)
+    lo = rng.integers(0, 1 << 32, 10_000, dtype=np.uint64)
+    hi = np.minimum(lo + np.uint64(1 << 10), np.uint64((1 << 32) - 1))
+    fns = (point_probe_resident, range_probe_resident,
+           point_probe_partitioned, range_probe_partitioned)
+    before = [fn.launches for fn in fns]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("BLOOMRF_VMEM_BUDGET_U32", str(1 << 16))
+        h = repro_torch.open_filter(repro_torch.FilterSpec(**kw))
+        assert h.backend == "kernels" and not h.ops.resident
+        for step in range(2):
+            for x in (h, twin):
+                x.insert(keys[step::2])
+            np.testing.assert_array_equal(h.state_numpy(),
+                                          twin.state_numpy())
+            np.testing.assert_array_equal(h.range(lo, hi), twin.range(lo, hi))
+            np.testing.assert_array_equal(h.point(lo), twin.point(lo))
+            assert h.point(keys[:2 * 300_000:2]).all()
+            for x in (h, twin):
+                x.grow(4)
+            assert not h.ops.resident
+    launched = [fn.launches - b for fn, b in zip(fns, before)]
+    assert launched == [0, 0, 6, 2]
+
+
+def test_mutable_filters_on_the_card_match_the_xla_twin(cuda):
+    rng = np.random.default_rng(5)
+    keys = rng.integers(0, 1 << 32, 200_000, dtype=np.uint64)
+    for mut in ("deletable", "ttl"):
+        kw = dict(dtype="u32", n=200_000, mutability=mut, generations=3)
+        h = repro_torch.open_filter(repro_torch.FilterSpec(
+            backend="partitioned", **kw))
+        twin = repro_torch.open_filter(repro_torch.FilterSpec(
+            backend="xla", **kw))
+        for x in (h, twin):
+            x.insert(keys[:100_000])
+            if mut == "deletable":
+                x.delete(keys[:50_000])
+            else:
+                x.advance_generation()
+            x.grow(4)
+            x.insert(keys[100_000:])
+        np.testing.assert_array_equal(h.state_numpy(), twin.state_numpy())
+        if mut == "deletable":
+            np.testing.assert_array_equal(h.counts.counts, twin.counts.counts)
+        assert h.point(keys[50_000:]).all()
+        np.testing.assert_array_equal(h.point(keys), twin.point(keys))
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,19 @@
-"""The port stands alone: it imports neither ``jax`` nor anything of
-``repro``, so it runs where JAX is not installed."""
+"""The port stands alone: it and ``chip_smoke.py`` import neither ``jax``
+nor anything of ``repro``, so they run where JAX is not installed."""
 import ast
 import os
 import subprocess
 import sys
 from pathlib import Path
 
-_SRC = Path(__file__).resolve().parent.parent / "src"
+_ROOT = Path(__file__).resolve().parent.parent
+_SRC = _ROOT / "src"
 
 
 def test_import_pulls_in_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.kernels\n"
             "import repro_torch.store, repro_torch.kernels.store_scan\n"
+            "import repro_torch.core.dynamic\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -35,7 +37,8 @@ def test_no_module_imports_jax_or_repro():
     names = {str(f.relative_to(_SRC / "repro_torch")) for f in files}
     assert {"store/store.py", "store/run.py", "store/compaction.py",
             "store/memtable.py", "store/faults.py", "store/integrity.py",
-            "kernels/store_scan.py"} <= names
+            "kernels/store_scan.py", "core/dynamic.py"} <= names
+    files.append(_ROOT / "chip_smoke.py")
     for f in files:
         roots = set(_imported_roots(ast.parse(f.read_text(), str(f))))
         assert not roots & {"jax", "jaxlib", "repro"}, f

@@ -119,14 +119,18 @@ def test_filter_ops_dispatch_and_exact_layouts(rng):
 
 
 def test_filter_ops_tiers_not_ported_raise():
+    """Both tiers that once raised here are ported now: the partitioned
+    tier (B7/B8, tests/test_torch_partitioned.py) and the stacked probes
+    (B5/B6, tests/test_torch_stacked.py).  Each answers as the resident
+    single filter does."""
     lay = basic_layout(32, 1000, 12.0, delta=6)
-    with pytest.raises(NotImplementedError, match="B.7"):
-        FilterOps(lay, vmem_budget_u32=1)
-    # the stacked tier is ported (B5/B6, tests/test_torch_stacked.py): each
-    # row of a stack answers as that filter alone
-    ops = FilterOps(lay)
     keys = _i64(np.arange(0, 1 << 30, 1 << 20, dtype=np.uint64))
     state = kref.filter_for_layout(lay, _CPU).build(keys)
+    part = FilterOps(lay, vmem_budget_u32=1)
+    assert not part.resident
+    assert part.point(state, keys).all()
+    assert part.range(state, keys, keys + 5).all()
+    ops = FilterOps(lay)
     stack = torch.stack([state, torch.zeros_like(state)])
     pts = ops.point_stacked(stack, keys)
     assert pts[:, 0].all() and not pts[:, 1].any()
