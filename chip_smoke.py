@@ -10,7 +10,10 @@ Phases, one line of output each:
    seconds it takes ``nvcc`` to build the kernels from ``src/repro_torch/csrc``;
 2. each single-filter CUDA kernel against its plain PyTorch version on the
    card, bit for bit, over a sweep of layouts and the edge bounds; the
-   partitioned kernels (B7/B8) at blocks of 256, 2048 and 16384 lanes;
+   partitioned kernels (B7/B8, and their variants not taken) also on odd
+   batches and on layouts with more replicas than a range word issues at
+   once, against plain versions bucketed by blocks of 256, 2048 and 16384
+   lanes (the kernels take no blocks);
 3. the main path at full size: ``open_filter`` of a 2,000,000-key u32 filter
    at 16 bits/key on the default device and backend, 2,000,000 inserts,
    1,048,576 point and 1,048,576 range queries; no false negatives, the
@@ -46,7 +49,9 @@ Phases, one line of output each:
    8 B7, 8 B8 and 383 B1 launches and none of any other; a deletable and a
    TTL filter (4 generations) of 2,000,000 keys through
    ``backend="partitioned"`` equal to their twins; B7/B8 timed on the
-   grown filter beside B2/B3 on the same filter and chunk.
+   grown filter beside B2/B3 and their variants not taken on the same
+   filter and chunk, in turns; each partitioned wrapper call is one device
+   operation under the profiler.
 
 It prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -75,6 +80,42 @@ def _smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else \
         f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def _ptxas_usage() -> dict:
+    """Registers and spill bytes of every kernel in ``src/repro_torch/csrc``
+    as ``nvcc -Xptxas -v`` reports them: one cubin compile per source, all
+    started together, into the build directory."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {name: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS[:4], "-cubin", "-Xptxas", "-v",
+         "-o", str(_build.BUILD_DIR / f"ptxas-{name}.cubin"),
+         str(_build.CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in _build.SOURCES}
+    usage = {}
+    for name, proc in procs.items():
+        text = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc -Xptxas -v {name}.cu:\n{text}")
+        kernel = None
+        for line in text.splitlines():
+            m = re.search(r"entry function '\w*?\d([a-z][a-z_]*_kernel)"
+                          r"(?:ILb([01])E)?", line)
+            if m:
+                kernel = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+                usage[kernel] = {}
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and kernel:
+                usage[kernel]["spill_store_bytes"] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel:
+                usage[kernel]["registers"] = int(m.group(1))
+    return usage
 
 
 def _i64(a, device):
@@ -165,15 +206,31 @@ def _device_busy(fn, reps: int = 4):
             "device_ops_per_call": ops / reps}
 
 
+def _pair_halves(delta, par, qlo, qhi):
+    """Which words of a child pair a children_hit mask over [qlo, qhi]
+    covers: (first word A, second word B), with children_hit's clamping."""
+    import torch
+
+    W = 1 << (delta - 1)
+    base = par << delta
+    last = base | ((1 << delta) - 1)
+    o_lo = torch.minimum(torch.maximum(qlo, base), last) - base
+    o_hi = torch.minimum(torch.maximum(qhi, base), last) - base
+    some = o_lo <= o_hi
+    return some & (o_lo < W), some & (o_hi >= W)
+
+
 def _range_read_sectors(probe, flat, lo, hi, run=None) -> int:
-    """Distinct 32-byte sectors of ``flat`` that ``range_one``
-    (``csrc/bloomrf.cuh``) reads for this batch over ``probe``'s rows: the
-    words of each cell's range plan that it loads before its verdict is
-    known.  A dead path's words are skipped, the right path reuses the
-    left path's words before the split, and a cell stops at its first hit
-    or when both paths die.  Only the cells in ``run`` ((B, R) bool; all
-    when None) run the plan.  Mirrors ``ProbeEngine.combine_range``, and
-    checks its verdicts against the plain ``_range_all``."""
+    """Distinct 32-byte sectors of ``flat`` that a range verdict needs for
+    this batch over ``probe``'s rows: per layer, the child words of each
+    live path whose bits its hit mask or its covering bit can select (a
+    pair shrinks to one word when the range does not cross its middle;
+    before the split the right path's words are the left's), as
+    ``layer_needs`` in ``csrc/partitioned.cu`` reads them.  A cell stops at
+    its first hit or when both paths die.  Only the cells in ``run`` ((B,
+    R) bool; all when None) run the plan.  Mirrors
+    ``ProbeEngine.combine_range``, and checks its verdicts against the plain
+    ``_range_all``."""
     import torch
 
     from repro_torch.core.bloomrf import MASK32, children_hit, lanes_u32
@@ -204,23 +261,42 @@ def _range_read_sectors(probe, flat, lo, hi, run=None) -> int:
             Lp, Rp = f._shr(L, lay.levels[i]), f._shr(R, lay.levels[i])
             Lpar = f._shr(L, lay.levels[i + 1])
             Rpar = f._shr(R, lay.levels[i + 1])
-            need_l = alive & la
-            need_r = alive & (ra if bottom else ra | (~split & la))
-            need_r &= ~(need_l & (Rpar == Lpar))
-            slots = plan.layers[i]
-            for name, need in (("LA", need_l), ("LB", need_l),
-                               ("RA", need_r), ("RB", need_r)):
-                for sl in slots[name]:
-                    for c in ((sl.col, sl.col + 1)
-                              if lay.word_bits(i) == 64 else (sl.col,)):
-                        mask[..., c] |= need
-            w = {name: e._word(g, i, sl) for name, sl in slots.items()}
             edge = 0 if bottom else 1
             l_end = (Lpar << delta) | ((1 << delta) - 1)
             l_qhi = torch.where(split, l_end, (Rp - edge) & MASK32)
             l_ne = torch.ones_like(alive) if bottom else \
                 torch.where(split, Lp != l_end, (Rp - Lp) >= 2)
             r_ne = torch.ones_like(alive) if bottom else Rp != (Rpar << delta)
+            # the words the verdict can read (layer_needs)
+            l_a, l_b = _pair_halves(delta, Lpar, (Lp + edge) & MASK32, l_qhi)
+            r_a, r_b = _pair_halves(delta, Rpar, Rpar << delta,
+                                    (Rp - edge) & MASK32)
+            cov = lay.levels[i + 1] - 1
+            b_l, b_r = (L >> cov) & 1 == 1, (R >> cov) & 1 == 1
+            left, right = alive & la, alive & ra
+            cov_r = alive & torch.where(split, ra, la & (Lp != Rp)) \
+                & (not bottom)
+            need = {
+                "LA": left & ((l_ne & l_a) | (~b_l & (not bottom))),
+                "LB": left & ((l_ne & l_b) | (b_l & (not bottom))),
+                "RA": (right & r_ne & r_a) | (cov_r & ~b_r),
+                "RB": (right & r_ne & r_b) | (cov_r & b_r),
+            }
+            # before the split the engine plans the one pair twice (L and R)
+            same = Lpar == Rpar
+            for a, b in (("LA", "RA"), ("LB", "RB")):
+                both = same & (need[a] | need[b])
+                need[a], need[b] = need[a] | both, need[b] | both
+            slots = plan.layers[i]
+            for name, nd in need.items():
+                for sl in slots[name]:
+                    for c in ((sl.col, sl.col + 1)
+                              if lay.word_bits(i) == 64 else (sl.col,)):
+                        mask[..., c] |= nd
+            # the verdict from the counted words alone (the others zeroed):
+            # the check below then shows that the count is enough
+            gm = torch.where(mask, g, 0)
+            w = {name: e._word(gm, i, sl) for name, sl in slots.items()}
             hit = children_hit(delta, Lpar, (Lp + edge) & MASK32, l_qhi,
                                l_ne & la & alive, w["LA"], w["LB"]) \
                 | children_hit(delta, Rpar, Rpar << delta,
@@ -267,15 +343,85 @@ def _truth(keys, pq, lo, hi):
     return ptruth, rtruth
 
 
+def _variant(entry, lay, state, *bounds):
+    """A variant not taken of B7 or B8, launched raw: ``entry`` is
+    ``bloomrf_point_partitioned_batched`` (every position's load issued
+    before any is ANDed) with ``bounds = (keys,)``, or
+    ``bloomrf_range_partitioned_prefetch`` (the next layer's words issued
+    before the current layer is combined) with ``bounds = (lo, hi)``."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    n = bounds[0].numel()
+    out = torch.empty(n, dtype=torch.bool, device=state.device)
+    desc = _build.device_descriptor(lay, state.device)
+    _build.launch(entry, state.device, *(b.data_ptr() for b in bounds), n,
+                  state.data_ptr(), desc.data_ptr(), desc.numel(),
+                  out.data_ptr())
+    return out
+
+
+def _point_batched(lay, state, keys):
+    return _variant("bloomrf_point_partitioned_batched", lay, state, keys)
+
+
+def _range_prefetch(lay, state, lo, hi):
+    return _variant("bloomrf_range_partitioned_prefetch", lay, state, lo, hi)
+
+
+def _partitioned_edge_layouts():
+    from repro_torch.core import FilterLayout
+
+    return [FilterLayout(d=32, deltas=(7, 7), replicas=(3, 1),
+                         seg_of_layer=(0, 0), seg_bits=(16384,)),
+            FilterLayout(d=32, deltas=(4, 4, 4), replicas=(5, 1, 3),
+                         seg_of_layer=(0, 0, 0), seg_bits=(16384,))]
+
+
+def _check_partitioned(lay, f, state, tq, tlo, thi, kernels, errs):
+    """B7 and B8 (and their variants not taken) against their plain versions
+    at blocks of 256, 2048 and 16384 lanes, which change only the plain
+    versions (the reference's bucketing), and against the engine; swapped
+    bounds too; a batch cut to an odd length as well."""
+    from repro_torch.kernels import DEFAULT_TILE
+    from repro_torch.kernels.probe import point_partitioned_plain
+    from repro_torch.kernels.rangeprobe import range_partitioned_plain
+
+    ppart, rpart = kernels["point_part"]["fn"], kernels["range_part"]["fn"]
+    odd = tq.numel() - 37
+    for q, lo, hi in ((tq, tlo, thi), (tq[:odd], tlo[:odd], thi[:odd])):
+        got = ppart(lay, state, q)
+        engine = f.engine.point_batched(state, q)
+        errs["point_part"] = max(errs["point_part"], _max_err(got, engine),
+                                 _max_err(_point_batched(lay, state, q), got))
+        for blk in (256, 2048, 16384):
+            errs["point_part"] = max(errs["point_part"], _max_err(
+                got, point_partitioned_plain(lay, state, q, DEFAULT_TILE,
+                                             blk)),
+                _max_err(ppart(lay, state, q, DEFAULT_TILE, blk), got))
+        if lay.has_exact:
+            continue
+        got = rpart(lay, state, lo, hi)
+        errs["range_part"] = max(
+            errs["range_part"],
+            _max_err(got, f.engine.range_batched(state, lo, hi)),
+            _max_err(rpart(lay, state, hi, lo), got),
+            _max_err(_range_prefetch(lay, state, lo, hi), got),
+            _max_err(_range_prefetch(lay, state, hi, lo), got))
+        for blk in (256, 2048, 16384):
+            errs["range_part"] = max(errs["range_part"], _max_err(
+                got, range_partitioned_plain(lay, state, lo, hi,
+                                             DEFAULT_TILE, blk)),
+                _max_err(rpart(lay, state, lo, hi, DEFAULT_TILE, blk), got))
+
+
 def phase_kernels_vs_plain(device, kernels, errs, big_layout):
     """Phase 2: every kernel = its plain version over the layout sweep."""
     import numpy as np
     import torch
 
     from repro_torch.core import BloomRF, FilterLayout, basic_layout
-    from repro_torch.kernels import DEFAULT_TILE
-    from repro_torch.kernels.probe import point_partitioned_plain
-    from repro_torch.kernels.rangeprobe import range_partitioned_plain
 
     layouts = [basic_layout(d, 3000, 16.0, delta=dl)
                for d in (8, 16, 24, 32) for dl in range(1, 8)]
@@ -291,8 +437,7 @@ def phase_kernels_vs_plain(device, kernels, errs, big_layout):
                          seg_of_layer=(2, 2, 1, 1),
                          seg_bits=(1 << 12, 4096, 8192), exact_seg=0)
     rng = np.random.default_rng(SEED)
-    ins, pt, rg, ppart, rpart = (kernels[k] for k in (
-        "insert", "point", "range", "point_part", "range_part"))
+    ins, pt, rg = (kernels[k] for k in ("insert", "point", "range"))
     checked = 0
     for lay in layouts + [exact]:
         f = BloomRF(lay, device=device)
@@ -316,25 +461,20 @@ def phase_kernels_vs_plain(device, kernels, errs, big_layout):
             errs["range"] = max(errs["range"], _max_err(
                 rg["fn"](lay, state, tlo, thi), plain),
                 _max_err(rg["fn"](lay, state, thi, tlo), plain))
-        # B7/B8: against their plain versions (the same plan and bucketing,
-        # a torch gather) and against the engine
-        for blk in (256, 2048, 16384):
-            got = ppart["fn"](lay, state, tq, DEFAULT_TILE, blk)
-            errs["point_part"] = max(
-                errs["point_part"], _max_err(got, point_partitioned_plain(
-                    lay, state, tq, DEFAULT_TILE, blk)),
-                _max_err(got, f.engine.point_batched(state, tq)))
-            if lay.has_exact:
-                continue
-            want = range_partitioned_plain(lay, state, tlo, thi,
-                                           DEFAULT_TILE, blk)
-            errs["range_part"] = max(
-                errs["range_part"], _max_err(rpart["fn"](
-                    lay, state, tlo, thi, DEFAULT_TILE, blk), want),
-                _max_err(rpart["fn"](lay, state, thi, tlo, DEFAULT_TILE,
-                                     blk), want),
-                _max_err(want, plain))
+        _check_partitioned(lay, f, state, tq, tlo, thi, kernels, errs)
         checked += 1
+    # B7/B8 where they load in groups: more replicas than a range word
+    # issues at once (W = 64 and W = 8), edge bounds, odd batches
+    for lay in _partitioned_edge_layouts():
+        f = BloomRF(lay, device=device)
+        keys = rng.integers(0, 1 << 32, 3000, dtype=np.uint64)
+        pq, lo, hi = _queries(rng, 1001, keys, (1 << 32) - 1)
+        lo[:7] = [0, (1 << 32) - 1, 0, (1 << 32) - 1, 9, 5, 1 << 31]
+        hi[:7] = [(1 << 32) - 1, 0, 0, (1 << 32) - 1, 2, 5, (1 << 31) - 1]
+        tk = _i64(keys, device)
+        state = ins["fn"](lay, f.init_state(), tk)
+        _check_partitioned(lay, f, state, _i64(pq, device), _i64(lo, device),
+                           _i64(hi, device), kernels, errs)
     torch.cuda.synchronize()
     if any(errs.values()):
         raise AssertionError(f"kernel != plain version: max_abs_err {errs}")
@@ -878,6 +1018,7 @@ def phase_hbm(device, kernels, errs):
     import repro_torch
     from repro_torch.core import BloomRF, stacked_probe
     from repro_torch.kernels import DEFAULT_BLOCK_U32, DEFAULT_TILE, _build
+    from repro_torch.core.bloomrf import lanes_u32
     from repro_torch.kernels.probe import (_bucket_probes, _check_tiling,
                                            _point_buckets,
                                            point_partitioned_plain)
@@ -971,41 +1112,36 @@ def phase_hbm(device, kernels, errs):
     mutable = _mutable_twins(rng, errs)
 
     # B7/B8 alone, per wrapper call and plain on the grown filter at one
-    # chunk; B2/B3 on the same filter and chunk (the tier comparison)
+    # chunk; B2/B3 and the variants not taken on the same filter and chunk
     lay, state = h.layout, h.state
     f = BloomRF(lay, device=device)
     pq, lo, hi = _queries(np.random.default_rng(SEED + 88), CHUNK, keys, top)
     tq, tlo, thi = _i64(pq, device), _i64(lo, device), _i64(hi, device)
-    tile, blk = DEFAULT_TILE, DEFAULT_BLOCK_U32
-    nblocks = _check_tiling(lay, tile, blk)
-    lane_b, sh_b, key_b, tile_block = _point_buckets(lay, state, tq, tile,
-                                                     blk, nblocks)
-    acc = torch.ones(CHUNK + 1, dtype=torch.uint8, device=device)
-    plan, rlane_b, flat_b, rtile = _range_buckets(lay, state, tlo, thi, tile,
-                                                  blk, nblocks)
-    g = torch.zeros(plan.lanes.numel() + 1, dtype=torch.int32, device=device)
+    desc = _build.device_descriptor(lay, device)
+    pout = torch.empty(CHUNK, dtype=torch.bool, device=device)
+    rout = torch.empty(CHUNK, dtype=torch.bool, device=device)
 
     def b7():
-        _build.launch("bloomrf_point_partitioned", device, lane_b.data_ptr(),
-                      sh_b.data_ptr(), key_b.data_ptr(),
-                      tile_block.data_ptr(), lane_b.numel(), tile, blk,
-                      state.data_ptr(), acc.data_ptr())
+        _build.launch("bloomrf_point_partitioned", device, tq.data_ptr(),
+                      CHUNK, state.data_ptr(), desc.data_ptr(), desc.numel(),
+                      pout.data_ptr())
 
     def b8():
-        _build.launch("bloomrf_range_partitioned", device, rlane_b.data_ptr(),
-                      flat_b.data_ptr(), rtile.data_ptr(), rlane_b.numel(),
-                      tile, blk, state.data_ptr(), g.data_ptr())
+        _build.launch("bloomrf_range_partitioned", device, tlo.data_ptr(),
+                      thi.data_ptr(), CHUNK, state.data_ptr(),
+                      desc.data_ptr(), desc.numel(), rout.data_ptr())
 
     ppart, rpart, pt, rg = (kernels[k]["fn"] for k in (
         "point_part", "range_part", "point", "range"))
     b7()
     b8()
-    combined = f.engine.combine_range(
-        (g[:-1].to(torch.int64) & 0xFFFFFFFF).reshape(plan.lanes.shape), plan)
-    errs["point_part"] = max(errs["point_part"], _max_err(
-        acc[:CHUNK] != 0, point_partitioned_plain(lay, state, tq)))
-    errs["range_part"] = max(errs["range_part"], _max_err(
-        combined, range_partitioned_plain(lay, state, tlo, thi)))
+    plain_p = point_partitioned_plain(lay, state, tq)
+    plain_r = range_partitioned_plain(lay, state, tlo, thi)
+    errs["point_part"] = max(errs["point_part"], _max_err(pout, plain_p),
+                             _max_err(_point_batched(lay, state, tq), plain_p))
+    errs["range_part"] = max(
+        errs["range_part"], _max_err(rout, plain_r),
+        _max_err(_range_prefetch(lay, state, tlo, thi), plain_r))
     # bytes either function must move: keys or bounds as int64 carriers, a
     # byte per verdict, and the 32-byte sectors its probes need (a point
     # probe stops at its first clear bit; a range plan skips dead paths)
@@ -1014,6 +1150,21 @@ def phase_hbm(device, kernels, errs):
                                tlo, thi)
     pbytes = CHUNK * 8 + CHUNK + psec * 32
     rbytes = CHUNK * 16 + CHUNK + rsec * 32
+    # in turns, each alone from a CUDA graph: B7 beside its batched variant
+    # and B2 (the same early stop at the first clear bit), B8 beside its
+    # prefetching variant and B3
+    tiers = {}
+    for turn in range(2):
+        for name, kern in (
+                ("point_part", b7),
+                ("point_part_batched", lambda: _point_batched(lay, state, tq)),
+                ("point_resident_B2", lambda: pt(lay, state, tq)),
+                ("range_part", b8),
+                ("range_part_prefetch",
+                 lambda: _range_prefetch(lay, state, tlo, thi)),
+                ("range_resident_B3", lambda: rg(lay, state, tlo, thi))):
+            tiers.setdefault(name, {}).setdefault("ms_turns", []).append(
+                _graph_ms(kern))
     times = {
         "point_part": _times(b7, lambda: point_partitioned_plain(lay, state,
                                                                  tq),
@@ -1022,31 +1173,35 @@ def phase_hbm(device, kernels, errs):
             lay, state, tlo, thi), 5, rbytes,
             call=lambda: rpart(lay, state, tlo, thi)),
     }
-    tiers = {
-        "point_resident_B2": _times(lambda: pt(lay, state, tq),
-                                    lambda: f.engine.point_batched(state, tq),
-                                    5, pbytes),
-        "range_resident_B3": _times(lambda: rg(lay, state, tlo, thi),
-                                    lambda: f.engine.range_batched(state, tlo,
-                                                                   thi),
-                                    5, rbytes),
-    }
+    tiers["point_resident_B2"]["call_ms"] = _cuda_ms(
+        lambda: pt(lay, state, tq), 200)
+    tiers["range_resident_B3"]["call_ms"] = _cuda_ms(
+        lambda: rg(lay, state, tlo, thi), 200)
     for k in ("point_part", "range_part"):
-        tiers[k] = {"ms": times[k]["ms"], "call_ms": times[k]["call_ms"]}
-    # where a wrapper call's time goes: its stages one by one (CUDA events
-    # over back-to-back calls), then profiler traces of the wrapper calls
-    # and of one façade chunk (device busy share of the wall time)
+        tiers[k].update(ms=times[k]["ms"], call_ms=times[k]["call_ms"])
+    tiers["point_part"]["bound_ms"] = times["point_part"]["bound_ms"]
+    tiers["range_part"]["bound_ms"] = times["range_part"]["bound_ms"]
+    # where the plain versions' time goes (the reference's steps, stage by
+    # stage, by CUDA events over back-to-back calls), then profiler traces
+    # of the wrapper calls and of one façade chunk (device busy share of
+    # the wall time and device operations per call)
     eng = f.engine
+    tile, blk = DEFAULT_TILE, DEFAULT_BLOCK_U32
+    nblocks = _check_tiling(lay, tile, blk)
+    lane_b = _point_buckets(lay, state, tq, tile, blk, nblocks)[0]
+    plan, rlane_b, _, _ = _range_buckets(lay, state, tlo, thi, tile, blk,
+                                         nblocks)
     flat_lanes = plan.lanes.reshape(-1)
-    words = (g[:-1].to(torch.int64) & 0xFFFFFFFF).reshape(plan.lanes.shape)
+    words = lanes_u32(state, plan.lanes)
     stages = {
-        "point_plan": _cuda_ms(lambda: eng.plan_point(tq), 20),
-        "point_plan_and_bucket": _cuda_ms(lambda: _point_buckets(
+        "plain_point_plan": _cuda_ms(lambda: eng.plan_point(tq), 20),
+        "plain_point_plan_and_bucket": _cuda_ms(lambda: _point_buckets(
             lay, state, tq, tile, blk, nblocks), 20),
-        "range_plan": _cuda_ms(lambda: eng.plan_range(tlo, thi), 10),
-        "range_bucket": _cuda_ms(lambda: _bucket_probes(
+        "plain_range_plan": _cuda_ms(lambda: eng.plan_range(tlo, thi), 10),
+        "plain_range_bucket": _cuda_ms(lambda: _bucket_probes(
             flat_lanes, tile, blk, nblocks), 10),
-        "range_combine": _cuda_ms(lambda: eng.combine_range(words, plan), 10),
+        "plain_range_combine": _cuda_ms(lambda: eng.combine_range(words,
+                                                                  plan), 10),
     }
     traces = {
         "point_part_call": _device_busy(lambda: ppart(lay, state, tq)),
@@ -1054,6 +1209,9 @@ def phase_hbm(device, kernels, errs):
         "facade_point_chunk": _device_busy(lambda: h.point(pq)),
         "facade_range_chunk": _device_busy(lambda: h.range(lo, hi)),
     }
+    for k in ("point_part_call", "range_part_call"):
+        if traces[k] and traces[k]["device_ops_per_call"] != 1:
+            raise AssertionError(f"{k}: {traces[k]} (one kernel expected)")
     if errs["point_part"] or errs["range_part"]:
         raise AssertionError(f"partitioned kernel != plain: {errs}")
     return {
@@ -1062,10 +1220,10 @@ def phase_hbm(device, kernels, errs):
         "launches": {k: v for k, v in launches.items() if v},
         "rounds": [{**a, **b} for a, b in zip(rates, fpr)],
         "all_keys_present": n_all, "mutable": mutable,
-        "chunk_probe_slots": {"point": int(lane_b.numel()),
-                              "point_real": int((lane_b >= 0).sum()),
-                              "range": int(rlane_b.numel()),
-                              "range_real": int((rlane_b >= 0).sum())},
+        "plain_chunk_probe_slots": {"point": int(lane_b.numel()),
+                                    "point_real": int((lane_b >= 0).sum()),
+                                    "range": int(rlane_b.numel()),
+                                    "range_real": int((rlane_b >= 0).sum())},
         "point_sectors": psec, "range_sectors": rsec,
         "tiers": tiers, "call_stages_ms": stages, "traces": traces,
         "times": times,
@@ -1095,6 +1253,8 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
     print(f"[1/8] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
           flush=True)
+    print(f"[1/8] registers and spills (nvcc -Xptxas -v): "
+          f"{json.dumps(_ptxas_usage())}", flush=True)
 
     src, rep = "src/repro_torch/csrc/", "src/repro/kernels/"
     kernels = {
@@ -1136,7 +1296,9 @@ def main() -> int:
     n_lay = phase_kernels_vs_plain(device, kernels, errs, big)
     print(f"[2/8] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
           f"top==d, W=64+replicas, multi-segment, exact, full size; B7/B8 "
-          f"at blocks of 256, 2048, 16384 lanes): max_abs_err {errs} "
+          f"and their variants not taken also on odd batches and replicas "
+          f"3 and 5, against plain versions bucketed at blocks of 256, "
+          f"2048, 16384 lanes): max_abs_err {errs} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     main_run = phase_main_path(2_000_000, "auto", name,
@@ -1186,6 +1348,7 @@ def main() -> int:
           f"(truth sorted on the card), state and verdicts == xla twin, "
           f"launches {json.dumps(hbm['launches'])}; deletable and TTL "
           f"filters == their twins: {json.dumps(hbm)}; B7/B8 beside B2/B3 "
+          f"and their variants not taken "
           f"on the grown filter at {CHUNK} keys/ranges on {smi} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 

@@ -13,11 +13,13 @@ version is ``StackedProbe._point_all``.
 
 ``point_probe_partitioned`` replaces
 ``repro/kernels/probe.py::point_probe_partitioned``, the tier of filters
-above the resident budget: the engine's point plan, the probes bucketed by
-filter block (``_bucket_probes``, the reference's slot layout), then one
-launch of ``csrc/partitioned.cu`` that reads one bit per probe and clears
-its key's verdict on a 0.  Its plain version runs the same plan and
-bucketing with the read as a torch gather (``point_partitioned_plain``).
+above the resident budget.  On a CUDA state it is one launch of
+``csrc/partitioned.cu``, one thread per key reading the state straight from
+device memory, with no plan or bucketing in torch.  Its plain version
+(``point_partitioned_plain``, and the wrapper on a CPU state) keeps the
+reference's steps: the engine's point plan, the probes bucketed by filter
+block (``_bucket_probes``, the reference's slot layout), a torch gather and
+the scatter-min per key.
 """
 from __future__ import annotations
 
@@ -34,8 +36,8 @@ __all__ = ["point_probe_resident", "point_probe_stacked_resident",
            "point_probe_partitioned", "point_partitioned_plain",
            "DEFAULT_TILE", "DEFAULT_BLOCK_U32"]
 
-DEFAULT_TILE = 512           # probe slots per bucketing tile
-DEFAULT_BLOCK_U32 = 16384    # 64 KiB filter blocks of the partitioned tier
+DEFAULT_TILE = 512           # probe slots per bucketing tile (plain version)
+DEFAULT_BLOCK_U32 = 16384    # 64 KiB filter blocks (plain version)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -145,9 +147,9 @@ def _check_tiling(layout: FilterLayout, tile: int, block_u32: int) -> int:
 def gather_partitioned(state: torch.Tensor, lane_b: torch.Tensor,
                        tile_block: torch.Tensor, tile: int,
                        block_u32: int) -> torch.Tensor:
-    """The plain read of the partitioned kernels: each real slot's lane as
-    a uint32 value in int64, read at its tile's block base plus its offset
-    in the block (as the kernels address it); 0 at padding."""
+    """The plain versions' read: each real slot's lane as a uint32 value in
+    int64, read at its tile's block base plus its offset in the block (as
+    the reference's kernels address it); 0 at padding."""
     real = lane_b >= 0
     base = tile_block.to(torch.int64).repeat_interleave(tile)
     idx = torch.where(real, base * block_u32 + lane_b % block_u32, 0)
@@ -169,35 +171,29 @@ def _point_buckets(layout, state, keys, tile, block_u32, nblocks):
 
 
 def point_partitioned_bits(state, lane_b, sh_b, key_b, tile_block, B: int,
-                           tile: int, block_u32: int,
-                           plain: bool = False) -> torch.Tensor:
-    """``bool[B]`` verdicts from bucketed point probes: every key starts
-    present and a probe whose bit is 0 clears its key.  Launches the kernel
-    on a CUDA state unless ``plain``; the torch gather otherwise."""
+                           tile: int, block_u32: int) -> torch.Tensor:
+    """``bool[B]`` verdicts from bucketed point probes, by a torch gather:
+    every key starts present and a probe whose bit is 0 clears its key."""
     acc = torch.ones(B + 1, dtype=torch.uint8, device=state.device)
-    if plain or state.device.type == "cpu":
-        bits = (gather_partitioned(state, lane_b, tile_block, tile, block_u32)
-                >> sh_b) & 1
-        acc[key_b[(lane_b >= 0) & (bits == 0)].to(torch.int64)] = 0
-    else:
-        _build.launch("bloomrf_point_partitioned", state.device,
-                      lane_b.data_ptr(), sh_b.data_ptr(), key_b.data_ptr(),
-                      tile_block.data_ptr(), lane_b.numel(), tile, block_u32,
-                      state.data_ptr(), acc.data_ptr())
-        point_probe_partitioned.launches += 1
+    bits = (gather_partitioned(state, lane_b, tile_block, tile, block_u32)
+            >> sh_b) & 1
+    acc[key_b[(lane_b >= 0) & (bits == 0)].to(torch.int64)] = 0
     return acc[:B] != 0
 
 
-def _point_partitioned(layout, state, keys, tile, block_u32, plain):
+def _check_point_partitioned(layout, state, keys, tile, block_u32) -> int:
     check_kernel_layout(layout)
     check_state(layout, state)
     check_keys("keys", keys, state.device)
-    nblocks = _check_tiling(layout, tile, block_u32)
+    return _check_tiling(layout, tile, block_u32)
+
+
+def _point_plain(layout, state, keys, tile, block_u32, nblocks):
     if not keys.numel():
         return torch.zeros(0, dtype=torch.bool, device=state.device)
     buckets = _point_buckets(layout, state, keys, tile, block_u32, nblocks)
     return point_partitioned_bits(state, *buckets, keys.shape[0], tile,
-                                  block_u32, plain)
+                                  block_u32)
 
 
 def point_probe_partitioned(layout: FilterLayout, state: torch.Tensor,
@@ -206,9 +202,20 @@ def point_probe_partitioned(layout: FilterLayout, state: torch.Tensor,
                             ) -> torch.Tensor:
     """``bool[B]`` point verdicts for ``keys`` (int64 carriers of uint32
     codes) against ``state`` (int32 lanes) of a filter of any size: one
-    kernel launch per call on a CUDA state, the plain version on a CPU
+    kernel launch on a CUDA state, which ignores ``tile`` and ``block_u32``
+    (the reference's tiling, still validated); the plain version on a CPU
     state."""
-    return _point_partitioned(layout, state, keys, tile, block_u32, False)
+    nblocks = _check_point_partitioned(layout, state, keys, tile, block_u32)
+    if state.device.type == "cpu":
+        return _point_plain(layout, state, keys, tile, block_u32, nblocks)
+    out = torch.empty(keys.shape[0], dtype=torch.bool, device=state.device)
+    if keys.numel():
+        desc = _build.device_descriptor(layout, state.device)
+        _build.launch("bloomrf_point_partitioned", state.device,
+                      keys.data_ptr(), keys.numel(), state.data_ptr(),
+                      desc.data_ptr(), desc.numel(), out.data_ptr())
+        point_probe_partitioned.launches += 1
+    return out
 
 
 def point_partitioned_plain(layout: FilterLayout, state: torch.Tensor,
@@ -216,8 +223,9 @@ def point_partitioned_plain(layout: FilterLayout, state: torch.Tensor,
                             block_u32: int = DEFAULT_BLOCK_U32
                             ) -> torch.Tensor:
     """The plain version of :func:`point_probe_partitioned` on any device:
-    the same plan and bucketing, the read as a torch gather."""
-    return _point_partitioned(layout, state, keys, tile, block_u32, True)
+    the reference's plan and bucketing, the read as a torch gather."""
+    nblocks = _check_point_partitioned(layout, state, keys, tile, block_u32)
+    return _point_plain(layout, state, keys, tile, block_u32, nblocks)
 
 
 #: kernel launches so far (a plain count; reset it by assignment)

@@ -14,12 +14,14 @@ per-thread plan over ``R`` same-layout rows, one launch for the whole
 
 ``range_probe_partitioned`` replaces
 ``repro/kernels/rangeprobe.py::range_probe_partitioned``, the tier of
-filters above the resident budget: the engine's range plan, its ``B * A``
-lanes bucketed by filter block (``probe._bucket_probes``), one launch of
-``csrc/partitioned.cu`` that reads each lane and writes it to its place in
-the ``(B, A)`` word matrix, then the engine's combine.  Plan and combine
-stay torch ops on the card, as they stay XLA in the reference; the plain
-version reads the lanes with a torch gather (``range_partitioned_plain``).
+filters above the resident budget.  On a CUDA state it is one launch of
+``csrc/partitioned.cu``: one thread per range runs the engine's range plan
+and combine in registers, reading only the words of live paths straight
+from device memory, with no plan, bucketing or combine in torch.  Its plain
+version (``range_partitioned_plain``, and the wrapper on a CPU state) keeps
+the reference's steps: the engine's range plan, its ``B * A`` lanes
+bucketed by filter block (``probe._bucket_probes``), a torch gather and
+the engine's combine.
 
 Exact-bitmap layouts are rejected, as by the TPU kernels: ``FilterOps``
 routes their range queries to the engine path.
@@ -29,7 +31,6 @@ from __future__ import annotations
 import torch
 
 from ..core import FilterLayout
-from ..core.bloomrf import MASK32
 from ..core.engine import stacked_probe
 from . import _build
 from ._checks import check_keys, check_stack, check_state
@@ -111,24 +112,14 @@ range_probe_stacked_resident.launches = 0
 # ---------------------------------------------------------------------------
 
 def range_partitioned_words(state, lane_b, flat_b, tile_block, nprobe: int,
-                            tile: int, block_u32: int,
-                            plain: bool = False) -> torch.Tensor:
+                            tile: int, block_u32: int) -> torch.Tensor:
     """The ``nprobe`` planned lanes as uint32 values in int64, in plan
     order, from their bucketed slots (``flat_b``: each slot's index in the
-    plan, ``nprobe`` = the scrap slot at padding).  Launches the kernel on
-    a CUDA state unless ``plain``; the torch gather otherwise."""
-    if plain or state.device.type == "cpu":
-        vals = gather_partitioned(state, lane_b, tile_block, tile, block_u32)
-        g = torch.zeros(nprobe + 1, dtype=torch.int64, device=state.device)
-        g[flat_b.to(torch.int64)] = vals
-        return g[:nprobe]
-    g = torch.zeros(nprobe + 1, dtype=torch.int32, device=state.device)
-    _build.launch("bloomrf_range_partitioned", state.device,
-                  lane_b.data_ptr(), flat_b.data_ptr(), tile_block.data_ptr(),
-                  lane_b.numel(), tile, block_u32, state.data_ptr(),
-                  g.data_ptr())
-    range_probe_partitioned.launches += 1
-    return g[:nprobe].to(torch.int64) & MASK32
+    plan, ``nprobe`` = the scrap slot at padding), by a torch gather."""
+    vals = gather_partitioned(state, lane_b, tile_block, tile, block_u32)
+    g = torch.zeros(nprobe + 1, dtype=torch.int64, device=state.device)
+    g[flat_b.to(torch.int64)] = vals
+    return g[:nprobe]
 
 
 def _range_buckets(layout, state, lo, hi, tile, block_u32, nblocks):
@@ -148,18 +139,21 @@ def _range_buckets(layout, state, lo, hi, tile, block_u32, nblocks):
     return plan, lane_b, flat_b, tile_block
 
 
-def _range_partitioned(layout, state, lo, hi, tile, block_u32, plain):
+def _check_range_partitioned(layout, state, lo, hi, tile, block_u32) -> int:
     _check_range_kernel_layout(layout)
     check_state(layout, state)
     _check_bounds(lo, hi, state.device)
-    nblocks = _check_tiling(layout, tile, block_u32)
+    return _check_tiling(layout, tile, block_u32)
+
+
+def _range_plain(layout, state, lo, hi, tile, block_u32, nblocks):
     if not lo.numel():
         return torch.zeros(0, dtype=torch.bool, device=state.device)
     plan, lane_b, flat_b, tile_block = _range_buckets(
         layout, state, lo, hi, tile, block_u32, nblocks)
     B, A = plan.lanes.shape
     g = range_partitioned_words(state, lane_b, flat_b, tile_block, B * A,
-                                tile, block_u32, plain)
+                                tile, block_u32)
     return filter_for_layout(layout, state.device).engine.combine_range(
         g.reshape(B, A), plan)
 
@@ -171,9 +165,22 @@ def range_probe_partitioned(layout: FilterLayout, state: torch.Tensor,
                             ) -> torch.Tensor:
     """``bool[B]`` range verdicts for ``[lo, hi]`` (int64 carriers of uint32
     codes; swapped bounds allowed) against ``state`` (int32 lanes) of a
-    filter of any size: one kernel launch per call on a CUDA state, the
-    plain version on a CPU state."""
-    return _range_partitioned(layout, state, lo, hi, tile, block_u32, False)
+    filter of any size: one kernel launch on a CUDA state, which ignores
+    ``tile`` and ``block_u32`` (the reference's tiling, still validated);
+    the plain version on a CPU state."""
+    nblocks = _check_range_partitioned(layout, state, lo, hi, tile,
+                                       block_u32)
+    if state.device.type == "cpu":
+        return _range_plain(layout, state, lo, hi, tile, block_u32, nblocks)
+    out = torch.empty(lo.shape[0], dtype=torch.bool, device=state.device)
+    if lo.numel():
+        desc = _build.device_descriptor(layout, state.device)
+        _build.launch("bloomrf_range_partitioned", state.device,
+                      lo.data_ptr(), hi.data_ptr(), lo.numel(),
+                      state.data_ptr(), desc.data_ptr(), desc.numel(),
+                      out.data_ptr())
+        range_probe_partitioned.launches += 1
+    return out
 
 
 def range_partitioned_plain(layout: FilterLayout, state: torch.Tensor,
@@ -182,8 +189,11 @@ def range_partitioned_plain(layout: FilterLayout, state: torch.Tensor,
                             block_u32: int = DEFAULT_BLOCK_U32
                             ) -> torch.Tensor:
     """The plain version of :func:`range_probe_partitioned` on any device:
-    the same plan, bucketing and combine, the read as a torch gather."""
-    return _range_partitioned(layout, state, lo, hi, tile, block_u32, True)
+    the reference's plan, bucketing and combine, the read as a torch
+    gather."""
+    nblocks = _check_range_partitioned(layout, state, lo, hi, tile,
+                                       block_u32)
+    return _range_plain(layout, state, lo, hi, tile, block_u32, nblocks)
 
 
 #: kernel launches so far (a plain count; reset it by assignment)

@@ -153,6 +153,60 @@ def test_partitioned_kernels_match_plain_versions(cuda, name, block_u32):
             xf.engine.point_batched(xs, qs))
 
 
+_PART_EDGE_LAYOUTS = {
+    "w64_replicas3": lambda: FilterLayout(
+        d=32, deltas=(7, 7), replicas=(3, 1), seg_of_layer=(0, 0),
+        seg_bits=(16384,)),
+    "w8_replicas5": lambda: FilterLayout(
+        d=32, deltas=(4, 4, 4), replicas=(5, 1, 3), seg_of_layer=(0, 0, 0),
+        seg_bits=(16384,)),
+    "top_eq_d": _LAYOUTS["top_eq_d"],
+    "d32_delta1": _LAYOUTS["d32_delta1"],
+}
+
+
+@pytest.mark.parametrize("name", list(_PART_EDGE_LAYOUTS))
+def test_partitioned_kernels_edge_bounds_and_batches(cuda, name):
+    """B7/B8 at the edges: swapped bounds, lo == hi, the whole domain, a
+    batch that is not a multiple of the thread block, an empty batch; over
+    W = 64 and W = 8 words with more replicas than a range word issues at
+    once, top level = d = 32 and 21 layers (d = 32, Δ = 1)."""
+    lay = _PART_EDGE_LAYOUTS[name]()
+    f = BloomRF(lay, device=cuda)
+    keys, lo, hi = _inputs(lay, cuda, q=1001)
+    state = insert_resident(lay, f.init_state(), keys)
+    top = (1 << 32) - 1
+    edges = torch.tensor([[0, top], [top, 0], [0, 0], [top, top], [9, 2],
+                          [5, 5], [1 << 31, (1 << 31) - 1]],
+                         dtype=torch.int64, device=cuda)
+    lo = torch.cat([edges[:, 0], keys[:40], lo])
+    hi = torch.cat([edges[:, 1], keys[:40], hi])
+    assert lo.numel() % 256
+    qs = torch.cat([keys[:500], lo])
+    n0 = (point_probe_partitioned.launches, range_probe_partitioned.launches)
+    pts = point_probe_partitioned(lay, state, qs)
+    rgs = range_probe_partitioned(lay, state, lo, hi)
+    assert (point_probe_partitioned.launches - n0[0],
+            range_probe_partitioned.launches - n0[1]) == (1, 1)
+    torch.testing.assert_close(pts, point_partitioned_plain(lay, state, qs))
+    torch.testing.assert_close(pts, f.engine.point_batched(state, qs))
+    assert pts[:500].all()
+    want = range_partitioned_plain(lay, state, lo, hi)
+    torch.testing.assert_close(rgs, want)
+    torch.testing.assert_close(rgs, f.engine.range_batched(state, lo, hi))
+    torch.testing.assert_close(range_probe_partitioned(lay, state, hi, lo),
+                               want)
+    assert rgs[:2].all() and rgs[7:47].all()       # whole domain, keys
+    empty = lo[:0]
+    assert point_probe_partitioned(lay, state, empty).shape == (0,)
+    assert range_probe_partitioned(lay, state, empty, empty).shape == (0,)
+    assert (point_probe_partitioned.launches - n0[0],
+            range_probe_partitioned.launches - n0[1]) == (1, 2)
+    with pytest.raises(ValueError, match="tile"):
+        range_probe_partitioned(lay, state, lo, hi, 0, 256)
+    torch.cuda.synchronize()
+
+
 def test_facade_auto_above_the_budget_takes_the_partitioned_kernels(cuda):
     """Under ``auto`` a filter above the resident budget launches B7/B8 and
     never B2/B3; after ``grow`` it stays there and agrees with the ``xla``
