@@ -10,10 +10,10 @@ Phases, one line of output each:
    seconds it takes ``nvcc`` to build the kernels from ``src/repro_torch/csrc``;
 2. each single-filter CUDA kernel against its plain PyTorch version on the
    card, bit for bit, over a sweep of layouts and the edge bounds; the
-   partitioned kernels (B7/B8, and their variants not taken) also on odd
-   batches and on layouts with more replicas than a range word issues at
-   once, against plain versions bucketed by blocks of 256, 2048 and 16384
-   lanes (the kernels take no blocks);
+   partitioned kernels (B7/B8) also on odd batches and on layouts with
+   more replicas than a range word issues at once, against plain versions
+   bucketed by blocks of 256, 2048 and 16384 lanes (the kernels take no
+   blocks);
 3. the main path at full size: ``open_filter`` of a 2,000,000-key u32 filter
    at 16 bits/key on the default device and backend, 2,000,000 inserts,
    1,048,576 point and 1,048,576 range queries; no false negatives, the
@@ -49,9 +49,8 @@ Phases, one line of output each:
    8 B7, 8 B8 and 383 B1 launches and none of any other; a deletable and a
    TTL filter (4 generations) of 2,000,000 keys through
    ``backend="partitioned"`` equal to their twins; B7/B8 timed on the
-   grown filter beside B2/B3 and their variants not taken on the same
-   filter and chunk, in turns; each partitioned wrapper call is one device
-   operation under the profiler.
+   grown filter beside B2/B3 on the same filter and chunk, in turns; each
+   partitioned wrapper call is one device operation under the profiler.
 
 It prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -104,10 +103,10 @@ def _ptxas_usage() -> dict:
             raise RuntimeError(f"nvcc -Xptxas -v {name}.cu:\n{text}")
         kernel = None
         for line in text.splitlines():
-            m = re.search(r"entry function '\w*?\d([a-z][a-z_]*_kernel)"
-                          r"(?:ILb([01])E)?", line)
+            m = re.search(r"entry function '\w*?\d([a-z][a-z_]*_kernel)",
+                          line)
             if m:
-                kernel = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+                kernel = m.group(1)
                 usage[kernel] = {}
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and kernel:
@@ -226,8 +225,9 @@ def _range_read_sectors(probe, flat, lo, hi, run=None) -> int:
     live path whose bits its hit mask or its covering bit can select (a
     pair shrinks to one word when the range does not cross its middle;
     before the split the right path's words are the left's), as
-    ``layer_needs`` in ``csrc/partitioned.cu`` reads them.  A cell stops at
-    its first hit or when both paths die.  Only the cells in ``run`` ((B,
+    ``layer_needs`` in ``csrc/partitioned.cu`` reads them; in the layer
+    where a cell hits, only the one word that shows the hit.  A cell stops
+    at its first hit or when both paths die.  Only the cells in ``run`` ((B,
     R) bool; all when None) run the plan.  Mirrors
     ``ProbeEngine.combine_range``, and checks its verdicts against the plain
     ``_range_all``."""
@@ -288,20 +288,44 @@ def _range_read_sectors(probe, flat, lo, hi, run=None) -> int:
                 both = same & (need[a] | need[b])
                 need[a], need[b] = need[a] | both, need[b] | both
             slots = plan.layers[i]
-            for name, nd in need.items():
-                for sl in slots[name]:
-                    for c in ((sl.col, sl.col + 1)
-                              if lay.word_bits(i) == 64 else (sl.col,)):
-                        mask[..., c] |= nd
+
+            def words(need):
+                m = mask.clone()
+                for name, nd in need.items():
+                    for sl in slots[name]:
+                        for c in ((sl.col, sl.col + 1)
+                                  if lay.word_bits(i) == 64 else (sl.col,)):
+                            m[..., c] |= nd
+                gm = torch.where(m, g, 0)
+                return m, {name: e._word(gm, i, sl)
+                           for name, sl in slots.items()}
+
+            def hits(w):
+                zero = tuple(torch.zeros_like(x) for x in w["LA"])
+                args = {"L": (Lpar, (Lp + edge) & MASK32, l_qhi,
+                              l_ne & la & alive),
+                        "R": (Rpar, Rpar << delta, (Rp - edge) & MASK32,
+                              r_ne & ra & alive)}
+                return {p + h: children_hit(
+                    delta, *args[p], *((w[p + h], zero) if h == "A"
+                                       else (zero, w[p + h])))
+                    for p in "LR" for h in "AB"}
+
+            # a cell that hits in this layer needs only the one word that
+            # shows its hit: the first of LA, LB, RA, RB that does
+            _, w = words(need)
+            witness, hit = {}, torch.zeros_like(alive)
+            for name, h in hits(w).items():
+                witness[name] = h & ~hit
+                hit |= h
+            need = {name: torch.where(hit, witness[name], nd)
+                    for name, nd in need.items()}
             # the verdict from the counted words alone (the others zeroed):
             # the check below then shows that the count is enough
-            gm = torch.where(mask, g, 0)
-            w = {name: e._word(gm, i, sl) for name, sl in slots.items()}
-            hit = children_hit(delta, Lpar, (Lp + edge) & MASK32, l_qhi,
-                               l_ne & la & alive, w["LA"], w["LB"]) \
-                | children_hit(delta, Rpar, Rpar << delta,
-                               (Rp - edge) & MASK32, r_ne & ra & alive,
-                               w["RA"], w["RB"])
+            mask, w = words(need)
+            hit = torch.zeros_like(alive)
+            for h in hits(w).values():
+                hit |= h
             result |= hit
             alive &= ~hit
             if not bottom:
@@ -343,33 +367,6 @@ def _truth(keys, pq, lo, hi):
     return ptruth, rtruth
 
 
-def _variant(entry, lay, state, *bounds):
-    """A variant not taken of B7 or B8, launched raw: ``entry`` is
-    ``bloomrf_point_partitioned_batched`` (every position's load issued
-    before any is ANDed) with ``bounds = (keys,)``, or
-    ``bloomrf_range_partitioned_prefetch`` (the next layer's words issued
-    before the current layer is combined) with ``bounds = (lo, hi)``."""
-    import torch
-
-    from repro_torch.kernels import _build
-
-    n = bounds[0].numel()
-    out = torch.empty(n, dtype=torch.bool, device=state.device)
-    desc = _build.device_descriptor(lay, state.device)
-    _build.launch(entry, state.device, *(b.data_ptr() for b in bounds), n,
-                  state.data_ptr(), desc.data_ptr(), desc.numel(),
-                  out.data_ptr())
-    return out
-
-
-def _point_batched(lay, state, keys):
-    return _variant("bloomrf_point_partitioned_batched", lay, state, keys)
-
-
-def _range_prefetch(lay, state, lo, hi):
-    return _variant("bloomrf_range_partitioned_prefetch", lay, state, lo, hi)
-
-
 def _partitioned_edge_layouts():
     from repro_torch.core import FilterLayout
 
@@ -380,7 +377,7 @@ def _partitioned_edge_layouts():
 
 
 def _check_partitioned(lay, f, state, tq, tlo, thi, kernels, errs):
-    """B7 and B8 (and their variants not taken) against their plain versions
+    """B7 and B8 against their plain versions
     at blocks of 256, 2048 and 16384 lanes, which change only the plain
     versions (the reference's bucketing), and against the engine; swapped
     bounds too; a batch cut to an odd length as well."""
@@ -393,8 +390,7 @@ def _check_partitioned(lay, f, state, tq, tlo, thi, kernels, errs):
     for q, lo, hi in ((tq, tlo, thi), (tq[:odd], tlo[:odd], thi[:odd])):
         got = ppart(lay, state, q)
         engine = f.engine.point_batched(state, q)
-        errs["point_part"] = max(errs["point_part"], _max_err(got, engine),
-                                 _max_err(_point_batched(lay, state, q), got))
+        errs["point_part"] = max(errs["point_part"], _max_err(got, engine))
         for blk in (256, 2048, 16384):
             errs["point_part"] = max(errs["point_part"], _max_err(
                 got, point_partitioned_plain(lay, state, q, DEFAULT_TILE,
@@ -406,9 +402,7 @@ def _check_partitioned(lay, f, state, tq, tlo, thi, kernels, errs):
         errs["range_part"] = max(
             errs["range_part"],
             _max_err(got, f.engine.range_batched(state, lo, hi)),
-            _max_err(rpart(lay, state, hi, lo), got),
-            _max_err(_range_prefetch(lay, state, lo, hi), got),
-            _max_err(_range_prefetch(lay, state, hi, lo), got))
+            _max_err(rpart(lay, state, hi, lo), got))
         for blk in (256, 2048, 16384):
             errs["range_part"] = max(errs["range_part"], _max_err(
                 got, range_partitioned_plain(lay, state, lo, hi,
@@ -463,8 +457,8 @@ def phase_kernels_vs_plain(device, kernels, errs, big_layout):
                 _max_err(rg["fn"](lay, state, thi, tlo), plain))
         _check_partitioned(lay, f, state, tq, tlo, thi, kernels, errs)
         checked += 1
-    # B7/B8 where they load in groups: more replicas than a range word
-    # issues at once (W = 64 and W = 8), edge bounds, odd batches
+    # B7/B8 with more replicas than B8 issues at once for a word (W = 64
+    # and W = 8), edge bounds, odd batches
     for lay in _partitioned_edge_layouts():
         f = BloomRF(lay, device=device)
         keys = rng.integers(0, 1 << 32, 3000, dtype=np.uint64)
@@ -1112,7 +1106,7 @@ def phase_hbm(device, kernels, errs):
     mutable = _mutable_twins(rng, errs)
 
     # B7/B8 alone, per wrapper call and plain on the grown filter at one
-    # chunk; B2/B3 and the variants not taken on the same filter and chunk
+    # chunk; B2/B3 on the same filter and chunk
     lay, state = h.layout, h.state
     f = BloomRF(lay, device=device)
     pq, lo, hi = _queries(np.random.default_rng(SEED + 88), CHUNK, keys, top)
@@ -1122,7 +1116,7 @@ def phase_hbm(device, kernels, errs):
     rout = torch.empty(CHUNK, dtype=torch.bool, device=device)
 
     def b7():
-        _build.launch("bloomrf_point_partitioned", device, tq.data_ptr(),
+        _build.launch("bloomrf_point_probe", device, tq.data_ptr(),
                       CHUNK, state.data_ptr(), desc.data_ptr(), desc.numel(),
                       pout.data_ptr())
 
@@ -1137,11 +1131,8 @@ def phase_hbm(device, kernels, errs):
     b8()
     plain_p = point_partitioned_plain(lay, state, tq)
     plain_r = range_partitioned_plain(lay, state, tlo, thi)
-    errs["point_part"] = max(errs["point_part"], _max_err(pout, plain_p),
-                             _max_err(_point_batched(lay, state, tq), plain_p))
-    errs["range_part"] = max(
-        errs["range_part"], _max_err(rout, plain_r),
-        _max_err(_range_prefetch(lay, state, tlo, thi), plain_r))
+    errs["point_part"] = max(errs["point_part"], _max_err(pout, plain_p))
+    errs["range_part"] = max(errs["range_part"], _max_err(rout, plain_r))
     # bytes either function must move: keys or bounds as int64 carriers, a
     # byte per verdict, and the 32-byte sectors its probes need (a point
     # probe stops at its first clear bit; a range plan skips dead paths)
@@ -1150,18 +1141,14 @@ def phase_hbm(device, kernels, errs):
                                tlo, thi)
     pbytes = CHUNK * 8 + CHUNK + psec * 32
     rbytes = CHUNK * 16 + CHUNK + rsec * 32
-    # in turns, each alone from a CUDA graph: B7 beside its batched variant
-    # and B2 (the same early stop at the first clear bit), B8 beside its
-    # prefetching variant and B3
+    # in turns, each alone from a CUDA graph: B7 beside B2 (the same
+    # kernel, launched through B2's wrapper), B8 beside B3
     tiers = {}
     for turn in range(2):
         for name, kern in (
                 ("point_part", b7),
-                ("point_part_batched", lambda: _point_batched(lay, state, tq)),
                 ("point_resident_B2", lambda: pt(lay, state, tq)),
                 ("range_part", b8),
-                ("range_part_prefetch",
-                 lambda: _range_prefetch(lay, state, tlo, thi)),
                 ("range_resident_B3", lambda: rg(lay, state, tlo, thi))):
             tiers.setdefault(name, {}).setdefault("ms_turns", []).append(
                 _graph_ms(kern))
@@ -1210,8 +1197,9 @@ def phase_hbm(device, kernels, errs):
         "facade_range_chunk": _device_busy(lambda: h.range(lo, hi)),
     }
     for k in ("point_part_call", "range_part_call"):
-        if traces[k] and traces[k]["device_ops_per_call"] != 1:
-            raise AssertionError(f"{k}: {traces[k]} (one kernel expected)")
+        if traces[k] is None or traces[k]["device_ops_per_call"] != 1:
+            raise AssertionError(f"{k}: {traces[k]} (one kernel expected; "
+                                 f"None: the trace held no device time)")
     if errs["point_part"] or errs["range_part"]:
         raise AssertionError(f"partitioned kernel != plain: {errs}")
     return {
@@ -1279,7 +1267,7 @@ def main() -> int:
                           "replaces": rep + "probe.py:122"},
         "point_part": {"fn": point_probe_partitioned,
                        "name": "point_probe_partitioned",
-                       "source": src + "partitioned.cu",
+                       "source": src + "probe.cu",
                        "replaces": rep + "probe.py:170"},
         "range_part": {"fn": range_probe_partitioned,
                        "name": "range_probe_partitioned",
@@ -1296,8 +1284,8 @@ def main() -> int:
     n_lay = phase_kernels_vs_plain(device, kernels, errs, big)
     print(f"[2/8] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
           f"top==d, W=64+replicas, multi-segment, exact, full size; B7/B8 "
-          f"and their variants not taken also on odd batches and replicas "
-          f"3 and 5, against plain versions bucketed at blocks of 256, "
+          f"also on odd batches and replicas 3 and 5, against plain "
+          f"versions bucketed at blocks of 256, "
           f"2048, 16384 lanes): max_abs_err {errs} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -1348,7 +1336,6 @@ def main() -> int:
           f"(truth sorted on the card), state and verdicts == xla twin, "
           f"launches {json.dumps(hbm['launches'])}; deletable and TTL "
           f"filters == their twins: {json.dumps(hbm)}; B7/B8 beside B2/B3 "
-          f"and their variants not taken "
           f"on the grown filter at {CHUNK} keys/ranges on {smi} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 

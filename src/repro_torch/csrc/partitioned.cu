@@ -1,44 +1,35 @@
-// bloomRF point and range probes for Hopper on filters above the resident
-// budget, whose state lives in device memory (far larger than the 50 MB L2).
+// bloomRF range probe for Hopper on filters above the resident budget,
+// whose state lives in device memory (far larger than the 50 MB L2).
 //
-// Replaces the Pallas TPU kernels
-//   B7  repro/kernels/probe.py::point_probe_partitioned
-//       (the engine's point plan, its probes bucketed by 64 KiB filter
-//       block, body _partitioned_kernel, then an XLA scatter-min per key),
+// Replaces the Pallas TPU kernel
 //   B8  repro/kernels/rangeprobe.py::range_probe_partitioned
-//       (the engine's range plan, its B x A lanes bucketed by block, body
-//       _gather_block_kernel, an XLA scatter back to (B, A), then the
-//       engine's combine).
+//       (the engine's range plan, its B x A lanes bucketed by 64 KiB filter
+//       block, body _gather_block_kernel, an XLA scatter back to (B, A),
+//       then the engine's combine).
+// Its point twin, B7 (repro/kernels/probe.py::point_probe_partitioned), is
+// served by probe.cu's kernel: one thread per key stopping at the first
+// clear bit is already the design for a state in device memory.
 // The TPU buckets probes so that each tile DMAs one filter block into VMEM.
 // On Hopper a probe reads one 32-byte sector through L2, and staging a
 // block would move far more than its probes read, so nothing is bucketed
-// here: one thread takes one key or one range, runs its plan in registers,
-// reads its words straight from device memory and writes one byte.
+// here: one thread takes one range, runs its plan in registers, reads its
+// words straight from device memory and writes one byte.
 //
 // Bound: the distinct sectors that the verdicts need, read at random from
 // device memory.  On the card the time follows the number of sectors read
-// more than the number of round trips in a chain (the variants below
-// measure it), so the design reads as few as it can and keeps the loads
-// of one step in flight together:
-//   - a key stops at its first clear bit (bloomrf::point_one);
-//   - a range reads, per layer, only the child words whose bits its masks
-//     or its covering bits can select: a live path's pair shrinks to the
-//     one word that holds both ends when the range does not cross the
-//     pair's middle.  Those words (left pair, right pair, the first
-//     kRepBuf replicas of each; a W = 64 word as one 8-byte load) are
-//     issued together before any is combined.
+// more than the number of round trips in a chain (prefetching the next
+// layer's words was measured 1.5x slower), so the kernel reads as few as
+// it can and keeps the loads of one layer in flight together: per layer,
+// only the child words whose bits its masks or its covering bits can
+// select (a live path's pair shrinks to the one word that holds both ends
+// when the range does not cross the pair's middle).  Those words (left
+// pair, right pair, the first kRepBuf replicas of each; a W = 64 word as
+// one 8-byte load) are issued together before any is combined.
 // Verdicts are those of ProbeEngine.plan_range + combine_range
 // (repro/core/engine.py) in BloomRF._range_one's clip and select order, as
 // bloomrf::range_one computes them: a word is skipped only where the
 // reference masks it out.  Hashed layouts only: the wrapper rejects exact
 // segments for ranges, as the TPU kernel does.
-//
-// Two variants are kept beside the kernels the wrappers launch, so that
-// chip_smoke.py times both sides of each choice in one run:
-// bloomrf_point_partitioned_batched issues every position's load before
-// ANDing them (kPosGroup at a time), and bloomrf_range_partitioned_prefetch
-// also issues the next layer's words (which depend only on L, R and which
-// paths may live) before the current layer is combined.
 #include "bloomrf.cuh"
 
 namespace {
@@ -46,48 +37,7 @@ namespace {
 using bloomrf::Desc;
 using bloomrf::Word;
 
-constexpr int kPosGroup = 8;  // positions a batched point probe loads at once
-constexpr int kRepBuf = 2;    // replicas of a range word issued at once
-
-// Point verdict for key x with every position's load issued before any is
-// ANDed, kPosGroup at a time (the layers' replicas in order, then the
-// exact bit); stops only between groups.
-__device__ bool point_batched(const uint32_t* __restrict__ state,
-                              const Desc& D, uint32_t x) {
-  const int k = D.k();
-  const int end = D.has_exact() ? k + 1 : k;  // cursor layer k: exact bit
-  int i = 0;
-  uint32_t rep = 0;
-  while (i < end) {
-    uint32_t v[kPosGroup], sh[kPosGroup];
-#pragma unroll
-    for (int g = 0; g < kPosGroup; ++g) {
-      const bool live = i < end;
-      uint32_t pos = 0;
-      if (i < k) {
-        const uint32_t* L = D.layer(i);
-        const uint32_t li = L[bloomrf::L_LEVEL];
-        pos = bloomrf::word_bitoff(D, i, rep,
-                                   x >> (li + L[bloomrf::L_DELTA] - 1u)) +
-              ((x >> li) & (L[bloomrf::L_W] - 1u));
-        if (++rep == L[bloomrf::L_REPS]) {
-          ++i;
-          rep = 0;
-        }
-      } else if (live) {
-        pos = D.exact_off() + bloomrf::shr(x, D.top());
-        ++i;
-      }
-      v[g] = live ? __ldg(state + (pos >> 5)) : 0xFFFFFFFFu;
-      sh[g] = pos & 31u;
-    }
-    uint32_t all = 1u;
-#pragma unroll
-    for (int g = 0; g < kPosGroup; ++g) all &= v[g] >> sh[g];
-    if ((all & 1u) == 0u) return false;
-  }
-  return true;
-}
+constexpr int kRepBuf = 2;  // replicas of a range word issued at once
 
 // Which halves of a child pair a children_hit mask over [qlo, qhi] covers:
 // the first word A (children 0..W-1) and the second B (W..2W-1), with the
@@ -230,9 +180,7 @@ __device__ __forceinline__ Word fold(const uint32_t* __restrict__ state,
 
 // Range verdict for [L, R] (swapped bounds allowed): bloomrf::range_one's
 // plan and combine, top layer first, reading per layer only the words of
-// layer_needs, issued together; with kPrefetch the next layer's words are
-// issued before this one is combined, for every path that may still live.
-template <bool kPrefetch>
+// layer_needs, issued together.
 __device__ bool range_partitioned(const uint32_t* __restrict__ state,
                                   const Desc& D, uint32_t L, uint32_t R) {
   if (L > R) {
@@ -251,7 +199,7 @@ __device__ bool range_partitioned(const uint32_t* __restrict__ state,
     right_alive = split;
   }
   const int k = D.k();
-  LayerWords cur, nxt;
+  LayerWords cur;
   issue_layer(state, pairs, D, k - 1, L, R,
               layer_needs(D, k - 1, L, R, split, true, right_alive), cur);
   for (int i = k - 1; i >= 0; --i) {
@@ -264,13 +212,6 @@ __device__ bool range_partitioned(const uint32_t* __restrict__ state,
     const uint32_t Lpar = bloomrf::shr(L, li + delta);
     const uint32_t Rpar = bloomrf::shr(R, li + delta);
     const bool new_split = split || (Lp != Rp);
-    if (kPrefetch && !bottom) {
-      // a superset of what layer i - 1 can need once this layer is combined
-      issue_layer(state, pairs, D, i - 1, L, R,
-                  layer_needs(D, i - 1, L, R, new_split, left_alive,
-                              new_split && (left_alive || right_alive)),
-                  nxt);
-    }
     const Word wLA = fold(state, pairs, D, i, Lpar << 1, cur, 0);
     const Word wLB = fold(state, pairs, D, i, (Lpar << 1) | 1u, cur, 1);
     const bool same = Lpar == Rpar;
@@ -305,33 +246,13 @@ __device__ bool range_partitioned(const uint32_t* __restrict__ state,
     right_alive = nxt_right;
     split = new_split;
     if (!left_alive && !right_alive) return false;
-    if (kPrefetch) {
-      cur = nxt;
-    } else {
-      issue_layer(state, pairs, D, i - 1, L, R,
-                  layer_needs(D, i - 1, L, R, split, left_alive, right_alive),
-                  cur);
-    }
+    issue_layer(state, pairs, D, i - 1, L, R,
+                layer_needs(D, i - 1, L, R, split, left_alive, right_alive),
+                cur);
   }
   return false;
 }
 
-template <bool kBatched>
-__global__ void __launch_bounds__(bloomrf::kThreads)
-    point_partitioned_kernel(const int64_t* __restrict__ keys, int64_t n,
-                             const uint32_t* __restrict__ state,
-                             const uint32_t* __restrict__ gdesc, int desc_len,
-                             bool* __restrict__ out) {
-  extern __shared__ uint32_t sdesc[];
-  const Desc D = bloomrf::load_desc(gdesc, sdesc, desc_len);
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  const uint32_t x = static_cast<uint32_t>(keys[t]);
-  out[t] = kBatched ? point_batched(state, D, x)
-                    : bloomrf::point_one(state, D, x);
-}
-
-template <bool kPrefetch>
 __global__ void __launch_bounds__(bloomrf::kThreads)
     range_partitioned_kernel(const int64_t* __restrict__ lo,
                              const int64_t* __restrict__ hi, int64_t n,
@@ -342,61 +263,20 @@ __global__ void __launch_bounds__(bloomrf::kThreads)
   const Desc D = bloomrf::load_desc(gdesc, sdesc, desc_len);
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= n) return;
-  out[t] = range_partitioned<kPrefetch>(state, D, static_cast<uint32_t>(lo[t]),
-                                        static_cast<uint32_t>(hi[t]));
-}
-
-template <bool kBatched>
-int launch_point(const int64_t* keys, int64_t n, const uint32_t* state,
-                 const uint32_t* desc, int desc_len, bool* out, void* stream) {
-  if (n <= 0) return 0;
-  point_partitioned_kernel<kBatched>
-      <<<bloomrf::grid_for(n), bloomrf::kThreads, desc_len * sizeof(uint32_t),
-         static_cast<cudaStream_t>(stream)>>>(keys, n, state, desc, desc_len,
-                                              out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kPrefetch>
-int launch_range(const int64_t* lo, const int64_t* hi, int64_t n,
-                 const uint32_t* state, const uint32_t* desc, int desc_len,
-                 bool* out, void* stream) {
-  if (n <= 0) return 0;
-  range_partitioned_kernel<kPrefetch>
-      <<<bloomrf::grid_for(n), bloomrf::kThreads, desc_len * sizeof(uint32_t),
-         static_cast<cudaStream_t>(stream)>>>(lo, hi, n, state, desc,
-                                              desc_len, out);
-  return static_cast<int>(cudaGetLastError());
+  out[t] = range_partitioned(state, D, static_cast<uint32_t>(lo[t]),
+                             static_cast<uint32_t>(hi[t]));
 }
 
 }  // namespace
-
-extern "C" int bloomrf_point_partitioned(const int64_t* keys, int64_t n,
-                                         const uint32_t* state,
-                                         const uint32_t* desc, int desc_len,
-                                         bool* out, void* stream) {
-  return launch_point<false>(keys, n, state, desc, desc_len, out, stream);
-}
 
 extern "C" int bloomrf_range_partitioned(const int64_t* lo, const int64_t* hi,
                                          int64_t n, const uint32_t* state,
                                          const uint32_t* desc, int desc_len,
                                          bool* out, void* stream) {
-  return launch_range<false>(lo, hi, n, state, desc, desc_len, out, stream);
-}
-
-// The variants not taken (see the note at the top).
-extern "C" int bloomrf_point_partitioned_batched(const int64_t* keys,
-                                                 int64_t n,
-                                                 const uint32_t* state,
-                                                 const uint32_t* desc,
-                                                 int desc_len, bool* out,
-                                                 void* stream) {
-  return launch_point<true>(keys, n, state, desc, desc_len, out, stream);
-}
-
-extern "C" int bloomrf_range_partitioned_prefetch(
-    const int64_t* lo, const int64_t* hi, int64_t n, const uint32_t* state,
-    const uint32_t* desc, int desc_len, bool* out, void* stream) {
-  return launch_range<true>(lo, hi, n, state, desc, desc_len, out, stream);
+  if (n <= 0) return 0;
+  range_partitioned_kernel<<<bloomrf::grid_for(n), bloomrf::kThreads,
+                             desc_len * sizeof(uint32_t),
+                             static_cast<cudaStream_t>(stream)>>>(
+      lo, hi, n, state, desc, desc_len, out);
+  return static_cast<int>(cudaGetLastError());
 }

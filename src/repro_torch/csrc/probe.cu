@@ -10,6 +10,12 @@
 // staging in shared memory); it stops at the first clear bit, so absent keys
 // mostly cost one read.  Keys are read once as the int64 carrier (8 bytes a
 // key), coalesced; verdicts are written as one byte each.
+//
+// The same kernel replaces repro/kernels/probe.py::point_probe_partitioned
+// (B7) for filters above the resident budget: a state far larger than L2
+// costs each probe a device-memory round trip, but the design stays one
+// thread per key reading up to its first clear bit (measured faster than
+// issuing every position's load at once), with no bucketing by block.
 #include "bloomrf.cuh"
 
 namespace {

@@ -52,15 +52,8 @@ _ENTRY = {
                                           _P, _P)),
     "bloomrf_point_stacked": ("stacked", (_P, _I64, _P, _I64, _I, _P, _I, _P,
                                           _P)),
-    "bloomrf_point_partitioned": ("partitioned", (_P, _I64, _P, _P, _I, _P,
-                                                  _P)),
     "bloomrf_range_partitioned": ("partitioned", (_P, _P, _I64, _P, _P, _I,
                                                   _P, _P)),
-    # the variants not taken, timed beside B7/B8 by chip_smoke.py
-    "bloomrf_point_partitioned_batched": ("partitioned", (_P, _I64, _P, _P,
-                                                          _I, _P, _P)),
-    "bloomrf_range_partitioned_prefetch": ("partitioned", (_P, _P, _I64, _P,
-                                                           _P, _I, _P, _P)),
 }
 SOURCES = tuple(dict.fromkeys(src for src, _ in _ENTRY.values()))
 _HEADER = "bloomrf.cuh"

@@ -13,9 +13,12 @@ version is ``StackedProbe._point_all``.
 
 ``point_probe_partitioned`` replaces
 ``repro/kernels/probe.py::point_probe_partitioned``, the tier of filters
-above the resident budget.  On a CUDA state it is one launch of
-``csrc/partitioned.cu``, one thread per key reading the state straight from
-device memory, with no plan or bucketing in torch.  Its plain version
+above the resident budget.  On a CUDA state it is one launch of the kernel
+of ``csrc/probe.cu``, one thread per key reading the state straight from
+device memory up to its first clear bit, with no plan or bucketing in
+torch: on Hopper the resident probe is already the design for a state in
+device memory, so both tiers share it and each wrapper counts its own
+launches.  Its plain version
 (``point_partitioned_plain``, and the wrapper on a CPU state) keeps the
 reference's steps: the engine's point plan, the probes bucketed by filter
 block (``_bucket_probes``, the reference's slot layout), a torch gather and
@@ -44,6 +47,19 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def _launch_point(layout: FilterLayout, state: torch.Tensor,
+                  keys: torch.Tensor) -> torch.Tensor:
+    """The verdicts from one launch of ``csrc/probe.cu``'s kernel (none for
+    an empty batch); the calling wrapper counts the launch."""
+    out = torch.empty(keys.shape[0], dtype=torch.bool, device=state.device)
+    if keys.numel():
+        desc = _build.device_descriptor(layout, state.device)
+        _build.launch("bloomrf_point_probe", state.device, keys.data_ptr(),
+                      keys.numel(), state.data_ptr(), desc.data_ptr(),
+                      desc.numel(), out.data_ptr())
+    return out
+
+
 def point_probe_resident(layout: FilterLayout, state: torch.Tensor,
                          keys: torch.Tensor) -> torch.Tensor:
     """``bool[B]`` point verdicts for ``keys`` (int64 carriers of uint32
@@ -54,12 +70,8 @@ def point_probe_resident(layout: FilterLayout, state: torch.Tensor,
     if state.device.type == "cpu":
         plain = filter_for_layout(layout, state.device)
         return plain.engine.point_batched(state, keys)
-    out = torch.empty(keys.shape[0], dtype=torch.bool, device=state.device)
+    out = _launch_point(layout, state, keys)
     if keys.numel():
-        desc = _build.device_descriptor(layout, state.device)
-        _build.launch("bloomrf_point_probe", state.device, keys.data_ptr(),
-                      keys.numel(), state.data_ptr(), desc.data_ptr(),
-                      desc.numel(), out.data_ptr())
         point_probe_resident.launches += 1
     return out
 
@@ -208,12 +220,8 @@ def point_probe_partitioned(layout: FilterLayout, state: torch.Tensor,
     nblocks = _check_point_partitioned(layout, state, keys, tile, block_u32)
     if state.device.type == "cpu":
         return _point_plain(layout, state, keys, tile, block_u32, nblocks)
-    out = torch.empty(keys.shape[0], dtype=torch.bool, device=state.device)
+    out = _launch_point(layout, state, keys)
     if keys.numel():
-        desc = _build.device_descriptor(layout, state.device)
-        _build.launch("bloomrf_point_partitioned", state.device,
-                      keys.data_ptr(), keys.numel(), state.data_ptr(),
-                      desc.data_ptr(), desc.numel(), out.data_ptr())
         point_probe_partitioned.launches += 1
     return out
 
