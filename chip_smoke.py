@@ -103,10 +103,13 @@ def _ptxas_usage() -> dict:
             raise RuntimeError(f"nvcc -Xptxas -v {name}.cu:\n{text}")
         kernel = None
         for line in text.splitlines():
-            m = re.search(r"entry function '\w*?\d([a-z][a-z_]*_kernel)",
-                          line)
+            m = re.search(r"entry function '\w*?\d([a-z][a-z_]*_kernel)"
+                          r"((?:I)(?:Lb[01]E)+E)?", line)
             if m:
                 kernel = m.group(1)
+                if m.group(2):          # a template's bool arguments
+                    kernel += "<" + ",".join(re.findall(
+                        r"Lb([01])E", m.group(2))) + ">"
                 usage[kernel] = {}
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and kernel:
@@ -173,6 +176,23 @@ def _graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * replays)
+
+
+def _floor_ms(device, blocks, threads: int, smem: int,
+              rows: int = 1) -> float:
+    """The latency floor of a launch: an empty kernel (``csrc/floor.cu``)
+    with the grid ``(blocks, rows)``, ``threads`` per block and ``smem``
+    bytes of dynamic shared memory, timed as the kernels are
+    (:func:`_graph_ms`)."""
+    from repro_torch.kernels import _build
+
+    return _graph_ms(lambda: _build.launch("bloomrf_empty", device, blocks,
+                                           rows, threads, smem))
+
+
+def _grid(n: int, threads: int = 256) -> int:
+    """Blocks of a one-thread-per-item launch (``bloomrf::grid_for``)."""
+    return -(-n // threads)
 
 
 def _device_busy(fn, reps: int = 4):
@@ -342,6 +362,100 @@ def _range_read_sectors(probe, flat, lo, hi, run=None) -> int:
     return int(torch.unique(torch.cat(read) >> 3).numel())
 
 
+# ---------------------------------------------------------------------------
+# read-plan variants of the range kernels (B3/B8) and of B4, each checked
+# against the plain version and timed alone in turns beside the kernels
+# ---------------------------------------------------------------------------
+
+#: the read plans of rangeplan::range_plan (3 reads no word: a timing
+#: probe, never checked)
+PLANS = ("layers", "wave", "wavepar", "noplan")
+#: bloomrf_range_variant's designs: bits 0-1 the plan, bit 2 the reciprocal
+RANGE_VARIANTS = {v: PLANS[v & 3] + ("_fastmod" if v & 4 else "")
+                  for v in (0, 1, 2, 4, 5, 6)}
+#: bloomrf_store_scan_variant's thread counts per block
+SCAN_VARIANT_THREADS = (64, 128, 256, 512)
+
+
+def _scan_variant_name(variant: int, threads: int) -> str:
+    return (PLANS[variant & 3] + ("_fastmod" if variant & 4 else "")
+            + ("_rowmajor" if variant & 8 else "_flat") + f"_t{threads}")
+
+
+def _range_runs(device, lay, state, lo, hi) -> dict:
+    """name -> (launch, out): B3's kernel (rangeprobe.cu), B8's kernel and
+    the four read-plan variants on one filter."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    desc = _build.device_descriptor(lay, device)
+    runs = {}
+    entries = [("B3_rangeprobe", "bloomrf_range_probe", ()),
+               ("B8_partitioned", "bloomrf_range_partitioned", ())]
+    entries += [(f"variant_{name}", "bloomrf_range_variant", (v,))
+                for v, name in RANGE_VARIANTS.items()]
+    for name, entry, extra in entries:
+        out = torch.empty(lo.numel(), dtype=torch.bool, device=device)
+
+        def run(entry=entry, out=out, extra=extra):
+            _build.launch(entry, device, lo.data_ptr(), hi.data_ptr(),
+                          lo.numel(), state.data_ptr(), desc.data_ptr(),
+                          desc.numel(), out.data_ptr(), *extra)
+        runs[name] = (run, out)
+    return runs
+
+
+def _check_runs(runs: dict, want) -> int:
+    err = 0
+    for name, (run, *outs) in runs.items():
+        run()
+        if "noplan" in name:
+            continue
+        err = max(err, *(_max_err(o, w) for o, w in zip(outs, want)))
+    return err
+
+
+def _turns(runs: dict) -> dict:
+    """Each launch alone (:func:`_graph_ms`) in two turns, the second in
+    reverse order: name -> [ms, ms]."""
+    ms = {name: [] for name in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            ms[name].append(_graph_ms(runs[name][0]))
+    return ms
+
+
+def _scan_runs(device, layouts, bases, flat, kmin, kmax, lo, hi,
+               quar) -> dict:
+    """name -> (launch, fence, touch): every design of
+    bloomrf_store_scan_variant at every thread count."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    B, R = lo.numel(), len(layouts)
+    desc, rowtab = _build.stack_descriptor(tuple(layouts), tuple(bases),
+                                           device)
+    runs = {}
+    for variant in range(16):
+        for threads in SCAN_VARIANT_THREADS:
+            fence = torch.empty((B, R), dtype=torch.bool, device=device)
+            touch = torch.empty_like(fence)
+
+            def run(variant=variant, threads=threads, fence=fence,
+                    touch=touch):
+                _build.launch(
+                    "bloomrf_store_scan_variant", device, lo.data_ptr(),
+                    hi.data_ptr(), B, flat.data_ptr(), desc.data_ptr(),
+                    desc.numel(), rowtab.data_ptr(), kmin.data_ptr(),
+                    kmax.data_ptr(),
+                    None if quar is None else quar.data_ptr(), R,
+                    fence.data_ptr(), touch.data_ptr(), variant, threads)
+            runs[_scan_variant_name(variant, threads)] = (run, fence, touch)
+    return runs
+
+
 def _queries(rng, n_keys, keys, top):
     """Half present / half uniform point queries, and ranges with lengths
     log-uniform in 2^0..2^14 from uniform starts (mostly empty)."""
@@ -454,7 +568,11 @@ def phase_kernels_vs_plain(device, kernels, errs, big_layout):
             plain = f.engine.range_batched(state, tlo, thi)
             errs["range"] = max(errs["range"], _max_err(
                 rg["fn"](lay, state, tlo, thi), plain),
-                _max_err(rg["fn"](lay, state, thi, tlo), plain))
+                _max_err(rg["fn"](lay, state, thi, tlo), plain),
+                _check_runs(_range_runs(device, lay, state, tlo, thi),
+                            (plain,)),
+                _check_runs(_range_runs(device, lay, state, thi, tlo),
+                            (plain,)))
         _check_partitioned(lay, f, state, tq, tlo, thi, kernels, errs)
         checked += 1
     # B7/B8 with more replicas than B8 issues at once for a word (W = 64
@@ -467,17 +585,23 @@ def phase_kernels_vs_plain(device, kernels, errs, big_layout):
         hi[:7] = [(1 << 32) - 1, 0, 0, (1 << 32) - 1, 2, 5, (1 << 31) - 1]
         tk = _i64(keys, device)
         state = ins["fn"](lay, f.init_state(), tk)
-        _check_partitioned(lay, f, state, _i64(pq, device), _i64(lo, device),
-                           _i64(hi, device), kernels, errs)
+        tlo, thi = _i64(lo, device), _i64(hi, device)
+        _check_partitioned(lay, f, state, _i64(pq, device), tlo, thi,
+                           kernels, errs)
+        errs["range"] = max(errs["range"], _check_runs(
+            _range_runs(device, lay, state, tlo, thi),
+            (f.engine.range_batched(state, tlo, thi),)))
     torch.cuda.synchronize()
     if any(errs.values()):
         raise AssertionError(f"kernel != plain version: max_abs_err {errs}")
     return checked
 
 
-def phase_main_path(n, backend, device_name, expect_launches, kernels):
+def phase_main_path(n, backend, device_name, expect_launches, kernels,
+                    time_plans=False):
     """Phases 3 and 4: the façade end to end, against numpy truth and the
-    same spec's ``backend="xla"`` twin on the card."""
+    same spec's ``backend="xla"`` twin on the card; with ``time_plans``,
+    the range kernels and read-plan variants on the filter at one chunk."""
     import numpy as np
     import torch
 
@@ -517,7 +641,20 @@ def phase_main_path(n, backend, device_name, expect_launches, kernels):
     if not (np.array_equal(twin.point(pq), pres)
             and np.array_equal(twin.range(lo, hi), rres)):
         raise AssertionError("verdicts differ from the xla twin")
+    plans = None
+    if time_plans:
+        from repro_torch.core import BloomRF
+
+        tlo, thi = _i64(lo[:CHUNK], h.state.device), _i64(hi[:CHUNK],
+                                                          h.state.device)
+        runs = _range_runs(h.state.device, h.layout, h.state, tlo, thi)
+        want = BloomRF(h.layout, device=h.state.device).engine.range_batched(
+            h.state, tlo, thi)
+        if _check_runs(runs, (want,)):
+            raise AssertionError("range read-plan variant != plain")
+        plans = _turns(runs)
     return {
+        "range_read_plans_ms": plans,
         "n": n, "backend": h.backend, "lanes": h.layout.total_u32,
         "layout": {"deltas": h.layout.deltas, "replicas": h.layout.replicas},
         "launches": launches,
@@ -530,16 +667,23 @@ def phase_main_path(n, backend, device_name, expect_launches, kernels):
     }
 
 
-def _times(kern, plain, plain_reps: int, nbytes: int, call=None) -> dict:
+def _times(kern, plain, plain_reps: int, nbytes: int, floor_ms: float,
+           call=None) -> dict:
     """A kernel's row of the kernels line: its device time alone (CUDA
     graph), its plain version's time (CUDA events over back-to-back calls),
-    the memory bound of ``nbytes``; and under ``call_ms`` the kernel
-    wrapper's time by CUDA events over 200 back-to-back calls, host
-    dispatch included (popped before the kernels line).  ``call`` is the
-    wrapper call when ``kern`` launches the kernel alone."""
+    the memory bound of ``nbytes`` (``bound_ms``, ``bound_by`` "bytes"),
+    the latency floor of its launch (``floor_ms``, :func:`_floor_ms`) and
+    the larger of the two (``floored_bound_ms``, with ``floored_bound_by``
+    "bytes" or "floor"); and under ``call_ms`` the kernel wrapper's time by
+    CUDA events over 200 back-to-back calls, host dispatch included
+    (popped before the kernels line).  ``call`` is the wrapper call when
+    ``kern`` launches the kernel alone."""
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
     return {"ms": _graph_ms(kern), "plain_ms": _cuda_ms(plain, plain_reps),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": None, "call_ms": _cuda_ms(call or kern, 200)}
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+            "floor_ms": floor_ms, "floored_bound_ms": max(bound, floor_ms),
+            "floored_bound_by": "bytes" if bound >= floor_ms else "floor",
+            "call_ms": _cuda_ms(call or kern, 200)}
 
 
 def phase_times(device, lay, kernels):
@@ -548,6 +692,7 @@ def phase_times(device, lay, kernels):
     import numpy as np
 
     from repro_torch.core import BloomRF
+    from repro_torch.kernels import _build
 
     rng = np.random.default_rng(SEED + 5)
     f = BloomRF(lay, device=device)
@@ -559,6 +704,10 @@ def phase_times(device, lay, kernels):
     tq, tlo, thi = _i64(pq, device), _i64(lo, device), _i64(hi, device)
     ins, pt, rg = (kernels[k]["fn"] for k in ("insert", "point", "range"))
     state_b = lay.total_u32 * 4
+    # B1-B3 launch one thread per key or range, 256 a block, with the
+    # layout descriptor in shared memory
+    floor = _floor_ms(device, _grid(CHUNK), 256,
+                      _build.device_descriptor(lay, device).numel() * 4)
     out = {}
     # bytes the function must move: inputs read once, outputs written once
     for name, kern, plain, nbytes in (
@@ -570,8 +719,11 @@ def phase_times(device, lay, kernels):
             ("range", lambda: rg(lay, state, tlo, thi),
              lambda: f.engine.range_batched(state, tlo, thi),
              CHUNK * 16 + state_b + CHUNK)):
-        out[name] = _times(kern, plain, 10, nbytes)
-    return out
+        out[name] = _times(kern, plain, 10, nbytes, floor)
+    runs = _range_runs(device, lay, state, tlo, thi)
+    if _check_runs(runs, (f.engine.range_batched(state, tlo, thi),)):
+        raise AssertionError("range read-plan variant != plain")
+    return out, _turns(runs)
 
 
 # ---------------------------------------------------------------------------
@@ -624,7 +776,7 @@ def phase_stacked_vs_plain(device, kernels, errs, big_layout):
     import torch
 
     from repro_torch.core import BloomRF, stacked_probe
-    from repro_torch.kernels import (FilterOps, build_run_stack,
+    from repro_torch.kernels import (FilterOps, _build, build_run_stack,
                                      insert_resident)
     from repro_torch.kernels.store_scan import store_scan_probe_flat
 
@@ -661,6 +813,9 @@ def phase_stacked_vs_plain(device, kernels, errs, big_layout):
                                          _max_err(f_k, want[0]),
                                          _max_err(t_k, want[1]))
                 cells += f_k.numel()
+            errs["store_scan"] = max(errs["store_scan"], _check_runs(
+                _scan_runs(device, layouts, bases, flat, tkmin, tkmax, tlo,
+                           thi, quar), want))
 
     # B5/B6: 4 rows of the phase-3 layout (4,000,000 lanes: resident tier)
     lay, rows = big_layout, 4
@@ -710,6 +865,8 @@ def phase_stacked_vs_plain(device, kernels, errs, big_layout):
     # probes need most sectors at this batch) the whole stack once
     stack_b = rows * lay.total_u32 * 4
     sectors = _range_read_sectors(probe, flat, tlo, thi)
+    floor = _floor_ms(device, _grid(CHUNK), 256,
+                      _build.device_descriptor(lay, device).numel() * 4, rows)
     times = {}
     for name, kern, plain_fn, nbytes in (
             ("range_stacked", lambda: rstack(lay, stack, tlo, thi),
@@ -718,7 +875,7 @@ def phase_stacked_vs_plain(device, kernels, errs, big_layout):
             ("point_stacked", lambda: pstack(lay, stack, tq),
              lambda: probe._point_all(flat, tq),
              CHUNK * 8 + stack_b + CHUNK * rows)):
-        times[name] = _times(kern, plain_fn, 5, nbytes)
+        times[name] = _times(kern, plain_fn, 5, nbytes, floor)
     return {"scan_cells_checked": cells, "stacked_rows": rows,
             "stack_lanes": rows * lay.total_u32,
             "range_sectors_read": sectors,
@@ -767,7 +924,10 @@ def phase_store(device, kernels, errs):
     import torch
 
     import repro_torch
-    from repro_torch.kernels.store_scan import store_scan_probe_flat
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.store_scan import (SCAN_THREADS,
+                                                scan_smem_bytes,
+                                                store_scan_probe_flat)
 
     rng = np.random.default_rng(SEED + 7)
     data = rng.integers(0, 1 << 32, STORE_KEYS, dtype=np.uint64)
@@ -878,13 +1038,26 @@ def phase_store(device, kernels, errs):
     sectors = _range_read_sectors(st._probe, st._flat, b_lo, b_hi, run)
     # bounds and fences read once, the 32-byte sectors of the flat state
     # that the fenced cells' range plans reach, two bool (B, R) outputs
+    desc_words = _build.stack_descriptor(layouts, st._bases,
+                                         device)[0].numel()
+    floor = _floor_ms(device, _grid(SCAN_BATCH * R, SCAN_THREADS),
+                      SCAN_THREADS, scan_smem_bytes(desc_words))
     times = _times(lambda: store_scan_probe_flat(
                        layouts, st._bases, st._flat, kmin, kmax, b_lo, b_hi,
                        quar),
                    lambda: st._probe.touch_all(st._flat, kmin, kmax, b_lo,
                                                b_hi, quar), 20,
                    SCAN_BATCH * 16 + R * 16 + min(sectors * 32, flat_b)
-                   + 2 * SCAN_BATCH * R)
+                   + 2 * SCAN_BATCH * R, floor)
+    runs = _scan_runs(device, layouts, st._bases, st._flat, kmin, kmax,
+                      b_lo, b_hi, quar)
+    if _check_runs(runs, st._probe.touch_all(st._flat, kmin, kmax, b_lo,
+                                             b_hi, quar)):
+        raise AssertionError("store-scan variant != plain")
+    plans = _turns(runs)
+    plan_floors = {t: _floor_ms(device, _grid(SCAN_BATCH * R, t), t,
+                                scan_smem_bytes(desc_words, t))
+                   for t in SCAN_VARIANT_THREADS}
     t5 = time.perf_counter()
     for _ in range(200):
         st._kernel_scan(b_lo, b_hi)
@@ -907,6 +1080,7 @@ def phase_store(device, kernels, errs):
         "kernel_fallbacks": stats.kernel_fallbacks,
         "b4_sectors_read": sectors, "b4_sector_share": sectors * 32 / flat_b,
         "b4_store_call_ms": store_call_ms,
+        "b4_plans_ms": plans, "b4_plan_floor_ms": plan_floors,
         "times": times,
     }
 
@@ -1152,14 +1326,20 @@ def phase_hbm(device, kernels, errs):
                 ("range_resident_B3", lambda: rg(lay, state, tlo, thi))):
             tiers.setdefault(name, {}).setdefault("ms_turns", []).append(
                 _graph_ms(kern))
+    floor = _floor_ms(device, _grid(CHUNK), 256, desc.numel() * 4)
     times = {
         "point_part": _times(b7, lambda: point_partitioned_plain(lay, state,
                                                                  tq),
-                             5, pbytes, call=lambda: ppart(lay, state, tq)),
+                             5, pbytes, floor,
+                             call=lambda: ppart(lay, state, tq)),
         "range_part": _times(b8, lambda: range_partitioned_plain(
-            lay, state, tlo, thi), 5, rbytes,
+            lay, state, tlo, thi), 5, rbytes, floor,
             call=lambda: rpart(lay, state, tlo, thi)),
     }
+    runs = _range_runs(device, lay, state, tlo, thi)
+    if _check_runs(runs, (plain_r,)):
+        raise AssertionError("range read-plan variant != plain")
+    tiers["range_read_plans_ms"] = _turns(runs)
     tiers["point_resident_B2"]["call_ms"] = _cuda_ms(
         lambda: pt(lay, state, tq), 200)
     tiers["range_resident_B3"]["call_ms"] = _cuda_ms(
@@ -1295,13 +1475,16 @@ def main() -> int:
         raise AssertionError(f"main-path layout {main_run['layout']}")
     print(f"[3/8] main path {json.dumps(main_run)}", flush=True)
     large = phase_main_path(10_000_000, "resident", name,
-                            expect(insert=39, point=4, range=4), kernels)
+                            expect(insert=39, point=4, range=4), kernels,
+                            time_plans=True)
     print(f"[4/8] resident 10M {json.dumps(large)}", flush=True)
 
     single = {k: kernels[k] for k in ("insert", "point", "range")}
-    times = phase_times(device, big, single)
+    times, plans = phase_times(device, big, single)
     print(f"[5/8] times at {CHUNK} keys/queries, filter "
-          f"{big.total_u32 * 4} B, on {smi}: {json.dumps(times)}", flush=True)
+          f"{big.total_u32 * 4} B, on {smi}: {json.dumps(times)}; range "
+          f"kernels and read plans alone in turns: {json.dumps(plans)}",
+          flush=True)
 
     t0 = time.perf_counter()
     stacked = phase_stacked_vs_plain(device, kernels, errs, big)

@@ -1,5 +1,6 @@
 // Device code shared by the bloomRF kernels (insert.cu, probe.cu,
-// rangeprobe.cu, store_scan.cu, stacked.cu): the layout descriptor, mix32,
+// stacked.cu, and through rangeplan.cuh partitioned.cu and store_scan.cu):
+// the layout descriptor, mix32,
 // position and word addressing, the uint32 mask algebra of
 // repro/core/bloomrf.py, and the per-key point and range verdicts.
 //
@@ -17,13 +18,15 @@ namespace bloomrf {
 // ---------------------------------------------------------------------------
 // Layout descriptor: a flat uint32 table built once per layout on the host
 // (kernels/_build.py::layout_descriptor) and copied into shared memory by
-// every block.  Header words, then one record per layer, then the seeds.
+// every block.  Header words, then one record per layer, then the seeds,
+// then each layer's exact reciprocal of its word count (two words, low
+// first; read by rangeplan.cuh).
 // ---------------------------------------------------------------------------
 constexpr int kHdr = 8;
 constexpr int kLayerStride = 8;
 enum Header { H_D = 0, H_K, H_TOP, H_HAS_EXACT, H_EXACT_OFF, H_LEN };
 enum LayerField { L_LEVEL = 0, L_DELTA, L_W, L_NWORDS, L_OFFBITS, L_REPS,
-                  L_SEED_OFF };
+                  L_SEED_OFF, L_FASTMOD_OFF };
 
 struct Desc {
   const uint32_t* w;

@@ -47,16 +47,21 @@ _ENTRY = {
     "bloomrf_point_probe": ("probe", (_P, _I64, _P, _P, _I, _P, _P)),
     "bloomrf_range_probe": ("rangeprobe", (_P, _P, _I64, _P, _P, _I, _P, _P)),
     "bloomrf_store_scan": ("store_scan", (_P, _P, _I64, _P, _P, _I, _P, _P,
-                                          _P, _P, _I, _P, _P, _P)),
+                                          _P, _P, _I, _P, _P, _I, _P)),
+    "bloomrf_store_scan_variant": ("store_scan", (_P, _P, _I64, _P, _P, _I,
+                                                  _P, _P, _P, _P, _I, _P, _P,
+                                                  _I, _I, _P)),
     "bloomrf_range_stacked": ("stacked", (_P, _P, _I64, _P, _I64, _I, _P, _I,
                                           _P, _P)),
     "bloomrf_point_stacked": ("stacked", (_P, _I64, _P, _I64, _I, _P, _I, _P,
                                           _P)),
     "bloomrf_range_partitioned": ("partitioned", (_P, _P, _I64, _P, _P, _I,
                                                   _P, _P)),
+    "bloomrf_range_variant": ("partitioned", (_P, _P, _I64, _P, _P, _I, _P,
+                                              _I, _P)),
+    "bloomrf_empty": ("floor", (_I, _I, _I, _I, _P)),
 }
 SOURCES = tuple(dict.fromkeys(src for src, _ in _ENTRY.values()))
-_HEADER = "bloomrf.cuh"
 
 _LIBS: dict = {}
 
@@ -71,8 +76,10 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
+    headers = sorted(CSRC.glob("*.cuh"))
     for part in ((CSRC / f"{name}.cu").read_bytes(),
-                 (CSRC / _HEADER).read_bytes(), " ".join(NVCC_FLAGS).encode()):
+                 *(p.read_bytes() for p in headers),
+                 " ".join(NVCC_FLAGS).encode()):
         h.update(part)
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -144,27 +151,42 @@ _HDR, _STRIDE = 8, 8
 MAX_DESC_WORDS = 48 * 1024 // 4
 
 
+def fastmod_magic(n: int) -> int:
+    """Lemire's reciprocal of a word count ``n`` (1 <= n < 2^32) for
+    ``csrc/rangeplan.cuh::fast_mod``: ``M = floor((2^64 - 1) / n) + 1``
+    mod 2^64, so that ``h % n`` is the high 64 bits of ``((M * h) mod 2^64)
+    * n`` for every 32-bit ``h``."""
+    if not 1 <= n < 1 << 32:
+        raise ValueError(f"word count {n} outside [1, 2^32)")
+    return (((1 << 64) - 1) // n + 1) & ((1 << 64) - 1)
+
+
 def layout_descriptor(layout: FilterLayout) -> np.ndarray:
     """The kernels' uint32 view of a layout: a header (d, k, top level,
     exact flag, exact offset, length), one record per layer (level, Δ, W,
-    nwords, segment offset in bits, replicas, first seed), then every
-    replica's seed cut to 32 bits as ``mix`` does."""
+    nwords, segment offset in bits, replicas, first seed, offset of its
+    reciprocal), then every replica's seed cut to 32 bits as ``mix`` does,
+    then each layer's :func:`fastmod_magic` of nwords (low word first)."""
     k = layout.k
-    seeds, layers = [], []
+    nseeds = sum(layout.replicas)
+    seeds, layers, magic = [], [], []
     for i in range(k):
         layers += [layout.levels[i], layout.deltas[i], layout.word_bits(i),
                    layout.nwords(i),
                    layout.seg_off_bits[layout.seg_of_layer[i]],
-                   layout.replicas[i], _HDR + _STRIDE * k + len(seeds), 0]
+                   layout.replicas[i], _HDR + _STRIDE * k + len(seeds),
+                   _HDR + _STRIDE * k + nseeds + 2 * i]
         seeds += [int(s) & 0xFFFFFFFF
                   for s in layout.seeds[i, :layout.replicas[i]]]
-    n = _HDR + len(layers) + len(seeds)
+        m = fastmod_magic(layout.nwords(i))
+        magic += [m & 0xFFFFFFFF, m >> 32]
+    n = _HDR + len(layers) + len(seeds) + len(magic)
     if n > MAX_DESC_WORDS:
         raise ValueError(f"layout descriptor of {n} words exceeds "
                          f"{MAX_DESC_WORDS}")
     header = [layout.d, k, layout.top_level, int(layout.has_exact),
               layout.exact_off_bits if layout.has_exact else 0, n, 0, 0]
-    return np.asarray(header + layers + seeds, dtype=np.uint32)
+    return np.asarray(header + layers + seeds + magic, dtype=np.uint32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -177,17 +199,15 @@ def device_descriptor(layout: FilterLayout, device: torch.device) -> torch.Tenso
 @functools.lru_cache(maxsize=8)
 def stack_descriptor(layouts: tuple, bases: tuple, device: torch.device):
     """The store-scan kernel's view of a row stack, built once per row stack
-    and device: ``(desc, rowtab, max_len)``.  The cache is bounded: a store
-    scans only its current stack, and every flush or compaction makes a
-    new one.
+    and device: ``(desc, rowtab)``.  The cache is bounded: a store scans
+    only its current stack, and every flush or compaction makes a new one.
 
     ``desc`` concatenates the descriptors of the distinct layouts (int32 on
-    ``device``); ``rowtab`` is ``int64[R, 2]``, per row the word offset of
-    its layout's descriptor in ``desc`` and its base lane in the flat
-    state; ``max_len`` is the longest descriptor (the shared memory a block
-    needs).  The row fences and the quarantine mask change with the data,
-    not the layouts, so they ride beside this as their own ``(R,)``
-    operands."""
+    ``device``; every block stages all of it in shared memory); ``rowtab``
+    is ``int64[R, 2]``, per row the word offset of its layout's descriptor
+    in ``desc`` and its base lane in the flat state.  The row fences and
+    the quarantine mask change with the data, not the layouts, so they
+    ride beside this as their own ``(R,)`` operands."""
     if len(layouts) != len(bases):
         raise ValueError(f"{len(layouts)} layouts vs {len(bases)} bases")
     distinct = list(dict.fromkeys(layouts))
@@ -198,5 +218,4 @@ def stack_descriptor(layouts: tuple, bases: tuple, device: torch.device):
                          for lay, b in zip(layouts, bases)], np.int64)
     words = np.concatenate(descs)
     return (torch.from_numpy(words.view(np.int32)).to(device),
-            torch.from_numpy(rowtab).to(device),
-            max(len(d) for d in descs))
+            torch.from_numpy(rowtab).to(device))

@@ -24,15 +24,25 @@ import torch
 
 from ..core.engine import stacked_probe
 from . import _build
-from ._checks import MAX_ROWS, check_keys
+from ._checks import check_keys
 from .rangeprobe import _check_bounds, _check_range_kernel_layout
 
 __all__ = ["store_scan_probe", "store_scan_probe_flat", "build_run_stack",
-           "DEFAULT_TILE"]
+           "DEFAULT_TILE", "SCAN_THREADS", "scan_smem_bytes"]
 
 #: the reference's default query tile; accepted by :func:`store_scan_probe`
-#: and unused (every launch runs blocks of ``bloomrf::kThreads`` queries)
+#: and unused (every launch runs blocks of ``SCAN_THREADS`` cells)
 DEFAULT_TILE = 256
+#: threads (one (scan, row) cell each) per block of the kernel
+SCAN_THREADS = 64
+#: shared memory one block may hold on Hopper (bytes)
+_MAX_SMEM = 232_448
+
+
+def scan_smem_bytes(desc_words: int, threads: int = SCAN_THREADS) -> int:
+    """Shared memory of one block: a 32-byte record per staged row slot (one
+    per thread) and the whole stack descriptor (``csrc/store_scan.cu``)."""
+    return 32 * threads + 4 * desc_words
 
 
 def build_run_stack(states) -> torch.Tensor:
@@ -48,8 +58,6 @@ def build_run_stack(states) -> torch.Tensor:
 def _check_rows(layouts: tuple, bases: tuple, lanes: int) -> None:
     if not layouts:
         raise ValueError("need at least one run row")
-    if len(layouts) > MAX_ROWS:
-        raise ValueError(f"at most {MAX_ROWS} run rows, got {len(layouts)}")
     if len(bases) != len(layouts):
         raise ValueError(f"{len(layouts)} layouts vs {len(bases)} bases")
     d = layouts[0].d
@@ -101,14 +109,19 @@ def store_scan_probe_flat(layouts: tuple, bases: tuple, flat: torch.Tensor,
     fence = torch.empty((B, R), dtype=torch.bool, device=flat.device)
     touch = torch.empty_like(fence)
     if B:
-        desc, rowtab, max_len = _build.stack_descriptor(layouts, bases,
-                                                        flat.device)
+        if B * R >= 1 << 31:
+            raise ValueError(f"{B} scans x {R} runs exceed the int32 cell "
+                             f"index; scan in smaller batches")
+        desc, rowtab = _build.stack_descriptor(layouts, bases, flat.device)
+        if scan_smem_bytes(desc.numel()) > _MAX_SMEM:
+            raise ValueError(f"a stack descriptor of {desc.numel()} words "
+                             f"does not fit a block's shared memory")
         _build.launch("bloomrf_store_scan", flat.device, lo.data_ptr(),
                       hi.data_ptr(), B, flat.data_ptr(), desc.data_ptr(),
-                      max_len, rowtab.data_ptr(), kmin.data_ptr(),
+                      desc.numel(), rowtab.data_ptr(), kmin.data_ptr(),
                       kmax.data_ptr(),
                       None if quarantine is None else quarantine.data_ptr(),
-                      R, fence.data_ptr(), touch.data_ptr())
+                      R, fence.data_ptr(), touch.data_ptr(), SCAN_THREADS)
         store_scan_probe.launches += 1
     return fence, touch
 
@@ -120,8 +133,8 @@ def store_scan_probe(layouts: tuple, stack: torch.Tensor, kmin, kmax, lo, hi,
     (:func:`build_run_stack`): ``(fence, touch)``, both ``bool[B, R]``.
 
     The reference's signature.  ``tile`` and ``runs_per_block`` sized the
-    TPU's VMEM blocks; here every block reads its own row with a fixed
-    thread count, so both are accepted and have no effect on the result."""
+    TPU's VMEM blocks; here every block answers a fixed number of cells, so
+    both are accepted and have no effect on the result."""
     if runs_per_block < 0:
         raise ValueError(f"runs_per_block must be >= 0, got {runs_per_block}")
     if stack.dim() != 2 or stack.shape[0] != len(layouts):

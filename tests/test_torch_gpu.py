@@ -361,3 +361,110 @@ def test_store_on_the_card_scans_through_the_kernel(cuda):
     assert store_scan_probe.launches == n0 + 1
     assert st.stats.as_dict() == twin.stats.as_dict()
     assert st.stats.kernel_fallbacks == 0 and len(st.live_runs()) > 1
+
+
+# ---------------------------------------------------------------------------
+# the redesigned range read plan (B3) and store-scan kernel (B4)
+# ---------------------------------------------------------------------------
+
+_B3_LAYOUTS = {
+    **{f"delta{dl}": (lambda dl=dl: basic_layout(32, 3000, 16.0, delta=dl))
+       for dl in range(1, 8)},
+    "w64_replicas3": _PART_EDGE_LAYOUTS["w64_replicas3"],
+    "w8_replicas5": _PART_EDGE_LAYOUTS["w8_replicas5"],
+    "top_eq_d": _LAYOUTS["top_eq_d"],
+}
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("name", list(_B3_LAYOUTS))
+def test_range_kernel_read_plan_matches_plain_version(cuda, name, aligned):
+    """B3 over Δ 1..7, replicas 3 and 5 and top = d = 32, on a state that is
+    8-byte aligned and on a view of it that is only 4-byte aligned (a W = 64
+    word then takes two 4-byte loads)."""
+    lay = _B3_LAYOUTS[name]()
+    f = BloomRF(lay, device=cuda)
+    keys, lo, hi = _inputs(lay, cuda, q=20_001)
+    buf = torch.zeros(lay.total_u32 + 1, dtype=torch.int32, device=cuda)
+    state = buf[:-1] if aligned else buf[1:]
+    assert (state.data_ptr() % 8 == 0) == aligned
+    state.copy_(insert_resident(lay, f.init_state(), keys))
+    lo = torch.cat([keys[:40], lo])
+    hi = torch.cat([keys[:40], hi])
+    want = f.engine.range_batched(state, lo, hi)
+    n0 = range_probe_resident.launches
+    got = range_probe_resident(lay, state, lo, hi)
+    torch.testing.assert_close(got, want)
+    torch.testing.assert_close(range_probe_resident(lay, state, hi, lo), want)
+    assert range_probe_resident.launches == n0 + 2
+    assert got[:40].all()
+
+
+def test_range_kernel_on_the_main_path_layout(cuda):
+    """B3 on the single filter's main-path layout (2,000,000 keys at 16
+    bits/key: Δ 7, k 2, W 64) at 262,144 ranges."""
+    lay = basic_layout(32, 2_000_000, 16.0, delta=7)
+    f = BloomRF(lay, device=cuda)
+    rng = np.random.default_rng(9)
+    keys = torch.from_numpy(rng.integers(0, 1 << 32, 2_000_000,
+                                         dtype=np.uint64).astype(np.int64))
+    state = insert_resident(lay, f.init_state(), keys.to(cuda))
+    lo = rng.integers(0, 1 << 32, 1 << 18, dtype=np.uint64)
+    width = np.floor(np.exp2(rng.uniform(0, 14, 1 << 18))).astype(np.uint64)
+    hi = np.minimum(lo + width - np.uint64(1), np.uint64((1 << 32) - 1))
+    tlo, thi = (torch.from_numpy(a.astype(np.int64)).to(cuda)
+                for a in (lo, hi))
+    n0 = range_probe_resident.launches
+    got = range_probe_resident(lay, state, tlo, thi)
+    assert range_probe_resident.launches == n0 + 1
+    torch.testing.assert_close(got, f.engine.range_batched(state, tlo, thi))
+
+
+def _scan_case(name, device, rng):
+    c0 = basic_layout(32, 400, 14.0, delta=6)
+    four = [c0, basic_layout(32, 1600, 14.0, delta=6),
+            _LAYOUTS["w64_replicas"](), _LAYOUTS["multiseg"]()]
+    layouts = [c0] if name == "one_row" else [four[i % 4] for i in range(40)]
+    states, kmin, kmax = _rows(layouts, device, rng, n=300)
+    if len(layouts) > 1:
+        kmin[1], kmax[1] = (1 << 32) - 1, 0          # the empty fence
+    return layouts, states, kmin, kmax
+
+
+@pytest.mark.parametrize("name", ["one_row", "forty_rows_four_layouts"])
+def test_store_scan_kernel_rows_fences_and_bounds(cuda, name):
+    """B4 on one row and on 40 rows over 4 layouts, with and without a
+    quarantine mask, an empty fence, a batch that is not a multiple of the
+    block, scans that span a top-level gap and swapped bounds."""
+    rng = np.random.default_rng(10)
+    layouts, states, kmin, kmax = _scan_case(name, cuda, rng)
+    R = len(layouts)
+    top = (1 << 32) - 1
+    B = 333
+    lo = rng.integers(0, top + 1, B, dtype=np.uint64)
+    hi = np.minimum(lo + rng.integers(0, 1 << 20, B, dtype=np.uint64), top)
+    lo[:6] = [0, 1 << 20, 5 << 24, 123, kmin[0], 9]
+    hi[:6] = [top, 3 << 20, 9 << 24, 7, kmin[0], 2]   # gaps, swapped, fence
+    assert (B * R) % 64
+    tlo, thi = (torch.from_numpy(a.astype(np.int64)).to(cuda)
+                for a in (lo, hi))
+    sizes = [lay.total_u32 for lay in layouts]
+    bases = tuple(int(b) for b in np.cumsum([0] + sizes[:-1]))
+    flat = torch.cat(states)
+    tk = [torch.tensor(v, dtype=torch.int64, device=cuda)
+          for v in (kmin, kmax)]
+    plain = stacked_probe(tuple(layouts), bases, cuda)
+    for quar in (None, torch.arange(R, device=cuda) % 3 == 0):
+        want = plain.touch_all(flat, *tk, tlo, thi, quar)
+        n0 = store_scan_probe.launches
+        fence, touch = store_scan_probe_flat(layouts, bases, flat, *tk, tlo,
+                                             thi, quarantine=quar)
+        assert store_scan_probe.launches == n0 + 1
+        torch.testing.assert_close(fence, want[0])
+        torch.testing.assert_close(touch, want[1])
+        # only the whole-domain scan (row 0 of the batch) reaches the empty
+        # fence (2^32 - 1, 0)
+        assert R == 1 or not fence[1:, 1].any()
+        if quar is not None:
+            assert torch.equal(touch[:, 0], fence[:, 0])
+    torch.cuda.synchronize()
