@@ -378,6 +378,9 @@ SCAN_VARIANT_THREADS = (64, 128, 256, 512)
 
 
 def _scan_variant_name(variant: int, threads: int) -> str:
+    if variant >= 16:               # four lanes per cell, row-major
+        return ("group4" + ("_fastmod" if variant & 4 else "")
+                + f"_rowmajor_t{threads}")
     return (PLANS[variant & 3] + ("_fastmod" if variant & 4 else "")
             + ("_rowmajor" if variant & 8 else "_flat") + f"_t{threads}")
 
@@ -438,7 +441,7 @@ def _scan_runs(device, layouts, bases, flat, kmin, kmax, lo, hi,
     desc, rowtab = _build.stack_descriptor(tuple(layouts), tuple(bases),
                                            device)
     runs = {}
-    for variant in range(16):
+    for variant in [*range(16), 16, 20]:
         for threads in SCAN_VARIANT_THREADS:
             fence = torch.empty((B, R), dtype=torch.bool, device=device)
             touch = torch.empty_like(fence)

@@ -427,6 +427,61 @@ __device__ __forceinline__ LayerTests layer_tests(const Desc& D, int i,
   return t;
 }
 
+// LayerTests as bits: hit_l, hit_r, cov_l, cov_r, splits from bit 0 up.
+__device__ __forceinline__ unsigned pack(const LayerTests& t) {
+  return (t.hit_l ? 1u : 0u) | (t.hit_r ? 2u : 0u) | (t.cov_l ? 4u : 0u) |
+         (t.cov_r ? 8u : 0u) | (t.splits ? 16u : 0u);
+}
+
+// Layer i's tests as bits, from its words: the first replica of its two or
+// four candidate words issued together, then the further replicas.
+template <bool kFast>
+__device__ __forceinline__ unsigned layer_bits(
+    const uint32_t* __restrict__ state, bool pairs, const Desc& D, int i,
+    uint32_t L, uint32_t R) {
+  const uint32_t* lay = D.layer(i);
+  const uint32_t W = lay[bloomrf::L_W];
+  const uint32_t up = lay[bloomrf::L_LEVEL] + lay[bloomrf::L_DELTA];
+  const uint32_t Lpar = bloomrf::shr(L, up), Rpar = bloomrf::shr(R, up);
+  const bool same = Lpar == Rpar;
+  const uint32_t key[4] = {Lpar << 1, (Lpar << 1) | 1u, Rpar << 1,
+                           (Rpar << 1) | 1u};
+  uint32_t v[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j < 2 || !same)
+      load_lanes<kFast>(state, pairs, D, i, 0, key[j], W, v[j][0], v[j][1]);
+  }
+  Word x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j >= 2 && same) {
+      x[j] = x[j - 2];
+      continue;
+    }
+    x[j] = all_ones(W);
+    and_lanes(W, v[j][0], v[j][1], x[j]);
+    fold_rest<kFast>(state, pairs, D, i, key[j], 1u, x[j]);
+  }
+  return pack(layer_tests(D, i, L, R, x[0], x[1], x[2], x[3]));
+}
+
+// One step of the path flags over layer i's test bits, top first: 1 for a
+// hit, 0 when the verdict is "no" (both paths dead, or the bottom layer
+// passed without a hit), -1 to go on to layer i - 1.
+__device__ __forceinline__ int scan_layer(unsigned bits, int i, Paths& p) {
+  if (((bits & 1u) && p.left_alive) || ((bits & 2u) && p.right_alive))
+    return 1;
+  if (i == 0) return 0;
+  const bool new_split = p.split || (bits & 16u);
+  const bool nxt_right =
+      (p.split ? p.right_alive : (p.left_alive && new_split)) && (bits & 8u);
+  p.left_alive = p.left_alive && (bits & 4u);
+  p.right_alive = nxt_right;
+  p.split = new_split;
+  return (p.left_alive || p.right_alive) ? -1 : 0;
+}
+
 // Range verdict for [L, R] (swapped bounds allowed): the words of up to
 // kWave layers in one wave (as range_wave), then every layer's tests at
 // once, then the path flags run over those few booleans top first.

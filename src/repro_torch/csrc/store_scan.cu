@@ -126,6 +126,130 @@ __global__ void __launch_bounds__(512)
   touch_out[o] = touch;
 }
 
+// kLanes threads (of one warp) per (scan, row) cell, cells in row-major
+// order: lane s of a cell's group reads the words of layers k-1-s,
+// k-1-s-kLanes, ... and computes their tests (rangeplan::layer_bits); the
+// group exchanges its test bits by warp shuffles, and every lane of it runs
+// the path flags over them (rangeplan::scan_layer).  Every lane of a warp
+// runs the same number of waves and shuffles.
+constexpr unsigned kLanes = 4;
+
+template <bool kFast>
+__global__ void __launch_bounds__(512)
+    store_scan_group_kernel(const int64_t* __restrict__ lo,
+                            const int64_t* __restrict__ hi, unsigned n,
+                            const uint32_t* __restrict__ state,
+                            const uint32_t* __restrict__ gdesc,
+                            int desc_words,
+                            const int64_t* __restrict__ rowtab,
+                            const int64_t* __restrict__ kmin,
+                            const int64_t* __restrict__ kmax,
+                            const bool* __restrict__ quar, unsigned R,
+                            bool* __restrict__ fence_out,
+                            bool* __restrict__ touch_out) {
+  extern __shared__ int64_t smem[];
+  const unsigned T = blockDim.x;
+  int64_t* s_base = smem;
+  int64_t* s_kmin = smem + T;
+  int64_t* s_kmax = smem + 2 * T;
+  uint32_t* s_doff = reinterpret_cast<uint32_t*>(smem + 3 * T);
+  uint32_t* s_quar = s_doff + T;
+  uint32_t* s_desc = s_quar + T;
+
+  const unsigned cells = n * R;  // < 2^31: the wrapper checks
+  const unsigned per_block = T / kLanes;
+  const unsigned c0 = blockIdx.x * per_block;
+  const unsigned j = threadIdx.x;
+  const unsigned sub = j % kLanes;
+  const unsigned c = c0 + j / kLanes;
+  const unsigned t = c % n, r = c / n, r0 = c0 / n;
+  const unsigned slot = r - r0;
+  const unsigned nslots = min((c0 + per_block - 1u) / n, R - 1u) - r0 + 1u;
+  const bool valid = c < cells;
+
+  // one wave: the cell's bounds, the block's row records, the descriptor
+  int64_t l = 0, h = 0;
+  if (valid) {
+    l = lo[t];
+    h = hi[t];
+  }
+  if (j < nslots) {
+    const unsigned srow = r0 + j;
+    s_doff[j] = static_cast<uint32_t>(rowtab[2 * srow]);
+    s_base[j] = rowtab[2 * srow + 1];
+    s_kmin[j] = kmin[srow];
+    s_kmax[j] = kmax[srow];
+    s_quar[j] = quar != nullptr && quar[srow];
+  }
+  for (int w = j; w < desc_words; w += T) s_desc[w] = gdesc[w];
+  __syncthreads();
+
+  const bool fence = valid && h >= s_kmin[slot] && l <= s_kmax[slot];
+  bool touch = fence && s_quar[slot] != 0u;
+  const bloomrf::Desc D{s_desc + (valid ? s_doff[slot] : 0u)};
+  const uint32_t* row = state + (valid ? s_base[slot] : 0);
+  uint32_t L = static_cast<uint32_t>(l), H = static_cast<uint32_t>(h);
+  rangeplan::Paths p;
+  bool live = fence && !touch;
+  if (live && rangeplan::start(D, L, H, p) >= 0) {
+    touch = true;
+    live = false;
+  }
+  const int k = live ? D.k() : 0;
+  const int waves = __reduce_max_sync(
+      0xFFFFFFFFu, static_cast<unsigned>((k + kLanes - 1) / kLanes));
+  const bool pairs = (reinterpret_cast<uintptr_t>(row) & 7u) == 0u;
+  const unsigned base = (threadIdx.x & 31u) & ~(kLanes - 1u);
+  for (int wave = 0; wave < waves; ++wave) {
+    const int top = k - 1 - static_cast<int>(kLanes) * wave;
+    const int i = top - static_cast<int>(sub);
+    unsigned bits = 0u;
+    if (live && i >= 0)
+      bits = rangeplan::layer_bits<kFast>(row, pairs, D, i, L, H);
+    unsigned got[kLanes];
+#pragma unroll
+    for (unsigned s = 0; s < kLanes; ++s)
+      got[s] = __shfl_sync(0xFFFFFFFFu, bits, base + s);
+#pragma unroll
+    for (unsigned s = 0; s < kLanes; ++s) {
+      if (!live || top - static_cast<int>(s) < 0) break;
+      const int v = rangeplan::scan_layer(got[s], top - static_cast<int>(s), p);
+      if (v >= 0) {
+        touch = v != 0;
+        live = false;
+      }
+    }
+  }
+  if (valid && sub == 0) {
+    fence_out[t * R + r] = fence;
+    touch_out[t * R + r] = touch;
+  }
+}
+
+template <bool kFast>
+int launch_group(const int64_t* lo, const int64_t* hi, int64_t n,
+                 const uint32_t* state, const uint32_t* desc, int desc_words,
+                 const int64_t* rowtab, const int64_t* kmin,
+                 const int64_t* kmax, const bool* quar, int R, bool* fence,
+                 bool* touch, int threads, void* stream) {
+  auto kern = store_scan_group_kernel<kFast>;
+  const size_t smem = scan_smem(threads, desc_words);
+  if (smem > 48u * 1024u) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int64_t cells = n * R;
+  const int64_t per_block = threads / kLanes;
+  const unsigned blocks =
+      static_cast<unsigned>((cells + per_block - 1) / per_block);
+  kern<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      lo, hi, static_cast<unsigned>(n), state, desc, desc_words, rowtab,
+      kmin, kmax, quar, static_cast<unsigned>(R), fence, touch);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int kPlan, bool kFast, bool kRowMajor>
 int launch_scan(const int64_t* lo, const int64_t* hi, int64_t n,
                 const uint32_t* state, const uint32_t* desc, int desc_words,
@@ -169,13 +293,19 @@ extern "C" int bloomrf_store_scan(const int64_t* lo, const int64_t* hi,
 
 // The same with the design picked at run time: variant bits 0-1 the read
 // plan (rangeplan::range_plan), bit 2 the reciprocal, bit 3 the row-major
-// cell order; threads per block.
+// cell order; variant 16 and 20: kLanes threads per cell
+// (store_scan_group_kernel, without and with the reciprocal); threads per
+// block.
 extern "C" int bloomrf_store_scan_variant(
     const int64_t* lo, const int64_t* hi, int64_t n, const uint32_t* state,
     const uint32_t* desc, int desc_words, const int64_t* rowtab,
     const int64_t* kmin, const int64_t* kmax, const bool* quar, int R,
     bool* fence, bool* touch, int variant, int threads, void* stream) {
   if (n <= 0 || R <= 0) return 0;
+  if (variant >= 16)
+    return (variant & 4 ? launch_group<true> : launch_group<false>)(
+        lo, hi, n, state, desc, desc_words, rowtab, kmin, kmax, quar, R,
+        fence, touch, threads, stream);
   using Fn = int (*)(const int64_t*, const int64_t*, int64_t, const uint32_t*,
                      const uint32_t*, int, const int64_t*, const int64_t*,
                      const int64_t*, const bool*, int, bool*, bool*, int,
