@@ -20,10 +20,13 @@ Phases, one line of output each:
    same verdicts as the ``backend="xla"`` twin, and exactly 8 / 4 / 4
    launches of the insert / point / range kernels and none of any other;
 4. a 10,000,000-key filter (19.1 MiB of lanes) through ``backend="resident"``
-   (under ``auto`` this size takes the partitioned tier);
+   (under ``auto`` this size takes the partitioned tier), and the range
+   kernel alone on it at one chunk;
 5. per-kernel times at phase 3's shapes (the kernel alone, replayed from a
    CUDA graph; the plain version and the wrapper's back-to-back calls by
-   CUDA events), beside each kernel's memory bound;
+   CUDA events), beside each kernel's memory bound and the latency floor of
+   its launch (an empty kernel with its grid, timed the same way; phases
+   6-8 report both for theirs too);
 6. the store-scan kernel (B4) against its plain version, ``StackedProbe.
    touch_all``, bit for bit over the run-stack classes of
    tests/test_store_scan_kernel.py (mixed Δ, several segments, replicas,
@@ -103,13 +106,10 @@ def _ptxas_usage() -> dict:
             raise RuntimeError(f"nvcc -Xptxas -v {name}.cu:\n{text}")
         kernel = None
         for line in text.splitlines():
-            m = re.search(r"entry function '\w*?\d([a-z][a-z_]*_kernel)"
-                          r"((?:I)(?:Lb[01]E)+E)?", line)
+            m = re.search(r"entry function '\w*?\d([a-z][a-z_]*_kernel)",
+                          line)
             if m:
                 kernel = m.group(1)
-                if m.group(2):          # a template's bool arguments
-                    kernel += "<" + ",".join(re.findall(
-                        r"Lb([01])E", m.group(2))) + ">"
                 usage[kernel] = {}
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and kernel:
@@ -362,103 +362,6 @@ def _range_read_sectors(probe, flat, lo, hi, run=None) -> int:
     return int(torch.unique(torch.cat(read) >> 3).numel())
 
 
-# ---------------------------------------------------------------------------
-# read-plan variants of the range kernels (B3/B8) and of B4, each checked
-# against the plain version and timed alone in turns beside the kernels
-# ---------------------------------------------------------------------------
-
-#: the read plans of rangeplan::range_plan (3 reads no word: a timing
-#: probe, never checked)
-PLANS = ("layers", "wave", "wavepar", "noplan")
-#: bloomrf_range_variant's designs: bits 0-1 the plan, bit 2 the reciprocal
-RANGE_VARIANTS = {v: PLANS[v & 3] + ("_fastmod" if v & 4 else "")
-                  for v in (0, 1, 2, 4, 5, 6)}
-#: bloomrf_store_scan_variant's thread counts per block
-SCAN_VARIANT_THREADS = (64, 128, 256, 512)
-
-
-def _scan_variant_name(variant: int, threads: int) -> str:
-    if variant >= 16:               # four lanes per cell, row-major
-        return ("group4" + ("_fastmod" if variant & 4 else "")
-                + f"_rowmajor_t{threads}")
-    return (PLANS[variant & 3] + ("_fastmod" if variant & 4 else "")
-            + ("_rowmajor" if variant & 8 else "_flat") + f"_t{threads}")
-
-
-def _range_runs(device, lay, state, lo, hi) -> dict:
-    """name -> (launch, out): B3's kernel (rangeprobe.cu), B8's kernel and
-    the four read-plan variants on one filter."""
-    import torch
-
-    from repro_torch.kernels import _build
-
-    desc = _build.device_descriptor(lay, device)
-    runs = {}
-    entries = [("B3_rangeprobe", "bloomrf_range_probe", ()),
-               ("B8_partitioned", "bloomrf_range_partitioned", ())]
-    entries += [(f"variant_{name}", "bloomrf_range_variant", (v,))
-                for v, name in RANGE_VARIANTS.items()]
-    for name, entry, extra in entries:
-        out = torch.empty(lo.numel(), dtype=torch.bool, device=device)
-
-        def run(entry=entry, out=out, extra=extra):
-            _build.launch(entry, device, lo.data_ptr(), hi.data_ptr(),
-                          lo.numel(), state.data_ptr(), desc.data_ptr(),
-                          desc.numel(), out.data_ptr(), *extra)
-        runs[name] = (run, out)
-    return runs
-
-
-def _check_runs(runs: dict, want) -> int:
-    err = 0
-    for name, (run, *outs) in runs.items():
-        run()
-        if "noplan" in name:
-            continue
-        err = max(err, *(_max_err(o, w) for o, w in zip(outs, want)))
-    return err
-
-
-def _turns(runs: dict) -> dict:
-    """Each launch alone (:func:`_graph_ms`) in two turns, the second in
-    reverse order: name -> [ms, ms]."""
-    ms = {name: [] for name in runs}
-    for order in (list(runs), list(runs)[::-1]):
-        for name in order:
-            ms[name].append(_graph_ms(runs[name][0]))
-    return ms
-
-
-def _scan_runs(device, layouts, bases, flat, kmin, kmax, lo, hi,
-               quar) -> dict:
-    """name -> (launch, fence, touch): every design of
-    bloomrf_store_scan_variant at every thread count."""
-    import torch
-
-    from repro_torch.kernels import _build
-
-    B, R = lo.numel(), len(layouts)
-    desc, rowtab = _build.stack_descriptor(tuple(layouts), tuple(bases),
-                                           device)
-    runs = {}
-    for variant in [*range(16), 16, 20]:
-        for threads in SCAN_VARIANT_THREADS:
-            fence = torch.empty((B, R), dtype=torch.bool, device=device)
-            touch = torch.empty_like(fence)
-
-            def run(variant=variant, threads=threads, fence=fence,
-                    touch=touch):
-                _build.launch(
-                    "bloomrf_store_scan_variant", device, lo.data_ptr(),
-                    hi.data_ptr(), B, flat.data_ptr(), desc.data_ptr(),
-                    desc.numel(), rowtab.data_ptr(), kmin.data_ptr(),
-                    kmax.data_ptr(),
-                    None if quar is None else quar.data_ptr(), R,
-                    fence.data_ptr(), touch.data_ptr(), variant, threads)
-            runs[_scan_variant_name(variant, threads)] = (run, fence, touch)
-    return runs
-
-
 def _queries(rng, n_keys, keys, top):
     """Half present / half uniform point queries, and ranges with lengths
     log-uniform in 2^0..2^14 from uniform starts (mostly empty)."""
@@ -571,11 +474,7 @@ def phase_kernels_vs_plain(device, kernels, errs, big_layout):
             plain = f.engine.range_batched(state, tlo, thi)
             errs["range"] = max(errs["range"], _max_err(
                 rg["fn"](lay, state, tlo, thi), plain),
-                _max_err(rg["fn"](lay, state, thi, tlo), plain),
-                _check_runs(_range_runs(device, lay, state, tlo, thi),
-                            (plain,)),
-                _check_runs(_range_runs(device, lay, state, thi, tlo),
-                            (plain,)))
+                _max_err(rg["fn"](lay, state, thi, tlo), plain))
         _check_partitioned(lay, f, state, tq, tlo, thi, kernels, errs)
         checked += 1
     # B7/B8 with more replicas than B8 issues at once for a word (W = 64
@@ -588,12 +487,8 @@ def phase_kernels_vs_plain(device, kernels, errs, big_layout):
         hi[:7] = [(1 << 32) - 1, 0, 0, (1 << 32) - 1, 2, 5, (1 << 31) - 1]
         tk = _i64(keys, device)
         state = ins["fn"](lay, f.init_state(), tk)
-        tlo, thi = _i64(lo, device), _i64(hi, device)
-        _check_partitioned(lay, f, state, _i64(pq, device), tlo, thi,
-                           kernels, errs)
-        errs["range"] = max(errs["range"], _check_runs(
-            _range_runs(device, lay, state, tlo, thi),
-            (f.engine.range_batched(state, tlo, thi),)))
+        _check_partitioned(lay, f, state, _i64(pq, device), _i64(lo, device),
+                           _i64(hi, device), kernels, errs)
     torch.cuda.synchronize()
     if any(errs.values()):
         raise AssertionError(f"kernel != plain version: max_abs_err {errs}")
@@ -601,10 +496,10 @@ def phase_kernels_vs_plain(device, kernels, errs, big_layout):
 
 
 def phase_main_path(n, backend, device_name, expect_launches, kernels,
-                    time_plans=False):
+                    time_range=False):
     """Phases 3 and 4: the façade end to end, against numpy truth and the
-    same spec's ``backend="xla"`` twin on the card; with ``time_plans``,
-    the range kernels and read-plan variants on the filter at one chunk."""
+    same spec's ``backend="xla"`` twin on the card; with ``time_range``,
+    the range kernel (B3) alone on the filter at one chunk."""
     import numpy as np
     import torch
 
@@ -644,20 +539,14 @@ def phase_main_path(n, backend, device_name, expect_launches, kernels,
     if not (np.array_equal(twin.point(pq), pres)
             and np.array_equal(twin.range(lo, hi), rres)):
         raise AssertionError("verdicts differ from the xla twin")
-    plans = None
-    if time_plans:
-        from repro_torch.core import BloomRF
-
+    range_ms = None
+    if time_range:
         tlo, thi = _i64(lo[:CHUNK], h.state.device), _i64(hi[:CHUNK],
                                                           h.state.device)
-        runs = _range_runs(h.state.device, h.layout, h.state, tlo, thi)
-        want = BloomRF(h.layout, device=h.state.device).engine.range_batched(
-            h.state, tlo, thi)
-        if _check_runs(runs, (want,)):
-            raise AssertionError("range read-plan variant != plain")
-        plans = _turns(runs)
+        range_ms = _graph_ms(lambda: kernels["range"]["fn"](
+            h.layout, h.state, tlo, thi))
     return {
-        "range_read_plans_ms": plans,
+        "range_ms_alone": range_ms,
         "n": n, "backend": h.backend, "lanes": h.layout.total_u32,
         "layout": {"deltas": h.layout.deltas, "replicas": h.layout.replicas},
         "launches": launches,
@@ -723,10 +612,7 @@ def phase_times(device, lay, kernels):
              lambda: f.engine.range_batched(state, tlo, thi),
              CHUNK * 16 + state_b + CHUNK)):
         out[name] = _times(kern, plain, 10, nbytes, floor)
-    runs = _range_runs(device, lay, state, tlo, thi)
-    if _check_runs(runs, (f.engine.range_batched(state, tlo, thi),)):
-        raise AssertionError("range read-plan variant != plain")
-    return out, _turns(runs)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -816,9 +702,6 @@ def phase_stacked_vs_plain(device, kernels, errs, big_layout):
                                          _max_err(f_k, want[0]),
                                          _max_err(t_k, want[1]))
                 cells += f_k.numel()
-            errs["store_scan"] = max(errs["store_scan"], _check_runs(
-                _scan_runs(device, layouts, bases, flat, tkmin, tkmax, tlo,
-                           thi, quar), want))
 
     # B5/B6: 4 rows of the phase-3 layout (4,000,000 lanes: resident tier)
     lay, rows = big_layout, 4
@@ -928,7 +811,7 @@ def phase_store(device, kernels, errs):
 
     import repro_torch
     from repro_torch.kernels import _build
-    from repro_torch.kernels.store_scan import (SCAN_THREADS,
+    from repro_torch.kernels.store_scan import (SCAN_LANES, SCAN_THREADS,
                                                 scan_smem_bytes,
                                                 store_scan_probe_flat)
 
@@ -1043,7 +926,8 @@ def phase_store(device, kernels, errs):
     # that the fenced cells' range plans reach, two bool (B, R) outputs
     desc_words = _build.stack_descriptor(layouts, st._bases,
                                          device)[0].numel()
-    floor = _floor_ms(device, _grid(SCAN_BATCH * R, SCAN_THREADS),
+    floor = _floor_ms(device, _grid(SCAN_BATCH * R,
+                                    SCAN_THREADS // SCAN_LANES),
                       SCAN_THREADS, scan_smem_bytes(desc_words))
     times = _times(lambda: store_scan_probe_flat(
                        layouts, st._bases, st._flat, kmin, kmax, b_lo, b_hi,
@@ -1052,15 +936,6 @@ def phase_store(device, kernels, errs):
                                                b_hi, quar), 20,
                    SCAN_BATCH * 16 + R * 16 + min(sectors * 32, flat_b)
                    + 2 * SCAN_BATCH * R, floor)
-    runs = _scan_runs(device, layouts, st._bases, st._flat, kmin, kmax,
-                      b_lo, b_hi, quar)
-    if _check_runs(runs, st._probe.touch_all(st._flat, kmin, kmax, b_lo,
-                                             b_hi, quar)):
-        raise AssertionError("store-scan variant != plain")
-    plans = _turns(runs)
-    plan_floors = {t: _floor_ms(device, _grid(SCAN_BATCH * R, t), t,
-                                scan_smem_bytes(desc_words, t))
-                   for t in SCAN_VARIANT_THREADS}
     t5 = time.perf_counter()
     for _ in range(200):
         st._kernel_scan(b_lo, b_hi)
@@ -1083,7 +958,6 @@ def phase_store(device, kernels, errs):
         "kernel_fallbacks": stats.kernel_fallbacks,
         "b4_sectors_read": sectors, "b4_sector_share": sectors * 32 / flat_b,
         "b4_store_call_ms": store_call_ms,
-        "b4_plans_ms": plans, "b4_plan_floor_ms": plan_floors,
         "times": times,
     }
 
@@ -1339,10 +1213,6 @@ def phase_hbm(device, kernels, errs):
             lay, state, tlo, thi), 5, rbytes, floor,
             call=lambda: rpart(lay, state, tlo, thi)),
     }
-    runs = _range_runs(device, lay, state, tlo, thi)
-    if _check_runs(runs, (plain_r,)):
-        raise AssertionError("range read-plan variant != plain")
-    tiers["range_read_plans_ms"] = _turns(runs)
     tiers["point_resident_B2"]["call_ms"] = _cuda_ms(
         lambda: pt(lay, state, tq), 200)
     tiers["range_resident_B3"]["call_ms"] = _cuda_ms(
@@ -1435,7 +1305,7 @@ def main() -> int:
         "point": {"fn": point_probe_resident, "name": "point_probe_resident",
                   "source": src + "probe.cu", "replaces": rep + "probe.py:89"},
         "range": {"fn": range_probe_resident, "name": "range_probe_resident",
-                  "source": src + "rangeprobe.cu",
+                  "source": src + "partitioned.cu",
                   "replaces": rep + "rangeprobe.py:67"},
         "store_scan": {"fn": store_scan_probe, "name": "store_scan_probe",
                        "source": src + "store_scan.cu",
@@ -1479,15 +1349,13 @@ def main() -> int:
     print(f"[3/8] main path {json.dumps(main_run)}", flush=True)
     large = phase_main_path(10_000_000, "resident", name,
                             expect(insert=39, point=4, range=4), kernels,
-                            time_plans=True)
+                            time_range=True)
     print(f"[4/8] resident 10M {json.dumps(large)}", flush=True)
 
     single = {k: kernels[k] for k in ("insert", "point", "range")}
-    times, plans = phase_times(device, big, single)
+    times = phase_times(device, big, single)
     print(f"[5/8] times at {CHUNK} keys/queries, filter "
-          f"{big.total_u32 * 4} B, on {smi}: {json.dumps(times)}; range "
-          f"kernels and read plans alone in turns: {json.dumps(plans)}",
-          flush=True)
+          f"{big.total_u32 * 4} B, on {smi}: {json.dumps(times)}", flush=True)
 
     t0 = time.perf_counter()
     stacked = phase_stacked_vs_plain(device, kernels, errs, big)

@@ -180,8 +180,8 @@ __device__ __forceinline__ bool cov_bit(const Desc& D, int i, uint32_t x,
 // are not loaded, the right path reuses the left path's words before the
 // split, and the thread returns as soon as the verdict is known: skipped
 // words are exactly those the reference masks out, so verdicts are
-// unchanged.  Hashed layouts only (no exact segment).  Shared by
-// rangeprobe.cu (B3), store_scan.cu (B4) and stacked.cu (B5).
+// unchanged.  Hashed layouts only (no exact segment).  Used by stacked.cu
+// (B5); B3, B4 and B8 run the read plans of rangeplan.cuh.
 __device__ inline bool range_one(const uint32_t* __restrict__ state,
                                  const Desc& D, uint32_t L, uint32_t R) {
   if (L > R) {  // swapped bounds are allowed (L, R = min, max)

@@ -13,13 +13,9 @@ __global__ void empty_kernel() {}
 
 }  // namespace
 
+// smem: at most the 48 KB a launch may ask for without an opt-in
 extern "C" int bloomrf_empty(int blocks_x, int blocks_y, int threads,
                              int smem, void* stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        empty_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
   empty_kernel<<<dim3(static_cast<unsigned>(blocks_x),
                       static_cast<unsigned>(blocks_y)),
                  threads, static_cast<size_t>(smem),

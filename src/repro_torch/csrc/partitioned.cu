@@ -1,55 +1,39 @@
-// bloomRF range probe for Hopper on filters above the resident budget,
-// whose state lives in device memory (far larger than the 50 MB L2).
+// bloomRF range probe for Hopper: one kernel for both tiers of the single
+// filter, whether its state sits in the 50 MB L2 or in device memory.
 //
-// Replaces the Pallas TPU kernel
+// Replaces the Pallas TPU kernels
+//   B3  repro/kernels/rangeprobe.py::range_probe_resident (body
+//       _range_kernel: the filter pinned in VMEM, the engine's plan -> one
+//       (tile, A) gather -> combine over a tile of queries), and
 //   B8  repro/kernels/rangeprobe.py::range_probe_partitioned
 //       (the engine's range plan, its B x A lanes bucketed by 64 KiB filter
 //       block, body _gather_block_kernel, an XLA scatter back to (B, A),
 //       then the engine's combine).
+// Each wrapper launches this kernel and counts its own launches.
 // Its point twin, B7 (repro/kernels/probe.py::point_probe_partitioned), is
-// served by probe.cu's kernel: one thread per key stopping at the first
-// clear bit is already the design for a state in device memory.
+// served by probe.cu's kernel.
 // The TPU buckets probes so that each tile DMAs one filter block into VMEM.
 // On Hopper a probe reads one 32-byte sector through L2, and staging a
 // block would move far more than its probes read, so nothing is bucketed
 // here: one thread takes one range, runs its plan in registers, reads its
-// words straight from device memory and writes one byte.
+// words straight from L2 or device memory and writes one byte.
 //
-// Bound: the distinct sectors that the verdicts need, read at random from
-// device memory.  On the card the time follows the number of sectors read
-// more than the number of round trips in a chain (prefetching the next
-// layer's words was measured 1.5x slower), so the kernel reads as few as
-// it can and keeps the loads of one layer in flight together: per layer,
-// only the child words whose bits its masks or its covering bits can
-// select (a live path's pair shrinks to the one word that holds both ends
-// when the range does not cross the pair's middle).  Those words (left
-// pair, right pair, the first kRepBuf replicas of each; a W = 64 word as
-// one 8-byte load) are issued together before any is combined.
-// Verdicts are those of ProbeEngine.plan_range + combine_range
-// (repro/core/engine.py) in BloomRF._range_one's clip and select order, as
-// bloomrf::range_one computes them: a word is skipped only where the
-// reference masks it out.  Hashed layouts only: the wrapper rejects exact
-// segments for ranges, as the TPU kernel does.
+// Bound: the distinct sectors that the verdicts need, read at random.  On
+// the card the time follows the number of sectors read more than the
+// number of round trips in a chain, on a state four times the L2 and on
+// one inside it alike (prefetching the next layer's words, or issuing
+// every layer's words in one wave, was measured slower on both), so the
+// kernel reads as few as it can and keeps the loads of one layer in flight
+// together: rangeplan::range_layers, whose word addresses use each layer's
+// exact reciprocal of its word count.  Verdicts are those of
+// ProbeEngine.plan_range + combine_range (repro/core/engine.py) in
+// BloomRF._range_one's clip and select order, as bloomrf::range_one
+// computes them: a word is skipped only where the reference masks it out.
+// Hashed layouts only: the wrappers reject exact segments for ranges, as
+// the TPU kernels do.
 #include "rangeplan.cuh"
 
 namespace {
-
-// variant: bits 0-1 the read plan (rangeplan::range_plan), bit 2 the word
-// address (0 h % nwords, 1 the reciprocal)
-template <int kPlan, bool kFast>
-__global__ void __launch_bounds__(bloomrf::kThreads)
-    range_variant_kernel(const int64_t* __restrict__ lo,
-                         const int64_t* __restrict__ hi, int64_t n,
-                         const uint32_t* __restrict__ state,
-                         const uint32_t* __restrict__ gdesc, int desc_len,
-                         bool* __restrict__ out) {
-  extern __shared__ uint32_t sdesc[];
-  const bloomrf::Desc D = bloomrf::load_desc(gdesc, sdesc, desc_len);
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  out[t] = rangeplan::range_plan<kPlan, kFast>(
-      state, D, static_cast<uint32_t>(lo[t]), static_cast<uint32_t>(hi[t]));
-}
 
 __global__ void __launch_bounds__(bloomrf::kThreads)
     range_partitioned_kernel(const int64_t* __restrict__ lo,
@@ -61,9 +45,8 @@ __global__ void __launch_bounds__(bloomrf::kThreads)
   const bloomrf::Desc D = bloomrf::load_desc(gdesc, sdesc, desc_len);
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= n) return;
-  out[t] = rangeplan::range_layers<false>(state, D,
-                                         static_cast<uint32_t>(lo[t]),
-                                         static_cast<uint32_t>(hi[t]));
+  out[t] = rangeplan::range_layers(state, D, static_cast<uint32_t>(lo[t]),
+                                   static_cast<uint32_t>(hi[t]));
 }
 
 }  // namespace
@@ -77,25 +60,5 @@ extern "C" int bloomrf_range_partitioned(const int64_t* lo, const int64_t* hi,
                              desc_len * sizeof(uint32_t),
                              static_cast<cudaStream_t>(stream)>>>(
       lo, hi, n, state, desc, desc_len, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int bloomrf_range_variant(const int64_t* lo, const int64_t* hi,
-                                     int64_t n, const uint32_t* state,
-                                     const uint32_t* desc, int desc_len,
-                                     bool* out, int variant, void* stream) {
-  if (n <= 0) return 0;
-  auto kern = range_variant_kernel<0, false>;
-  switch (variant & 7) {
-    case 1: kern = range_variant_kernel<1, false>; break;
-    case 2: kern = range_variant_kernel<2, false>; break;
-    case 4: kern = range_variant_kernel<0, true>; break;
-    case 5: kern = range_variant_kernel<1, true>; break;
-    case 6: kern = range_variant_kernel<2, true>; break;
-    default: break;
-  }
-  kern<<<bloomrf::grid_for(n), bloomrf::kThreads, desc_len * sizeof(uint32_t),
-         static_cast<cudaStream_t>(stream)>>>(lo, hi, n, state, desc,
-                                               desc_len, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,22 +1,23 @@
-// Range read plans shared by the range kernels that read the filter words
-// straight from L2 or device memory: partitioned.cu (B8, and B3, which
-// launches B8's kernel) and store_scan.cu (B4).
+// Range read plans of the kernels that read the filter words straight from
+// L2 or device memory: partitioned.cu (B8, whose kernel B3 launches too)
+// and store_scan.cu (B4).  Both give bloomrf::range_one's verdict
+// (ProbeEngine.plan_range + combine_range of repro/core/engine.py, in
+// BloomRF._range_one's clip and select order); they differ in which words
+// they read and when:
 //
-// Both plans give bloomrf::range_one's verdict (ProbeEngine.plan_range +
-// combine_range of repro/core/engine.py, in BloomRF._range_one's clip and
-// select order); they differ only in which words they read and when:
+// * range_layers (B3, B8): one thread per range, top layer first, reading
+//   per layer only the child words that a live path's hit mask or covering
+//   bit can select (layer_needs), issued together; the next layer's words
+//   wait for this layer's path flags.  Fewest sectors, which is what a
+//   batch of many ranges is bound by.
+// * layer_bits + scan_layer (B4): one thread per layer of a range, each
+//   reading its layer's candidate words (left and right pair) at once and
+//   computing the layer's tests; the path flags then run over those test
+//   bits.  One round trip and a short chain of work per thread, which is
+//   what a small, latency-bound batch is bound by.
 //
-// * range_layers: per layer, top first, only the child words that a live
-//   path's hit mask or covering bit can select (layer_needs), issued
-//   together; the next layer's words wait for this layer's path flags.
-//   Fewest sectors: the plan for a state in device memory.
-// * range_wave: every layer's four candidate words (left and right pair)
-//   issued in one wave before any is combined, as the reference's plan ->
-//   one gather -> combine does.  More sectors, one round trip: the plan for
-//   a latency-bound batch over a state in L2.
-//
-// Word addresses use the descriptor's exact reciprocal (fast_mod) instead of
-// a division by the layer's word count.
+// Word addresses use each layer's exact reciprocal of its word count
+// (fast_mod) instead of a division.
 #pragma once
 
 #include "bloomrf.cuh"
@@ -27,7 +28,6 @@ using bloomrf::Desc;
 using bloomrf::Word;
 
 constexpr int kRepBuf = 2;  // replicas of a range word issued at once
-constexpr int kWave = 4;    // layers whose words one wave of range_wave holds
 
 // h mod n by Lemire's fastmod: M = floor((2^64 - 1) / n) + 1 (mod 2^64),
 // h mod n = the high 64 bits of (M * h mod 2^64) * n.  Exact for every
@@ -41,13 +41,10 @@ __device__ __forceinline__ uint32_t fast_mod(uint32_t h, uint64_t M,
   return static_cast<uint32_t>(u >> 32);
 }
 
-// bloomrf::word_bitoff with the layer's reciprocal in place of h % nwords
-// (kFast), or bloomrf::word_bitoff itself.
-template <bool kFast>
+// bloomrf::word_bitoff with the layer's reciprocal in place of h % nwords.
 __device__ __forceinline__ uint32_t word_bitoff(const Desc& D, int i,
                                                 uint32_t rep,
                                                 uint32_t wordkey) {
-  if (!kFast) return bloomrf::word_bitoff(D, i, rep, wordkey);
   const uint32_t* L = D.layer(i);
   const uint32_t h = bloomrf::mix32(wordkey ^ D.seed(i, rep));
   const uint32_t* m = D.w + L[bloomrf::L_FASTMOD_OFF];
@@ -112,13 +109,12 @@ __device__ __forceinline__ unsigned layer_needs(const Desc& D, int i,
 // low and high lane, or a narrower word's lane and its bit offset in that
 // lane.  A W = 64 word starts on an even lane (its segment is 64-bit
 // aligned), so one 8-byte load reads it when the state is 8-byte aligned.
-template <bool kFast>
 __device__ __forceinline__ void load_lanes(const uint32_t* __restrict__ state,
                                            bool pairs, const Desc& D, int i,
                                            uint32_t r, uint32_t wordkey,
                                            uint32_t W, uint32_t& lo,
                                            uint32_t& hi) {
-  const uint32_t bitoff = word_bitoff<kFast>(D, i, r, wordkey);
+  const uint32_t bitoff = rangeplan::word_bitoff(D, i, r, wordkey);
   const uint32_t lane = bitoff >> 5;
   if (W == 64u && pairs) {
     const uint2 p = __ldg(reinterpret_cast<const uint2*>(state + lane));
@@ -149,7 +145,6 @@ __device__ __forceinline__ Word all_ones(uint32_t W) {
 
 // The AND over replicas first..reps-1 of layer i's word at `wordkey`, one
 // load each, into w.
-template <bool kFast>
 __device__ __forceinline__ void fold_rest(const uint32_t* __restrict__ state,
                                           bool pairs, const Desc& D, int i,
                                           uint32_t wordkey, uint32_t first,
@@ -158,7 +153,7 @@ __device__ __forceinline__ void fold_rest(const uint32_t* __restrict__ state,
   const uint32_t W = lay[bloomrf::L_W];
   for (uint32_t r = first; r < lay[bloomrf::L_REPS]; ++r) {
     uint32_t lo, hi;
-    load_lanes<kFast>(state, pairs, D, i, r, wordkey, W, lo, hi);
+    load_lanes(state, pairs, D, i, r, wordkey, W, lo, hi);
     and_lanes(W, lo, hi, w);
   }
 }
@@ -245,7 +240,6 @@ struct LayerWords {
   unsigned need;  // the slots issued
 };
 
-template <bool kFast>
 __device__ __forceinline__ void issue_layer(const uint32_t* __restrict__ state,
                                             bool pairs, const Desc& D, int i,
                                             uint32_t L, uint32_t R,
@@ -264,7 +258,7 @@ __device__ __forceinline__ void issue_layer(const uint32_t* __restrict__ state,
     for (int j = 0; j < 4; ++j) {
       uint32_t lo = 0xFFFFFFFFu, hi = W == 64u ? 0xFFFFFFFFu : 0u;
       if (((need >> j) & 1u) && static_cast<uint32_t>(r) < reps)
-        load_lanes<kFast>(state, pairs, D, i, r, key[j], W, lo, hi);
+        load_lanes(state, pairs, D, i, r, key[j], W, lo, hi);
       b.v[j][r][0] = lo;
       b.v[j][r][1] = hi;
     }
@@ -274,7 +268,6 @@ __device__ __forceinline__ void issue_layer(const uint32_t* __restrict__ state,
 // Slot j's word of layer i, AND-combined across replicas: the issued ones,
 // then one load each for replicas beyond kRepBuf.  A slot not issued is
 // never read by the verdict and comes back empty.
-template <bool kFast>
 __device__ __forceinline__ Word fold(const uint32_t* __restrict__ state,
                                      bool pairs, const Desc& D, int i,
                                      uint32_t wordkey, const LayerWords& b,
@@ -284,13 +277,12 @@ __device__ __forceinline__ Word fold(const uint32_t* __restrict__ state,
   Word w = all_ones(W);
 #pragma unroll
   for (int r = 0; r < kRepBuf; ++r) and_lanes(W, b.v[j][r][0], b.v[j][r][1], w);
-  fold_rest<kFast>(state, pairs, D, i, wordkey, kRepBuf, w);
+  fold_rest(state, pairs, D, i, wordkey, kRepBuf, w);
   return w;
 }
 
 // Range verdict for [L, R] (swapped bounds allowed), reading per layer only
 // the words of layer_needs, issued together.
-template <bool kFast>
 __device__ inline bool range_layers(const uint32_t* __restrict__ state,
                                     const Desc& D, uint32_t L, uint32_t R) {
   Paths p;
@@ -298,21 +290,21 @@ __device__ inline bool range_layers(const uint32_t* __restrict__ state,
   const bool pairs = (reinterpret_cast<uintptr_t>(state) & 7u) == 0u;
   const int k = D.k();
   LayerWords cur;
-  issue_layer<kFast>(state, pairs, D, k - 1, L, R,
+  issue_layer(state, pairs, D, k - 1, L, R,
               layer_needs(D, k - 1, L, R, p.split, true, p.right_alive), cur);
   for (int i = k - 1; i >= 0; --i) {
     const uint32_t* lay = D.layer(i);
     const uint32_t up = lay[bloomrf::L_LEVEL] + lay[bloomrf::L_DELTA];
     const uint32_t Lpar = bloomrf::shr(L, up), Rpar = bloomrf::shr(R, up);
-    const Word wLA = fold<kFast>(state, pairs, D, i, Lpar << 1, cur, 0);
-    const Word wLB = fold<kFast>(state, pairs, D, i, (Lpar << 1) | 1u, cur, 1);
+    const Word wLA = fold(state, pairs, D, i, Lpar << 1, cur, 0);
+    const Word wLB = fold(state, pairs, D, i, (Lpar << 1) | 1u, cur, 1);
     const bool same = Lpar == Rpar;
-    const Word wRA = same ? wLA : fold<kFast>(state, pairs, D, i, Rpar << 1, cur, 2);
+    const Word wRA = same ? wLA : fold(state, pairs, D, i, Rpar << 1, cur, 2);
     const Word wRB =
-        same ? wLB : fold<kFast>(state, pairs, D, i, (Rpar << 1) | 1u, cur, 3);
+        same ? wLB : fold(state, pairs, D, i, (Rpar << 1) | 1u, cur, 3);
     const int v = combine_layer(D, i, L, R, wLA, wLB, wRA, wRB, p);
     if (v >= 0) return v != 0;
-    issue_layer<kFast>(state, pairs, D, i - 1, L, R,
+    issue_layer(state, pairs, D, i - 1, L, R,
                 layer_needs(D, i - 1, L, R, p.split, p.left_alive,
                             p.right_alive),
                 cur);
@@ -321,87 +313,22 @@ __device__ inline bool range_layers(const uint32_t* __restrict__ state,
 }
 
 // ---------------------------------------------------------------------------
-// range_wave: every layer's candidate words in one wave
+// layer_bits + scan_layer: each layer's tests apart, then the path flags
 // ---------------------------------------------------------------------------
 
-// Range verdict for [L, R] (swapped bounds allowed): the first replica of
-// the four candidate words of up to kWave layers goes out in one wave (the
-// right pair only where its parent differs from the left's), then the
-// layers are combined top first; replicas beyond the first are loaded as
-// each layer is combined.
-template <bool kFast>
-__device__ inline bool range_wave(const uint32_t* __restrict__ state,
-                                  const Desc& D, uint32_t L, uint32_t R) {
-  Paths p;
-  if (start(D, L, R, p) >= 0) return true;
-  const bool pairs = (reinterpret_cast<uintptr_t>(state) & 7u) == 0u;
-  uint32_t v[kWave][4][2];
-  for (int i0 = D.k() - 1; i0 >= 0; i0 -= kWave) {
-#pragma unroll
-    for (int w = 0; w < kWave; ++w) {
-      const int i = i0 - w;
-      if (i < 0) break;
-      const uint32_t* lay = D.layer(i);
-      const uint32_t W = lay[bloomrf::L_W];
-      const uint32_t up = lay[bloomrf::L_LEVEL] + lay[bloomrf::L_DELTA];
-      const uint32_t Lpar = bloomrf::shr(L, up), Rpar = bloomrf::shr(R, up);
-      const uint32_t key[4] = {Lpar << 1, (Lpar << 1) | 1u, Rpar << 1,
-                               (Rpar << 1) | 1u};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (j < 2 || Lpar != Rpar)
-          load_lanes<kFast>(state, pairs, D, i, 0, key[j], W, v[w][j][0],
-                            v[w][j][1]);
-      }
-    }
-#pragma unroll
-    for (int w = 0; w < kWave; ++w) {
-      const int i = i0 - w;
-      if (i < 0) break;
-      const uint32_t* lay = D.layer(i);
-      const uint32_t W = lay[bloomrf::L_W];
-      const uint32_t up = lay[bloomrf::L_LEVEL] + lay[bloomrf::L_DELTA];
-      const uint32_t Lpar = bloomrf::shr(L, up), Rpar = bloomrf::shr(R, up);
-      const bool same = Lpar == Rpar;
-      Word x[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (j >= 2 && same) {
-          x[j] = x[j - 2];
-          continue;
-        }
-        x[j] = all_ones(W);
-        and_lanes(W, v[w][j][0], v[w][j][1], x[j]);
-        fold_rest<kFast>(state, pairs, D, i,
-                         ((j < 2 ? Lpar : Rpar) << 1) | (j & 1u), 1u, x[j]);
-      }
-      const int r = combine_layer(D, i, L, R, x[0], x[1], x[2], x[3], p);
-      if (r >= 0) return r != 0;
-    }
-  }
-  return false;
-}
-
-// ---------------------------------------------------------------------------
-// range_wavepar: range_wave's one wave, and each layer's tests side by side
-// ---------------------------------------------------------------------------
-
-// Layer i's part of the verdict, from its child words alone: whether the
-// left and the right path hit here (each as if alive) and the covering bits
-// of L and R.  The path flags that gate them depend on the layers above only
-// through the covering bits: entering layer i, the paths have split iff
-// L and R have different parents here (Lpar != Rpar), the left path lives
-// iff every covering bit of L above is set, and the right path is born
-// where the split happens and lives on while the covering bits of R are set
-// (combine_range's recursion, solved).
-struct LayerTests {
-  bool hit_l, hit_r, cov_l, cov_r, splits;  // splits: Lp != Rp here
-};
-
-__device__ __forceinline__ LayerTests layer_tests(const Desc& D, int i,
-                                                  uint32_t L, uint32_t R,
-                                                  Word wLA, Word wLB,
-                                                  Word wRA, Word wRB) {
+// Layer i's part of the verdict, from its child words alone, as bits:
+// 1 the left path hits here, 2 the right path hits here (each as if alive),
+// 4 and 8 the covering bits of L and R, 16 Lp != Rp.  The path flags that
+// gate them depend on the layers above only through the covering bits:
+// entering layer i, the paths have split iff L and R have different
+// parents here (Lpar != Rpar), the left path lives iff every covering bit
+// of L above is set, and the right path is born where the split happens
+// and lives on while the covering bits of R are set (combine_range's
+// recursion, solved; scan_layer runs it).
+__device__ __forceinline__ unsigned layer_tests(const Desc& D, int i,
+                                                uint32_t L, uint32_t R,
+                                                Word wLA, Word wLB, Word wRA,
+                                                Word wRB) {
   const uint32_t* lay = D.layer(i);
   const uint32_t li = lay[bloomrf::L_LEVEL];
   const uint32_t delta = lay[bloomrf::L_DELTA];
@@ -415,27 +342,20 @@ __device__ __forceinline__ LayerTests layer_tests(const Desc& D, int i,
   const bool l_nonempty = bottom || (split ? (Lp != l_end) : (Rp - Lp >= 2u));
   const uint32_t r_start = Rpar << delta;
   const bool r_nonempty = bottom || (Rp != r_start);
-  LayerTests t;
-  t.hit_l = l_nonempty && bloomrf::children_hit(delta, Lpar, Lp + edge,
-                                                split ? l_end : Rp - edge,
-                                                wLA, wLB);
-  t.hit_r = r_nonempty && bloomrf::children_hit(delta, Rpar, r_start,
-                                                Rp - edge, wRA, wRB);
-  t.cov_l = !bottom && bloomrf::cov_bit(D, i, L, wLA, wLB);
-  t.cov_r = !bottom && bloomrf::cov_bit(D, i, R, wRA, wRB);
-  t.splits = Lp != Rp;
-  return t;
-}
-
-// LayerTests as bits: hit_l, hit_r, cov_l, cov_r, splits from bit 0 up.
-__device__ __forceinline__ unsigned pack(const LayerTests& t) {
-  return (t.hit_l ? 1u : 0u) | (t.hit_r ? 2u : 0u) | (t.cov_l ? 4u : 0u) |
-         (t.cov_r ? 8u : 0u) | (t.splits ? 16u : 0u);
+  const bool hit_l =
+      l_nonempty && bloomrf::children_hit(delta, Lpar, Lp + edge,
+                                          split ? l_end : Rp - edge, wLA, wLB);
+  const bool hit_r = r_nonempty && bloomrf::children_hit(
+                                       delta, Rpar, r_start, Rp - edge, wRA,
+                                       wRB);
+  const bool cov_l = !bottom && bloomrf::cov_bit(D, i, L, wLA, wLB);
+  const bool cov_r = !bottom && bloomrf::cov_bit(D, i, R, wRA, wRB);
+  return (hit_l ? 1u : 0u) | (hit_r ? 2u : 0u) | (cov_l ? 4u : 0u) |
+         (cov_r ? 8u : 0u) | (Lp != Rp ? 16u : 0u);
 }
 
 // Layer i's tests as bits, from its words: the first replica of its two or
 // four candidate words issued together, then the further replicas.
-template <bool kFast>
 __device__ __forceinline__ unsigned layer_bits(
     const uint32_t* __restrict__ state, bool pairs, const Desc& D, int i,
     uint32_t L, uint32_t R) {
@@ -450,7 +370,7 @@ __device__ __forceinline__ unsigned layer_bits(
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     if (j < 2 || !same)
-      load_lanes<kFast>(state, pairs, D, i, 0, key[j], W, v[j][0], v[j][1]);
+      load_lanes(state, pairs, D, i, 0, key[j], W, v[j][0], v[j][1]);
   }
   Word x[4];
 #pragma unroll
@@ -461,9 +381,9 @@ __device__ __forceinline__ unsigned layer_bits(
     }
     x[j] = all_ones(W);
     and_lanes(W, v[j][0], v[j][1], x[j]);
-    fold_rest<kFast>(state, pairs, D, i, key[j], 1u, x[j]);
+    fold_rest(state, pairs, D, i, key[j], 1u, x[j]);
   }
-  return pack(layer_tests(D, i, L, R, x[0], x[1], x[2], x[3]));
+  return layer_tests(D, i, L, R, x[0], x[1], x[2], x[3]);
 }
 
 // One step of the path flags over layer i's test bits, top first: 1 for a
@@ -480,90 +400,6 @@ __device__ __forceinline__ int scan_layer(unsigned bits, int i, Paths& p) {
   p.right_alive = nxt_right;
   p.split = new_split;
   return (p.left_alive || p.right_alive) ? -1 : 0;
-}
-
-// Range verdict for [L, R] (swapped bounds allowed): the words of up to
-// kWave layers in one wave (as range_wave), then every layer's tests at
-// once, then the path flags run over those few booleans top first.
-template <bool kFast>
-__device__ inline bool range_wavepar(const uint32_t* __restrict__ state,
-                                     const Desc& D, uint32_t L, uint32_t R) {
-  Paths p;
-  if (start(D, L, R, p) >= 0) return true;
-  const bool pairs = (reinterpret_cast<uintptr_t>(state) & 7u) == 0u;
-  uint32_t v[kWave][4][2];
-  for (int i0 = D.k() - 1; i0 >= 0; i0 -= kWave) {
-#pragma unroll
-    for (int w = 0; w < kWave; ++w) {
-      const int i = i0 - w;
-      if (i < 0) break;
-      const uint32_t* lay = D.layer(i);
-      const uint32_t W = lay[bloomrf::L_W];
-      const uint32_t up = lay[bloomrf::L_LEVEL] + lay[bloomrf::L_DELTA];
-      const uint32_t Lpar = bloomrf::shr(L, up), Rpar = bloomrf::shr(R, up);
-      const uint32_t key[4] = {Lpar << 1, (Lpar << 1) | 1u, Rpar << 1,
-                               (Rpar << 1) | 1u};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (j < 2 || Lpar != Rpar)
-          load_lanes<kFast>(state, pairs, D, i, 0, key[j], W, v[w][j][0],
-                            v[w][j][1]);
-      }
-    }
-    LayerTests t[kWave];
-#pragma unroll
-    for (int w = 0; w < kWave; ++w) {
-      const int i = i0 - w;
-      if (i < 0) break;
-      const uint32_t* lay = D.layer(i);
-      const uint32_t W = lay[bloomrf::L_W];
-      const uint32_t up = lay[bloomrf::L_LEVEL] + lay[bloomrf::L_DELTA];
-      const uint32_t Lpar = bloomrf::shr(L, up), Rpar = bloomrf::shr(R, up);
-      const bool same = Lpar == Rpar;
-      Word x[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (j >= 2 && same) {
-          x[j] = x[j - 2];
-          continue;
-        }
-        x[j] = all_ones(W);
-        and_lanes(W, v[w][j][0], v[w][j][1], x[j]);
-        fold_rest<kFast>(state, pairs, D, i,
-                         ((j < 2 ? Lpar : Rpar) << 1) | (j & 1u), 1u, x[j]);
-      }
-      t[w] = layer_tests(D, i, L, R, x[0], x[1], x[2], x[3]);
-    }
-#pragma unroll
-    for (int w = 0; w < kWave; ++w) {
-      const int i = i0 - w;
-      if (i < 0) break;
-      if ((t[w].hit_l && p.left_alive) || (t[w].hit_r && p.right_alive))
-        return true;
-      if (i == 0) return false;
-      const bool new_split = p.split || t[w].splits;
-      const bool nxt_right =
-          (p.split ? p.right_alive : (p.left_alive && new_split)) && t[w].cov_r;
-      p.left_alive = p.left_alive && t[w].cov_l;
-      p.right_alive = nxt_right;
-      p.split = new_split;
-      if (!p.left_alive && !p.right_alive) return false;
-    }
-  }
-  return false;
-}
-
-// The read plan by number: 0 range_layers, 1 range_wave, 2 range_wavepar;
-// 3 reads no word and answers false (a timing probe of what surrounds the
-// plan, never a verdict).
-template <int kPlan, bool kFast>
-__device__ __forceinline__ bool range_plan(const uint32_t* __restrict__ state,
-                                           const Desc& D, uint32_t L,
-                                           uint32_t R) {
-  if (kPlan == 0) return range_layers<kFast>(state, D, L, R);
-  if (kPlan == 1) return range_wave<kFast>(state, D, L, R);
-  if (kPlan == 2) return range_wavepar<kFast>(state, D, L, R);
-  return false;
 }
 
 }  // namespace rangeplan

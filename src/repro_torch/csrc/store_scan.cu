@@ -11,22 +11,26 @@
 // no padded copy.
 //
 // A scan batch is small (a store scans 512 bounds against about ten runs
-// whose filters sit in the 50 MB L2), so the kernel is bound by the latency
-// of its chain of dependent loads, not by bytes.  The design cuts that
-// chain:
+// whose filters sit in the 50 MB L2), so the kernel is bound by latency:
+// the launch, then each cell's chain of dependent loads and instructions,
+// not bytes.  The design shortens that chain:
 //
-// * one thread per (scan, row) cell, cells in the (B, R) output's order,
-//   blocks of 64 threads (kernels/store_scan.py::SCAN_THREADS), so a batch spans many SMs and the bool[B, R]
-//   stores coalesce;
-// * one wave before the first filter word: each block stages the records of
-//   the rows its cells reach (descriptor offset, base lane, fences,
-//   quarantine flag: at most one row per thread) and the whole stack
-//   descriptor (every distinct layout) into shared memory, while each thread
-//   loads its own bounds; then one barrier;
-// * the range read plan of rangeplan.cuh, word addresses by the layer's
-//   exact reciprocal.
+// * one wave before the first filter word: each block stages the records
+//   of the rows its cells reach (descriptor offset, base lane, fences,
+//   quarantine flag) and the whole stack descriptor (every distinct layout)
+//   into shared memory, while each thread loads its cell's bounds; then
+//   one barrier;
+// * kLanes threads (of one warp) per (scan, row) cell: lane s reads the
+//   candidate words of layers k-1-s, k-1-s-kLanes, ... all at once and
+//   computes their tests (rangeplan::layer_bits); the group exchanges the
+//   test bits by warp shuffles and each lane runs the path flags over them
+//   (rangeplan::scan_layer).  The store's layouts have k = 2..4 layers, so
+//   a cell takes one round trip and a quarter of the work per thread;
+// * cells in row-major order (cell = r * B + t), so the cells of a warp
+//   share a row and a layout and never diverge on a layer count or a Δ;
+// * word addresses by each layer's exact reciprocal of its word count.
 //
-// A thread answers one cell:
+// A cell's answer:
 //   fence = hi >= kmin[r] && lo <= kmax[r]
 //   touch = fence && (quarantined[r] || range verdict of row r on [lo, hi])
 // The fence is tested first: a fenced-off or quarantined cell reads no
@@ -45,11 +49,10 @@ inline size_t scan_smem(int threads, int desc_words) {
          static_cast<size_t>(desc_words) * 4u;
 }
 
-// variant: kPlan picks the read plan (rangeplan::range_plan), kFast the
-// word address (the reciprocal, else h % nwords), kRowMajor the cell order
-// (row-major: cell = r * B + t, so a block's cells share a row; else
-// cell = t * R + r, the output's order)
-template <int kPlan, bool kFast, bool kRowMajor>
+// threads per cell (kernels/store_scan.py::SCAN_LANES); every lane of a
+// warp runs the same number of waves and shuffles
+constexpr unsigned kLanes = 4;
+
 __global__ void __launch_bounds__(512)
     store_scan_kernel(const int64_t* __restrict__ lo,
                       const int64_t* __restrict__ hi, unsigned n,
@@ -61,92 +64,6 @@ __global__ void __launch_bounds__(512)
                       const bool* __restrict__ quar, unsigned R,
                       bool* __restrict__ fence_out,
                       bool* __restrict__ touch_out) {
-  extern __shared__ int64_t smem[];
-  const unsigned T = blockDim.x;
-  int64_t* s_base = smem;
-  int64_t* s_kmin = smem + T;
-  int64_t* s_kmax = smem + 2 * T;
-  uint32_t* s_doff = reinterpret_cast<uint32_t*>(smem + 3 * T);
-  uint32_t* s_quar = s_doff + T;
-  uint32_t* s_desc = s_quar + T;
-
-  const unsigned cells = n * R;  // < 2^31: the wrapper checks
-  const unsigned c0 = blockIdx.x * T;
-  const unsigned j = threadIdx.x;
-  const unsigned c = c0 + j;
-  // this cell's scan t and row r; the rows the block reaches and the row of
-  // each slot
-  unsigned t, r, slot, nslots, srow;
-  if (kRowMajor) {
-    t = c % n;
-    r = c / n;
-    const unsigned r0 = c0 / n;
-    slot = r - r0;
-    nslots = min((c0 + T - 1u) / n, R - 1u) - r0 + 1u;
-    srow = r0 + j;
-  } else {
-    t = c / R;
-    r = c - t * R;
-    slot = j % R;
-    nslots = min(R, T);
-    srow = (c0 % R + j) % R;
-  }
-
-  // one wave: the cell's bounds, the block's row records, the descriptor
-  int64_t l = 0, h = 0;
-  if (c < cells) {
-    l = lo[t];
-    h = hi[t];
-  }
-  if (j < nslots) {
-    s_doff[j] = static_cast<uint32_t>(rowtab[2 * srow]);
-    s_base[j] = rowtab[2 * srow + 1];
-    s_kmin[j] = kmin[srow];
-    s_kmax[j] = kmax[srow];
-    s_quar[j] = quar != nullptr && quar[srow];
-  }
-  for (int w = j; w < desc_words; w += T) s_desc[w] = gdesc[w];
-  __syncthreads();
-  if (c >= cells) return;
-
-  const bool fence = h >= s_kmin[slot] && l <= s_kmax[slot];
-  bool touch = false;
-  if (fence) {
-    touch = s_quar[slot] != 0u;
-    if (!touch) {
-      const bloomrf::Desc D{s_desc + s_doff[slot]};
-      const uint32_t* row = state + s_base[slot];
-      const uint32_t L = static_cast<uint32_t>(l);
-      const uint32_t H = static_cast<uint32_t>(h);
-      touch = rangeplan::range_plan<kPlan, kFast>(row, D, L, H);
-    }
-  }
-  const unsigned o = kRowMajor ? t * R + r : c;
-  fence_out[o] = fence;
-  touch_out[o] = touch;
-}
-
-// kLanes threads (of one warp) per (scan, row) cell, cells in row-major
-// order: lane s of a cell's group reads the words of layers k-1-s,
-// k-1-s-kLanes, ... and computes their tests (rangeplan::layer_bits); the
-// group exchanges its test bits by warp shuffles, and every lane of it runs
-// the path flags over them (rangeplan::scan_layer).  Every lane of a warp
-// runs the same number of waves and shuffles.
-constexpr unsigned kLanes = 4;
-
-template <bool kFast>
-__global__ void __launch_bounds__(512)
-    store_scan_group_kernel(const int64_t* __restrict__ lo,
-                            const int64_t* __restrict__ hi, unsigned n,
-                            const uint32_t* __restrict__ state,
-                            const uint32_t* __restrict__ gdesc,
-                            int desc_words,
-                            const int64_t* __restrict__ rowtab,
-                            const int64_t* __restrict__ kmin,
-                            const int64_t* __restrict__ kmax,
-                            const bool* __restrict__ quar, unsigned R,
-                            bool* __restrict__ fence_out,
-                            bool* __restrict__ touch_out) {
   extern __shared__ int64_t smem[];
   const unsigned T = blockDim.x;
   int64_t* s_base = smem;
@@ -205,7 +122,7 @@ __global__ void __launch_bounds__(512)
     const int i = top - static_cast<int>(sub);
     unsigned bits = 0u;
     if (live && i >= 0)
-      bits = rangeplan::layer_bits<kFast>(row, pairs, D, i, L, H);
+      bits = rangeplan::layer_bits(row, pairs, D, i, L, H);
     unsigned got[kLanes];
 #pragma unroll
     for (unsigned s = 0; s < kLanes; ++s)
@@ -226,58 +143,12 @@ __global__ void __launch_bounds__(512)
   }
 }
 
-template <bool kFast>
-int launch_group(const int64_t* lo, const int64_t* hi, int64_t n,
-                 const uint32_t* state, const uint32_t* desc, int desc_words,
-                 const int64_t* rowtab, const int64_t* kmin,
-                 const int64_t* kmax, const bool* quar, int R, bool* fence,
-                 bool* touch, int threads, void* stream) {
-  auto kern = store_scan_group_kernel<kFast>;
-  const size_t smem = scan_smem(threads, desc_words);
-  if (smem > 48u * 1024u) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int64_t cells = n * R;
-  const int64_t per_block = threads / kLanes;
-  const unsigned blocks =
-      static_cast<unsigned>((cells + per_block - 1) / per_block);
-  kern<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      lo, hi, static_cast<unsigned>(n), state, desc, desc_words, rowtab,
-      kmin, kmax, quar, static_cast<unsigned>(R), fence, touch);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int kPlan, bool kFast, bool kRowMajor>
-int launch_scan(const int64_t* lo, const int64_t* hi, int64_t n,
-                const uint32_t* state, const uint32_t* desc, int desc_words,
-                const int64_t* rowtab, const int64_t* kmin,
-                const int64_t* kmax, const bool* quar, int R, bool* fence,
-                bool* touch, int threads, void* stream) {
-  auto kern = store_scan_kernel<kPlan, kFast, kRowMajor>;
-  const size_t smem = scan_smem(threads, desc_words);
-  if (smem > 48u * 1024u) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int64_t cells = n * R;
-  const unsigned blocks = static_cast<unsigned>((cells + threads - 1) / threads);
-  kern<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      lo, hi, static_cast<unsigned>(n), state, desc, desc_words, rowtab,
-      kmin, kmax, quar, static_cast<unsigned>(R), fence, touch);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // rowtab: int64[R, 2] = (word offset of the row's descriptor in desc, base
 // lane of the row in state); desc: the stack descriptor, desc_words long;
-// quar may be null (no row quarantined); threads per block (at most 512).
-// n * R < 2^31.
+// quar may be null (no row quarantined); threads per block: a multiple of
+// 32, at most 512.  n * R < 2^31.
 extern "C" int bloomrf_store_scan(const int64_t* lo, const int64_t* hi,
                                   int64_t n, const uint32_t* state,
                                   const uint32_t* desc, int desc_words,
@@ -286,40 +157,20 @@ extern "C" int bloomrf_store_scan(const int64_t* lo, const int64_t* hi,
                                   bool* fence, bool* touch, int threads,
                                   void* stream) {
   if (n <= 0 || R <= 0) return 0;
-  return launch_scan<1, true, false>(lo, hi, n, state, desc, desc_words,
-                                        rowtab, kmin, kmax, quar, R, fence,
-                                        touch, threads, stream);
-}
-
-// The same with the design picked at run time: variant bits 0-1 the read
-// plan (rangeplan::range_plan), bit 2 the reciprocal, bit 3 the row-major
-// cell order; variant 16 and 20: kLanes threads per cell
-// (store_scan_group_kernel, without and with the reciprocal); threads per
-// block.
-extern "C" int bloomrf_store_scan_variant(
-    const int64_t* lo, const int64_t* hi, int64_t n, const uint32_t* state,
-    const uint32_t* desc, int desc_words, const int64_t* rowtab,
-    const int64_t* kmin, const int64_t* kmax, const bool* quar, int R,
-    bool* fence, bool* touch, int variant, int threads, void* stream) {
-  if (n <= 0 || R <= 0) return 0;
-  if (variant >= 16)
-    return (variant & 4 ? launch_group<true> : launch_group<false>)(
-        lo, hi, n, state, desc, desc_words, rowtab, kmin, kmax, quar, R,
-        fence, touch, threads, stream);
-  using Fn = int (*)(const int64_t*, const int64_t*, int64_t, const uint32_t*,
-                     const uint32_t*, int, const int64_t*, const int64_t*,
-                     const int64_t*, const bool*, int, bool*, bool*, int,
-                     void*);
-  static const Fn table[16] = {
-      launch_scan<0, false, false>, launch_scan<1, false, false>,
-      launch_scan<2, false, false>, launch_scan<3, false, false>,
-      launch_scan<0, true, false>,  launch_scan<1, true, false>,
-      launch_scan<2, true, false>,  launch_scan<3, true, false>,
-      launch_scan<0, false, true>,  launch_scan<1, false, true>,
-      launch_scan<2, false, true>,  launch_scan<3, false, true>,
-      launch_scan<0, true, true>,   launch_scan<1, true, true>,
-      launch_scan<2, true, true>,   launch_scan<3, true, true>};
-  return table[variant & 15](lo, hi, n, state, desc, desc_words, rowtab,
-                             kmin, kmax, quar, R, fence, touch, threads,
-                             stream);
+  const size_t smem = scan_smem(threads, desc_words);
+  if (smem > 48u * 1024u) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        store_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int64_t cells = n * R;
+  const int64_t per_block = threads / kLanes;
+  const unsigned blocks =
+      static_cast<unsigned>((cells + per_block - 1) / per_block);
+  store_scan_kernel<<<blocks, threads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      lo, hi, static_cast<unsigned>(n), state, desc, desc_words, rowtab,
+      kmin, kmax, quar, static_cast<unsigned>(R), fence, touch);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -45,20 +45,14 @@ _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _ENTRY = {
     "bloomrf_insert": ("insert", (_P, _I64, _P, _P, _I, _P)),
     "bloomrf_point_probe": ("probe", (_P, _I64, _P, _P, _I, _P, _P)),
-    "bloomrf_range_probe": ("rangeprobe", (_P, _P, _I64, _P, _P, _I, _P, _P)),
     "bloomrf_store_scan": ("store_scan", (_P, _P, _I64, _P, _P, _I, _P, _P,
                                           _P, _P, _I, _P, _P, _I, _P)),
-    "bloomrf_store_scan_variant": ("store_scan", (_P, _P, _I64, _P, _P, _I,
-                                                  _P, _P, _P, _P, _I, _P, _P,
-                                                  _I, _I, _P)),
     "bloomrf_range_stacked": ("stacked", (_P, _P, _I64, _P, _I64, _I, _P, _I,
                                           _P, _P)),
     "bloomrf_point_stacked": ("stacked", (_P, _I64, _P, _I64, _I, _P, _I, _P,
                                           _P)),
     "bloomrf_range_partitioned": ("partitioned", (_P, _P, _I64, _P, _P, _I,
                                                   _P, _P)),
-    "bloomrf_range_variant": ("partitioned", (_P, _P, _I64, _P, _P, _I, _P,
-                                              _I, _P)),
     "bloomrf_empty": ("floor", (_I, _I, _I, _I, _P)),
 }
 SOURCES = tuple(dict.fromkeys(src for src, _ in _ENTRY.values()))

@@ -1,27 +1,27 @@
-"""bloomRF batched range probe: the CUDA kernel ``csrc/rangeprobe.cu``.
+"""bloomRF batched range probes: the CUDA kernel ``csrc/partitioned.cu``
+for both tiers of the single filter, and ``csrc/stacked.cu``.
 
-Replaces the Pallas TPU kernel
-``repro/kernels/rangeprobe.py::range_probe_resident``.  One thread per
-query runs the engine's range plan and combine in registers, reading the
-filter through L2 and device memory.  On a CPU state the wrapper takes the
-plain version, the engine's ``range_batched``.
+``range_probe_resident`` replaces the Pallas TPU kernel
+``repro/kernels/rangeprobe.py::range_probe_resident`` and
+``range_probe_partitioned`` replaces
+``repro/kernels/rangeprobe.py::range_probe_partitioned``, the tier of
+filters above the resident budget.  On a CUDA state each is one launch of
+the same kernel, counted by its own wrapper: one thread per range runs the
+engine's range plan and combine in registers, reading per layer only the
+words a live path can select, straight from L2 or device memory.
+
+On a CPU state ``range_probe_resident`` takes the plain version, the
+engine's ``range_batched``.  ``range_probe_partitioned``'s plain version
+(``range_partitioned_plain``, and the wrapper on a CPU state) keeps the
+reference's steps: the engine's range plan, its ``B * A`` lanes bucketed
+by filter block (``probe._bucket_probes``), a torch gather and the
+engine's combine.
 
 ``range_probe_stacked_resident`` replaces
 ``repro/kernels/rangeprobe.py::range_probe_stacked_resident``: the same
 per-thread plan over ``R`` same-layout rows, one launch for the whole
 ``(B, R)`` verdict matrix (``csrc/stacked.cu``); its plain version is
 ``StackedProbe._range_all``.
-
-``range_probe_partitioned`` replaces
-``repro/kernels/rangeprobe.py::range_probe_partitioned``, the tier of
-filters above the resident budget.  On a CUDA state it is one launch of
-``csrc/partitioned.cu``: one thread per range runs the engine's range plan
-and combine in registers, reading only the words of live paths straight
-from device memory, with no plan, bucketing or combine in torch.  Its plain
-version (``range_partitioned_plain``, and the wrapper on a CPU state) keeps
-the reference's steps: the engine's range plan, its ``B * A`` lanes
-bucketed by filter block (``probe._bucket_probes``), a torch gather and
-the engine's combine.
 
 Exact-bitmap layouts are rejected, as by the TPU kernels: ``FilterOps``
 routes their range queries to the engine path.
@@ -55,6 +55,20 @@ def _check_bounds(lo, hi, device) -> None:
         raise ValueError(f"lo {list(lo.shape)} and hi {list(hi.shape)} differ")
 
 
+def _launch_range(layout: FilterLayout, state: torch.Tensor,
+                  lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """The verdicts from one launch of ``csrc/partitioned.cu``'s kernel
+    (none for an empty batch); the calling wrapper counts the launch."""
+    out = torch.empty(lo.shape[0], dtype=torch.bool, device=state.device)
+    if lo.numel():
+        desc = _build.device_descriptor(layout, state.device)
+        _build.launch("bloomrf_range_partitioned", state.device,
+                      lo.data_ptr(), hi.data_ptr(), lo.numel(),
+                      state.data_ptr(), desc.data_ptr(), desc.numel(),
+                      out.data_ptr())
+    return out
+
+
 def range_probe_resident(layout: FilterLayout, state: torch.Tensor,
                          lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     """``bool[B]`` range verdicts for ``[lo, hi]`` (int64 carriers of uint32
@@ -65,12 +79,8 @@ def range_probe_resident(layout: FilterLayout, state: torch.Tensor,
     if state.device.type == "cpu":
         plain = filter_for_layout(layout, state.device)
         return plain.engine.range_batched(state, lo, hi)
-    out = torch.empty(lo.shape[0], dtype=torch.bool, device=state.device)
+    out = _launch_range(layout, state, lo, hi)
     if lo.numel():
-        desc = _build.device_descriptor(layout, state.device)
-        _build.launch("bloomrf_range_probe", state.device, lo.data_ptr(),
-                      hi.data_ptr(), lo.numel(), state.data_ptr(),
-                      desc.data_ptr(), desc.numel(), out.data_ptr())
         range_probe_resident.launches += 1
     return out
 
@@ -172,13 +182,8 @@ def range_probe_partitioned(layout: FilterLayout, state: torch.Tensor,
                                        block_u32)
     if state.device.type == "cpu":
         return _range_plain(layout, state, lo, hi, tile, block_u32, nblocks)
-    out = torch.empty(lo.shape[0], dtype=torch.bool, device=state.device)
+    out = _launch_range(layout, state, lo, hi)
     if lo.numel():
-        desc = _build.device_descriptor(layout, state.device)
-        _build.launch("bloomrf_range_partitioned", state.device,
-                      lo.data_ptr(), hi.data_ptr(), lo.numel(),
-                      state.data_ptr(), desc.data_ptr(), desc.numel(),
-                      out.data_ptr())
         range_probe_partitioned.launches += 1
     return out
 

@@ -28,21 +28,23 @@ from ._checks import check_keys
 from .rangeprobe import _check_bounds, _check_range_kernel_layout
 
 __all__ = ["store_scan_probe", "store_scan_probe_flat", "build_run_stack",
-           "DEFAULT_TILE", "SCAN_THREADS", "scan_smem_bytes"]
+           "DEFAULT_TILE", "SCAN_THREADS", "SCAN_LANES", "scan_smem_bytes"]
 
 #: the reference's default query tile; accepted by :func:`store_scan_probe`
-#: and unused (every launch runs blocks of ``SCAN_THREADS`` cells)
+#: and unused (every launch runs blocks of ``SCAN_THREADS`` threads)
 DEFAULT_TILE = 256
-#: threads (one (scan, row) cell each) per block of the kernel
-SCAN_THREADS = 64
+#: threads per block of the kernel, ``SCAN_LANES`` of them per (scan, row)
+#: cell (``csrc/store_scan.cu``)
+SCAN_THREADS = 128
+SCAN_LANES = 4
 #: shared memory one block may hold on Hopper (bytes)
 _MAX_SMEM = 232_448
 
 
-def scan_smem_bytes(desc_words: int, threads: int = SCAN_THREADS) -> int:
+def scan_smem_bytes(desc_words: int) -> int:
     """Shared memory of one block: a 32-byte record per staged row slot (one
     per thread) and the whole stack descriptor (``csrc/store_scan.cu``)."""
-    return 32 * threads + 4 * desc_words
+    return 32 * SCAN_THREADS + 4 * desc_words
 
 
 def build_run_stack(states) -> torch.Tensor:
@@ -133,8 +135,9 @@ def store_scan_probe(layouts: tuple, stack: torch.Tensor, kmin, kmax, lo, hi,
     (:func:`build_run_stack`): ``(fence, touch)``, both ``bool[B, R]``.
 
     The reference's signature.  ``tile`` and ``runs_per_block`` sized the
-    TPU's VMEM blocks; here every block answers a fixed number of cells, so
-    both are accepted and have no effect on the result."""
+    TPU's VMEM blocks; here every block answers ``SCAN_THREADS //
+    SCAN_LANES`` cells, so both are accepted and have no effect on the
+    result."""
     if runs_per_block < 0:
         raise ValueError(f"runs_per_block must be >= 0, got {runs_per_block}")
     if stack.dim() != 2 or stack.shape[0] != len(layouts):
