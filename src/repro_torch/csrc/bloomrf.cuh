@@ -1,8 +1,8 @@
 // Device code shared by the bloomRF kernels (insert.cu, probe.cu,
 // stacked.cu, and through rangeplan.cuh partitioned.cu and store_scan.cu):
-// the layout descriptor, mix32,
-// position and word addressing, the uint32 mask algebra of
-// repro/core/bloomrf.py, and the per-key point and range verdicts.
+// the layout descriptor, mix32, position and word addressing, the uint32
+// mask algebra of repro/core/bloomrf.py, and the per-key point and range
+// verdicts.
 //
 // All state arithmetic is uint32, as in the reference.  Where the reference
 // relies on XLA defining a shift by >= 32 as 0, the code here guards the
