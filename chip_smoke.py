@@ -157,15 +157,22 @@ def _cuda_ms(fn, reps: int) -> float:
 def _graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
     """Device milliseconds per call of a kernel wrapper ``fn``, host dispatch
     excluded: ``reps`` calls captured in one CUDA graph, replayed
-    ``replays`` times between CUDA events after a warm-up replay."""
+    ``replays`` times between CUDA events after a warm-up replay.  ``fn``
+    may instead be a list of calls, each on its own input chunk, captured
+    once each in order: a state larger than the L2 then finds each chunk's
+    sectors evicted by the others' before the chunk comes round again
+    (cold), where ``reps`` calls of one chunk would find them in the L2
+    from the second call on (hot)."""
     import torch
 
-    fn()                              # builds and caches the descriptors
+    fns = list(fn) if isinstance(fn, (list, tuple)) else [fn] * reps
+    for call in dict.fromkeys(fns):   # builds and caches the descriptors
+        call()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+        for call in fns:
+            call()
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -175,7 +182,7 @@ def _graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * replays)
+    return start.elapsed_time(end) / (len(fns) * replays)
 
 
 def _floor_ms(device, blocks, threads: int, smem: int,
@@ -560,7 +567,7 @@ def phase_main_path(n, backend, device_name, expect_launches, kernels,
 
 
 def _times(kern, plain, plain_reps: int, nbytes: int, floor_ms: float,
-           call=None) -> dict:
+           call=None, cold=None) -> dict:
     """A kernel's row of the kernels line: its device time alone (CUDA
     graph), its plain version's time (CUDA events over back-to-back calls),
     the memory bound of ``nbytes`` (``bound_ms``, ``bound_by`` "bytes"),
@@ -569,13 +576,80 @@ def _times(kern, plain, plain_reps: int, nbytes: int, floor_ms: float,
     "bytes" or "floor"); and under ``call_ms`` the kernel wrapper's time by
     CUDA events over 200 back-to-back calls, host dispatch included
     (popped before the kernels line).  ``call`` is the wrapper call when
-    ``kern`` launches the kernel alone."""
+    ``kern`` launches the kernel alone.  With ``cold`` (the same launch on
+    a list of input chunks) ``ms`` is the cold time of :func:`_graph_ms`
+    over them and ``ms_hot_replay`` the hot one of ``kern``."""
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"ms": _graph_ms(kern), "plain_ms": _cuda_ms(plain, plain_reps),
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
-            "floor_ms": floor_ms, "floored_bound_ms": max(bound, floor_ms),
-            "floored_bound_by": "bytes" if bound >= floor_ms else "floor",
-            "call_ms": _cuda_ms(call or kern, 200)}
+    row = {"ms": _graph_ms(cold or kern),
+           "plain_ms": _cuda_ms(plain, plain_reps),
+           "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+           "floor_ms": floor_ms, "floored_bound_ms": max(bound, floor_ms),
+           "floored_bound_by": "bytes" if bound >= floor_ms else "floor",
+           "call_ms": _cuda_ms(call or kern, 200)}
+    if cold:
+        row["ms_hot_replay"] = _graph_ms(kern)
+    return row
+
+
+COLD_CHUNKS = 20          # input chunks a cold timing rotates through
+
+
+def _insert_sectors(f, keys) -> int:
+    """Distinct 32-byte sectors an insert of ``keys`` touches: those of all
+    their bit positions, each read once and written back once."""
+    import torch
+
+    return int(torch.unique(f.positions(keys) >> 8).numel())
+
+
+def _cold_keys(device, n: int = COLD_CHUNKS, size: int = CHUNK, seed=SEED):
+    """``n`` chunks of ``size`` fresh uniform u32 codes (int64 carriers),
+    made on the card from a seed."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    keys = torch.randint(0, 1 << 32, (n, size), generator=gen,
+                         device=device, dtype=torch.int64)
+    return list(keys.unbind(0))
+
+
+def _b1_shape(device, fn, lay, state, chunks, plain_reps: int = 3,
+              hot_too: bool = False, floor_ms=None) -> dict:
+    """B1 alone on one traffic shape: ``fn(lay, state, keys)`` on a copy of
+    ``state``; one chunk is replayed (hot: the state and the chunk's
+    sectors stay in the L2), several are captured once each (cold, see
+    :func:`_graph_ms`; with ``hot_too`` also the first chunk replayed,
+    ``ms_hot_replay``).  The bound counts the bytes the insert must move,
+    averaged over the chunks: its keys as int64 and every distinct sector
+    its positions touch, read and written back once
+    (:func:`_insert_sectors`); it is floored by an empty kernel of the
+    chunk's grid.  Also the kernel against its plain version on the first
+    chunk (``max_abs_err``, 0 is bit for bit)."""
+    from repro_torch.core import BloomRF
+
+    f = BloomRF(lay, device=device)
+    st = state.clone()
+    err = _max_err(fn(lay, state.clone(), chunks[0]),
+                   f.insert(state.clone(), chunks[0]))
+    n = chunks[0].numel()
+    sectors = sum(_insert_sectors(f, c) for c in chunks) / len(chunks)
+    nbytes = n * 8 + 2 * 32 * sectors
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    if floor_ms is None:
+        floor_ms = _floor_ms(device, _grid(n), 256, 0)
+    calls = [lambda c=c: fn(lay, st, c) for c in chunks]
+    row = {"keys": n, "lanes": lay.total_u32, "chunks": len(chunks),
+           "ms": _graph_ms(calls if len(calls) > 1 else calls[0]),
+           "plain_ms": _cuda_ms(lambda: f.insert(st, chunks[0]), plain_reps)
+           if plain_reps else None,
+           "sectors": sectors, "bound_ms": bound, "bound_by": "bytes",
+           "floor_ms": floor_ms, "floored_bound_ms": max(bound, floor_ms),
+           "floored_bound_by": "bytes" if bound >= floor_ms else "floor",
+           "max_abs_err": err}
+    if hot_too:
+        row["ms_hot_replay"] = _graph_ms(calls[0])
+    return row
 
 
 def phase_times(device, lay, kernels):
@@ -596,22 +670,27 @@ def phase_times(device, lay, kernels):
     tq, tlo, thi = _i64(pq, device), _i64(lo, device), _i64(hi, device)
     ins, pt, rg = (kernels[k]["fn"] for k in ("insert", "point", "range"))
     state_b = lay.total_u32 * 4
-    # B1-B3 launch one thread per key or range, 256 a block, with the
-    # layout descriptor in shared memory
+    # B1-B3 launch one thread per key or range, 256 a block; B2/B3 with the
+    # layout descriptor in shared memory, B1 with it in its parameters
     floor = _floor_ms(device, _grid(CHUNK), 256,
                       _build.device_descriptor(lay, device).numel() * 4)
+    floors = {"insert": _floor_ms(device, _grid(CHUNK), 256, 0),
+              "point": floor, "range": floor}
+    sectors = _insert_sectors(f, batch)
     out = {}
-    # bytes the function must move: inputs read once, outputs written once
+    # bytes the function must move: inputs read once, outputs written once;
+    # an insert reads and writes back each sector its positions touch
     for name, kern, plain, nbytes in (
             ("insert", lambda: ins(lay, state, batch),
-             lambda: f.insert(state, batch), CHUNK * 8 + 2 * state_b),
+             lambda: f.insert(state, batch), CHUNK * 8 + 64 * sectors),
             ("point", lambda: pt(lay, state, tq),
              lambda: f.engine.point_batched(state, tq),
              CHUNK * 8 + state_b + CHUNK),
             ("range", lambda: rg(lay, state, tlo, thi),
              lambda: f.engine.range_batched(state, tlo, thi),
              CHUNK * 16 + state_b + CHUNK)):
-        out[name] = _times(kern, plain, 10, nbytes, floor)
+        out[name] = _times(kern, plain, 10, nbytes, floors[name])
+    out["insert"]["sectors"] = sectors
     return out
 
 
@@ -803,6 +882,24 @@ def _scan_ends(lo):
     return np.minimum(lo + np.uint64(RSIZE - 1), np.uint64((1 << 32) - 1))
 
 
+def _record_builds(st) -> dict:
+    """Watch a store's filter builds: every build's key count, and the
+    ``(layout, keys)`` of the first (a level-0 flush) and of the largest."""
+    rec = {"sizes": [], "flush": None, "largest": None}
+    build = st._build_filter
+
+    def recording(layout, keys):
+        rec["sizes"].append(len(keys))
+        if rec["flush"] is None:
+            rec["flush"] = (layout, keys.copy())
+        if rec["largest"] is None or len(keys) > len(rec["largest"][1]):
+            rec["largest"] = (layout, keys.copy())
+        return build(layout, keys)
+
+    st._build_filter = recording
+    return rec
+
+
 def phase_store(device, kernels, errs):
     """Phase 7: the store end to end, against a numpy oracle and the plain
     scan plane, with B4's launches counted."""
@@ -828,6 +925,7 @@ def phase_store(device, kernels, errs):
     h = repro_torch.open_filter(repro_torch.FilterSpec(
         dtype="u32", placement="store", memtable_limit=8192, level0_runs=8,
         fanout=4, bits_per_key=14.0, delta=6))
+    builds = _record_builds(h.store)
     t0 = time.perf_counter()
     for i, k in enumerate(data):
         h.put(int(k), i)
@@ -846,11 +944,17 @@ def phase_store(device, kernels, errs):
     t2 = time.perf_counter()
     launches = {name: k["fn"].launches for name, k in kernels.items()}
     n_batches = n_scans // SCAN_BATCH
-    if launches["store_scan"] != n_batches or \
-            sum(launches.values()) != n_batches:
-        raise AssertionError(f"store path launches {launches}, "
-                             f"{n_batches} scan batches")
     st = h.store
+    # one B1 launch per filter build (flush or rebuild), one B4 launch per
+    # scan batch, nothing else
+    want = {k: 0 for k in kernels}
+    want.update(insert=st.filter_builds, store_scan=n_batches)
+    if launches != want or st.filter_builds != len(builds["sizes"]) \
+            or st.filter_builds != st.stats.flushes \
+            + st.stats.rebuild_merges + st.stats.purge_rebuilds:
+        raise AssertionError(f"store path launches {launches}, "
+                             f"{st.filter_builds} filter builds, "
+                             f"{n_batches} scan batches")
     if st.stats.kernel_fallbacks:
         raise AssertionError(f"{st.stats.kernel_fallbacks} kernel fallbacks")
 
@@ -941,6 +1045,17 @@ def phase_store(device, kernels, errs):
         st._kernel_scan(b_lo, b_hi)
     torch.cuda.synchronize()
     store_call_ms = (time.perf_counter() - t5) / 200 * 1e3
+    # B1 on the store's build shapes: the first flush and the largest
+    # rebuild, their sorted keys into a zero state, as the store issues them
+    b1 = {}
+    for kind in ("flush", "largest"):
+        lay, keys = builds[kind]
+        name = f"c_{'flush' if kind == 'flush' else 'rebuild'}_{len(keys)}"
+        b1[name] = _b1_shape(device, kernels["insert"]["fn"], lay,
+                             torch.zeros(lay.total_u32, dtype=torch.int32,
+                                         device=device),
+                             [st._codes(keys)], plain_reps=10)
+        b1[name].update(deltas=lay.deltas, launches=st.filter_builds)
     stats = st.stats
     return {
         "keys": STORE_KEYS, "scans": n_scans, "inserts": n_ins,
@@ -955,10 +1070,12 @@ def phase_store(device, kernels, errs):
         "device_runs_probed_per_scan": int(acc[0]) / n_scans,
         "device_fence_pass_per_scan": int(acc[1]) / n_scans,
         "launches": launches["store_scan"], "batches": n_batches,
+        "b1_launches": launches["insert"], "filter_builds": st.filter_builds,
+        "flushes": stats.flushes, "rebuild_merges": stats.rebuild_merges,
         "kernel_fallbacks": stats.kernel_fallbacks,
         "b4_sectors_read": sectors, "b4_sector_share": sectors * 32 / flat_b,
         "b4_store_call_ms": store_call_ms,
-        "times": times,
+        "times": times, "b1_shapes": b1,
     }
 
 
@@ -1085,7 +1202,7 @@ def phase_hbm(device, kernels, errs):
     verdicts, rates, lanes, first_state = [], [], [], None
     for r, ins in enumerate(parts):
         if r:
-            first_state = h.state.clone()
+            first_state, first_layout = h.state.clone(), h.layout
             h.grow(GROW)
         if h.backend != "kernels" or h.ops.resident:
             raise AssertionError(f"round {r}: {h.backend}, not partitioned")
@@ -1152,7 +1269,7 @@ def phase_hbm(device, kernels, errs):
     if not torch.equal(twin.state, h.state) or errs["point_part"] \
             or errs["range_part"]:
         raise AssertionError(f"HBM filter differs from the xla twin: {errs}")
-    del twin, first_state
+    del twin
 
     mutable = _mutable_twins(rng, errs)
 
@@ -1166,15 +1283,21 @@ def phase_hbm(device, kernels, errs):
     pout = torch.empty(CHUNK, dtype=torch.bool, device=device)
     rout = torch.empty(CHUNK, dtype=torch.bool, device=device)
 
-    def b7():
-        _build.launch("bloomrf_point_probe", device, tq.data_ptr(),
+    def b7(q=tq):
+        _build.launch("bloomrf_point_probe", device, q.data_ptr(),
                       CHUNK, state.data_ptr(), desc.data_ptr(), desc.numel(),
                       pout.data_ptr())
 
-    def b8():
-        _build.launch("bloomrf_range_partitioned", device, tlo.data_ptr(),
-                      thi.data_ptr(), CHUNK, state.data_ptr(),
+    def b8(a=tlo, b=thi):
+        _build.launch("bloomrf_range_partitioned", device, a.data_ptr(),
+                      b.data_ptr(), CHUNK, state.data_ptr(),
                       desc.data_ptr(), desc.numel(), rout.data_ptr())
+
+    # cold: COLD_CHUNKS chunks drawn as the first, each captured once, so
+    # the grown filter's sectors leave the L2 between a chunk's turns
+    qrng = np.random.default_rng(SEED + 89)
+    qcold = [tuple(_i64(a, device) for a in _queries(qrng, CHUNK, keys, top))
+             for _ in range(COLD_CHUNKS)]
 
     ppart, rpart, pt, rg = (kernels[k]["fn"] for k in (
         "point_part", "range_part", "point", "range"))
@@ -1208,17 +1331,31 @@ def phase_hbm(device, kernels, errs):
         "point_part": _times(b7, lambda: point_partitioned_plain(lay, state,
                                                                  tq),
                              5, pbytes, floor,
-                             call=lambda: ppart(lay, state, tq)),
+                             call=lambda: ppart(lay, state, tq),
+                             cold=[lambda c=c: b7(c[0]) for c in qcold]),
         "range_part": _times(b8, lambda: range_partitioned_plain(
             lay, state, tlo, thi), 5, rbytes, floor,
-            call=lambda: rpart(lay, state, tlo, thi)),
+            call=lambda: rpart(lay, state, tlo, thi),
+            cold=[lambda c=c: b8(c[1], c[2]) for c in qcold]),
     }
+    del qcold
+    # B1 alone on both states, cold (fresh chunks into copies of them)
+    b1 = {}
+    cold_keys = _cold_keys(device)
+    for lay_b, st_b in ((first_layout, first_state), (lay, state)):
+        name = f"b_hbm_{lay_b.total_u32 * 4 / 2**20:.1f}MiB"
+        b1[name] = _b1_shape(device, kernels["insert"]["fn"], lay_b, st_b,
+                             cold_keys, hot_too=True)
+        b1[name].update(deltas=lay_b.deltas, launches=launches["insert"])
+    del first_state, cold_keys
     tiers["point_resident_B2"]["call_ms"] = _cuda_ms(
         lambda: pt(lay, state, tq), 200)
     tiers["range_resident_B3"]["call_ms"] = _cuda_ms(
         lambda: rg(lay, state, tlo, thi), 200)
     for k in ("point_part", "range_part"):
-        tiers[k].update(ms=times[k]["ms"], call_ms=times[k]["call_ms"])
+        tiers[k].update(ms_cold=times[k]["ms"],
+                        ms_hot_replay=times[k]["ms_hot_replay"],
+                        call_ms=times[k]["call_ms"])
     tiers["point_part"]["bound_ms"] = times["point_part"]["bound_ms"]
     tiers["range_part"]["bound_ms"] = times["range_part"]["bound_ms"]
     # where the plain versions' time goes (the reference's steps, stage by
@@ -1267,7 +1404,7 @@ def phase_hbm(device, kernels, errs):
                                     "range_real": int((rlane_b >= 0).sum())},
         "point_sectors": psec, "range_sectors": rsec,
         "tiers": tiers, "call_stages_ms": stages, "traces": traces,
-        "times": times,
+        "times": times, "b1_shapes": b1,
     }
 
 
@@ -1369,14 +1506,27 @@ def main() -> int:
           f"queries on {smi}: {json.dumps(stacked_times)} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    # B1 on its three traffic shapes: (a) phase 5's chunk into the phase-3
+    # filter in the L2, (b) phase 8's HBM-scale states, cold, (c) the
+    # store's flush and largest rebuild (phase 7)
+    b1_shapes = {f"a_l2_{big.total_u32 * 4 / 2**20:.1f}MiB": {
+        "keys": CHUNK, "lanes": big.total_u32, "deltas": big.deltas,
+        "launches": main_run["launches"]["insert"],
+        **{k: times["insert"][k] for k in (
+            "ms", "plain_ms", "sectors", "bound_ms", "bound_by", "floor_ms",
+            "floored_bound_ms", "floored_bound_by")}}}
+
     t0 = time.perf_counter()
     store = phase_store(device, kernels, errs)
     times["store_scan"] = store.pop("times")
+    b1_shapes.update(store.pop("b1_shapes"))
     print(f"[7/8] store, {STORE_KEYS} keys loaded by put (the key count is "
           f"set by the host's per-key Python load path, not by the card), "
           f"YCSB-E: every scan == numpy oracle, every batch's (fence, touch) "
           f"== plain touch_all, {store['launches']} B4 launches for "
-          f"{store['batches']} scan batches, kernel_fallbacks "
+          f"{store['batches']} scan batches, {store['b1_launches']} B1 "
+          f"launches for {store['filter_builds']} filter builds, no other "
+          f"launch, kernel_fallbacks "
           f"{store['kernel_fallbacks']}: {json.dumps(store)}; B4 per "
           f"{SCAN_BATCH}-scan batch on {smi}: "
           f"{json.dumps(times['store_scan'])} "
@@ -1385,6 +1535,7 @@ def main() -> int:
     t0 = time.perf_counter()
     hbm = phase_hbm(device, kernels, errs)
     times.update(hbm.pop("times"))
+    b1_shapes.update(hbm.pop("b1_shapes"))
     print(f"[8/8] HBM-scale filter, {HBM_KEYS} keys under auto, grown x{GROW} "
           f"in place to {HBM_KEYS * GROW}: no false negatives over all keys "
           f"(truth sorted on the card), state and verdicts == xla twin, "
@@ -1393,11 +1544,25 @@ def main() -> int:
           f"on the grown filter at {CHUNK} keys/ranges on {smi} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    errs["insert"] = max([errs["insert"]] + [
+        row.pop("max_abs_err", 0) for row in b1_shapes.values()])
+    if errs["insert"]:
+        raise AssertionError(f"B1 != plain on a traffic shape: {errs}")
+    times["insert"]["shapes"] = b1_shapes
+    print(f"[8/8] B1 alone on its traffic shapes ((a) the phase-3 filter in "
+          f"the L2, (b) phase 8's states cold, each of {COLD_CHUNKS} chunks "
+          f"captured once, (c) phase 7's flush and largest rebuild, sorted "
+          f"keys) on {smi}: {json.dumps(b1_shapes)}", flush=True)
+
     call_ms = {k: t.pop("call_ms") for k, t in times.items()}
     print(f"[8/8] kernel wrappers' ms per call by CUDA events over 200 "
           f"back-to-back calls, host dispatch included (the kernels line's "
           f"ms is the kernel alone, from a CUDA graph): "
           f"{json.dumps(call_ms)}", flush=True)
+    times["insert"]["launches_by_path"] = {
+        "phase3_main": main_run["launches"]["insert"],
+        "phase7_store_builds": store["b1_launches"],
+        "phase8_hbm": hbm["launches"]["insert"]}
     launches = dict(main_run["launches"])
     launches.update(stacked["launches"])
     launches["store_scan"] = store["launches"]

@@ -3,42 +3,137 @@
 // Replaces the Pallas TPU kernel repro/kernels/insert.py::insert_resident
 // (body _insert_kernel).  That kernel's read-modify-write OR is safe only
 // because TPU grid steps run in order on one core.  Hopper blocks run in any
-// order, so each bit is set with atomicOr on its lane; OR does not depend on
-// order, so the state equals the reference insert bit for bit.
+// order, so each bit is set with an atomic OR on its lane; OR does not
+// depend on order or grouping, so the state equals the reference insert bit
+// for bit.
 //
-// Bound: scattered memory traffic.  One thread per key computes its
-// P = sum(replicas) (+1 exact) positions in registers and issues P 4-byte
-// atomics on random lanes; the filter (a few MiB for a per-SST filter) stays
-// in the 50 MB L2, so the atomics resolve in L2 rather than device memory.
-// Keys are read once as the int64 carrier (8 bytes a key), coalesced.
+// Bound: scattered memory traffic, on three shapes.  A per-SST filter (a
+// few MiB) stays in the 50 MB L2, so its atomics resolve there; an
+// HBM-scale filter (tens to hundreds of MiB) pays a sector read and a dirty
+// write-back per distinct 32-byte sector its keys touch; a store build
+// inserts sorted keys, whose upper layers put many neighbouring keys on one
+// word.  Keys are read once as the int64 carrier (8 bytes a key), coalesced.
+//
+// The design: the layout descriptor reaches every thread as a kernel
+// parameter (__grid_constant__, read through the constant cache), so no
+// block copies it into shared memory and waits at a barrier before its
+// first key; and every atomic's result is unused, so it compiles to a
+// fire-and-forget reduction.
+//
+// EXPLORATION BUILD: the variants below are timed against each other by
+// benchmarks/torch_insert_shapes.py --variants; the losers are deleted.
+#include <cstring>
+
 #include "bloomrf.cuh"
 
 namespace {
 
-__global__ void insert_kernel(const int64_t* __restrict__ keys, int64_t n,
-                              uint32_t* __restrict__ state,
-                              const uint32_t* __restrict__ gdesc,
-                              int desc_len) {
-  extern __shared__ uint32_t sdesc[];
-  const bloomrf::Desc D = bloomrf::load_desc(gdesc, sdesc, desc_len);
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  const uint32_t x = static_cast<uint32_t>(keys[t]);
-  bloomrf::for_each_position(D, x, [&](uint32_t pos) {
-    atomicOr(state + (pos >> 5), 1u << (pos & 31u));
-    return true;
-  });
+// words of the descriptor parameter (kernels/_build.py::INSERT_DESC_WORDS)
+constexpr int kDescCap = 512;
+
+template <int CAP>
+struct DescParam {
+  uint32_t w[CAP];
+};
+
+enum Mode { kPlain = 0, kMatch = 1, kGated = 2 };
+
+// OR `bit` into lane `word` of the state.  kPlain: one atomic per thread.
+// kMatch: the lanes of the warp that hit one word OR their bits together
+// and the lowest of them issues the one atomic.  kGated: kMatch only when
+// some lane hits the same word as its left neighbour (sorted keys).
+template <int MODE>
+__device__ __forceinline__ void or_bit(uint32_t* __restrict__ state,
+                                       uint32_t word, uint32_t bit,
+                                       unsigned valid, int lane) {
+  if (MODE == kGated) {
+    const uint32_t prev = __shfl_up_sync(valid, word, 1);
+    if (!__ballot_sync(valid, lane > 0 && prev == word)) {
+      atomicOr(state + word, bit);
+      return;
+    }
+  }
+  if (MODE == kPlain) {
+    atomicOr(state + word, bit);
+    return;
+  }
+  const unsigned grp = __match_any_sync(valid, word);
+  const uint32_t m = __reduce_or_sync(grp, bit);
+  if (lane == __ffs(grp) - 1) atomicOr(state + word, m);
+}
+
+// KPT keys a thread: thread j of block b takes keys b * 256 * KPT + j + r *
+// 256, r < KPT, all loaded before the first is hashed.
+template <int CAP, int MODE, int KPT>
+__global__ void __launch_bounds__(bloomrf::kThreads)
+    insert_kernel(const int64_t* __restrict__ keys, int64_t n,
+                  uint32_t* __restrict__ state,
+                  const __grid_constant__ DescParam<CAP> p) {
+  const bloomrf::Desc D{p.w};
+  const int lane = static_cast<int>(threadIdx.x & 31u);
+  const int64_t base =
+      static_cast<int64_t>(blockIdx.x) * (bloomrf::kThreads * KPT) +
+      threadIdx.x;
+  uint32_t x[KPT];
+#pragma unroll
+  for (int r = 0; r < KPT; ++r) {
+    const int64_t t = base + r * bloomrf::kThreads;
+    x[r] = t < n ? static_cast<uint32_t>(keys[t]) : 0u;
+  }
+#pragma unroll
+  for (int r = 0; r < KPT; ++r) {
+    const bool live = base + r * bloomrf::kThreads < n;
+    const unsigned valid = MODE == kPlain ? 0u : __ballot_sync(~0u, live);
+    if (!live) return;
+    bloomrf::for_each_position(D, x[r], [&](uint32_t pos) {
+      or_bit<MODE>(state, pos >> 5, 1u << (pos & 31u), valid, lane);
+      return true;
+    });
+  }
+}
+
+template <int CAP, int MODE, int KPT>
+int launch(const int64_t* keys, int64_t n, uint32_t* state,
+           const uint32_t* desc, cudaStream_t stream) {
+  DescParam<CAP> p;
+  if (desc[bloomrf::H_LEN] > static_cast<uint32_t>(CAP))
+    return static_cast<int>(cudaErrorInvalidValue);
+  std::memset(&p, 0, sizeof(p));
+  std::memcpy(p.w, desc, desc[bloomrf::H_LEN] * sizeof(uint32_t));
+  const int64_t per_block = int64_t{bloomrf::kThreads} * KPT;
+  const unsigned blocks = static_cast<unsigned>((n + per_block - 1) /
+                                                per_block);
+  insert_kernel<CAP, MODE, KPT>
+      <<<blocks, bloomrf::kThreads, 0, stream>>>(keys, n, state, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// desc: the layout descriptor in host memory (kernels/_build.py::
+// insert_descriptor), copied into the launch's parameters
 extern "C" int bloomrf_insert(const int64_t* keys, int64_t n, uint32_t* state,
-                              const uint32_t* desc, int desc_len,
-                              void* stream) {
+                              const uint32_t* desc, void* stream) {
   if (n <= 0) return 0;
-  insert_kernel<<<bloomrf::grid_for(n), bloomrf::kThreads,
-                  desc_len * sizeof(uint32_t),
-                  static_cast<cudaStream_t>(stream)>>>(keys, n, state, desc,
-                                                       desc_len);
-  return static_cast<int>(cudaGetLastError());
+  return launch<kDescCap, kPlain, 1>(keys, n, state, desc,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+// the exploration's variants: 0 plain, 1 match, 2 gated, 3 plain with 4
+// keys a thread, 4 gated with 4 keys a thread, 5 plain with a 64-word
+// descriptor parameter
+extern "C" int bloomrf_insert_variant(int variant, const int64_t* keys,
+                                      int64_t n, uint32_t* state,
+                                      const uint32_t* desc, void* stream) {
+  if (n <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case 0: return launch<kDescCap, kPlain, 1>(keys, n, state, desc, s);
+    case 1: return launch<kDescCap, kMatch, 1>(keys, n, state, desc, s);
+    case 2: return launch<kDescCap, kGated, 1>(keys, n, state, desc, s);
+    case 3: return launch<kDescCap, kPlain, 4>(keys, n, state, desc, s);
+    case 4: return launch<kDescCap, kGated, 4>(keys, n, state, desc, s);
+    case 5: return launch<64, kPlain, 1>(keys, n, state, desc, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

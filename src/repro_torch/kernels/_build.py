@@ -10,7 +10,9 @@ sources and flags, so an edited source is rebuilt and never mistaken for
 a stale build.
 
 Also here: the per-layout descriptor table the kernels read
-(``csrc/bloomrf.cuh``), cached per layout and device, and the stack
+(``csrc/bloomrf.cuh``), cached per layout and device (or, for the insert
+kernel, per layout in host memory, padded to the kernel parameter's
+fixed capacity), and the stack
 descriptor of a row stack (the store-scan kernel), cached per row stack and
 device.
 """
@@ -32,7 +34,7 @@ import torch
 from ..core.layout import FilterLayout
 
 __all__ = ["build_all", "launch", "layout_descriptor", "device_descriptor",
-           "stack_descriptor"]
+           "insert_descriptor", "stack_descriptor"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -43,7 +45,8 @@ _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 #: each C entry point: its source ``csrc/<source>.cu`` and argument types,
 #: the last of which is always the stream
 _ENTRY = {
-    "bloomrf_insert": ("insert", (_P, _I64, _P, _P, _I, _P)),
+    "bloomrf_insert": ("insert", (_P, _I64, _P, _P, _P)),
+    "bloomrf_insert_variant": ("insert", (_I, _P, _I64, _P, _P, _P)),
     "bloomrf_point_probe": ("probe", (_P, _I64, _P, _P, _I, _P, _P)),
     "bloomrf_store_scan": ("store_scan", (_P, _P, _I64, _P, _P, _I, _P, _P,
                                           _P, _P, _I, _P, _P, _I, _P)),
@@ -188,6 +191,28 @@ def device_descriptor(layout: FilterLayout, device: torch.device) -> torch.Tenso
     """The layout descriptor as an int32 tensor on ``device``, built once per
     layout and device."""
     return torch.from_numpy(layout_descriptor(layout).view(np.int32)).to(device)
+
+
+#: capacity in words of the insert kernel's descriptor parameter
+#: (``csrc/insert.cu``: ``kDescCap``); every basic layout needs at most 349
+INSERT_DESC_WORDS = 512
+
+
+@functools.lru_cache(maxsize=None)
+def insert_descriptor(layout: FilterLayout) -> np.ndarray:
+    """The layout descriptor as the insert kernel's parameter: uint32 host
+    words zero-padded to :data:`INSERT_DESC_WORDS`, built once per layout
+    (the launch copies them into its parameters, so nothing is staged on
+    the device).  Raises for a descriptor longer than the capacity."""
+    desc = layout_descriptor(layout)
+    if len(desc) > INSERT_DESC_WORDS:
+        raise ValueError(f"layout descriptor of {len(desc)} words exceeds "
+                         f"the insert kernel's {INSERT_DESC_WORDS}-word "
+                         f"parameter")
+    out = np.zeros(INSERT_DESC_WORDS, np.uint32)
+    out[:len(desc)] = desc
+    out.flags.writeable = False
+    return out
 
 
 @functools.lru_cache(maxsize=8)

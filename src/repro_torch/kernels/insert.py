@@ -2,7 +2,8 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/insert.py::insert_resident``.
 On a CUDA state it launches the kernel, which ORs every key's bits into the
-lanes with ``atomicOr``; on a CPU state it takes the plain version,
+lanes with atomic ORs, the layout descriptor riding in the launch's
+parameters; on a CPU state it takes the plain version,
 ``BloomRF.insert``.  Either way the state is updated in place and
 returned; the bits equal ``ref.insert_ref`` exactly.
 """
@@ -29,10 +30,9 @@ def insert_resident(layout: FilterLayout, state: torch.Tensor,
         plain = filter_for_layout(layout, state.device)
         return state.copy_(plain.insert(state, keys))
     if keys.numel():
-        desc = _build.device_descriptor(layout, state.device)
+        desc = _build.insert_descriptor(layout)
         _build.launch("bloomrf_insert", state.device, keys.data_ptr(),
-                      keys.numel(), state.data_ptr(), desc.data_ptr(),
-                      desc.numel())
+                      keys.numel(), state.data_ptr(), desc.ctypes.data)
         insert_resident.launches += 1
     return state
 

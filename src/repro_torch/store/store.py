@@ -7,8 +7,10 @@ entries the memtable flushes to an immutable level-0 :class:`Run` carrying
 a bloomRF filter block (layout from a capacity-class ladder) and min/max
 fences.  When level 0 exceeds ``level0_runs`` runs, leveled compaction
 merges them (plus the next level's run) downward: same-class filter blocks
-merge with one ``bitwise_or``, class-graduating merges re-insert the keys
-(through the insert kernel with ``use_insert_kernels``).
+merge with one ``bitwise_or``, class-graduating merges re-insert the keys.
+Every filter build (flush or rebuild) goes through the insert kernel,
+``kernels/insert.py::insert_resident``: one launch on a CUDA store, its
+plain version on the CPU.
 
 Read path: ``get``/``scan`` first consult the memtable, then probe **all**
 live runs' filters at once.  The runs' states are concatenated into one
@@ -45,7 +47,6 @@ from ..core.bloomrf import resolve_device
 from ..core.engine import _filter_for_layout, stacked_probe
 from ..core.layout import basic_layout
 from ..kernels.insert import insert_resident
-from ..kernels.ops import read_vmem_budget_u32
 from ..kernels.store_scan import store_scan_probe_flat
 from .compaction import merge_filter_state, merge_sorted_runs
 from .faults import FaultPlan, InjectedDispatchFault
@@ -75,7 +76,9 @@ class StoreConfig:
                                     # kernel (kernels/store_scan.py), "xla"
                                     # the plain StackedProbe.touch_all,
                                     # "auto" the kernel on a CUDA device
-    use_insert_kernels: bool = False  # route rebuilds through the insert kernel
+    use_insert_kernels: bool = False  # the reference's Pallas-or-XLA build
+                                    # switch; no effect in the port, whose
+                                    # builds always take the insert kernel
     value_bytes: int = 64           # per-entry data-block size for accounting
     seed: int = 0x0B100F11
     mutability: str = "insert_only"  # "insert_only" | "deletable"
@@ -255,6 +258,7 @@ class Store:
         self._quar = None                     # per-run quarantine mask (R,)
         self._dev = None                      # lazy device fences + mask
         self._dirty = True
+        self.filter_builds = 0                # flush and rebuild filter builds
 
     def _fault(self, point: str) -> None:
         """Pass through a named fault-injection seam (no-op without a plan)."""
@@ -285,13 +289,13 @@ class Store:
 
     def _build_filter(self, layout, keys: np.ndarray) -> torch.Tensor:
         """Bulk filter build; the compaction rebuild path lands here too.
-        With ``use_insert_kernels`` a filter within the resident budget is
-        built by the insert kernel (its plain version on the CPU), as
-        ``FilterOps.insert`` would."""
+        The insert kernel builds every layout it takes (d <= 32, one launch
+        on a CUDA store, its plain version on the CPU); wider layouts take
+        the plain ``BloomRF.build``."""
+        self.filter_builds += 1
         f = _filter_for_layout(layout, self.device)
         kt = self._codes(keys)
-        if self.cfg.use_insert_kernels \
-                and layout.total_u32 <= read_vmem_budget_u32():
+        if layout.d <= 32:
             return insert_resident(layout, f.init_state(), kt)
         return f.build(kt)
 

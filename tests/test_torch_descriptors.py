@@ -91,3 +91,31 @@ def test_stack_descriptor_row_table():
         np.testing.assert_array_equal(words[off:off + len(one)], one)
         assert base == bases[r]
     assert len({int(v) for v in rowtab[:, 0]}) == 3
+
+
+@pytest.mark.parametrize("name", list(_LAYOUTS))
+def test_insert_descriptor_is_the_layout_descriptor_padded(name):
+    """The insert kernel's descriptor parameter: the layout descriptor word
+    for word, zero-padded to the parameter's fixed capacity."""
+    lay = _LAYOUTS[name]
+    desc = _build.layout_descriptor(lay)
+    param = _build.insert_descriptor(lay)
+    assert param.dtype == np.uint32
+    assert param.shape == (_build.INSERT_DESC_WORDS,)
+    np.testing.assert_array_equal(param[:len(desc)], desc)
+    assert not param[len(desc):].any()
+    assert param[5] == len(desc)                    # H_LEN, the kernel checks
+    assert _build.insert_descriptor(lay) is param   # packed once per layout
+
+
+def test_insert_descriptor_refuses_what_exceeds_its_capacity():
+    """31 layers of 8 replicas need 566 words; the widest basic layout
+    (d = 32, Δ = 1) needs 349."""
+    wide = FilterLayout(d=32, deltas=(1,) * 31, replicas=(8,) * 31,
+                        seg_of_layer=(0,) * 31, seg_bits=(1 << 16,))
+    assert len(_build.layout_descriptor(wide)) > _build.INSERT_DESC_WORDS
+    with pytest.raises(ValueError, match="insert kernel"):
+        _build.insert_descriptor(wide)
+    widest_basic = basic_layout(32, 3000, 16.0, delta=1)
+    assert len(_build.insert_descriptor(widest_basic)) == \
+        _build.INSERT_DESC_WORDS

@@ -468,3 +468,64 @@ def test_store_scan_kernel_rows_fences_and_bounds(cuda, name):
         if quar is not None:
             assert torch.equal(touch[:, 0], fence[:, 0])
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the insert kernel (B1) on a store build's traffic, and the store's builds
+# ---------------------------------------------------------------------------
+
+_B1_LAYOUTS = {
+    "store_flush": lambda: basic_layout(32, 8192, 14.0, delta=6),
+    "w64_replicas3": _PART_EDGE_LAYOUTS["w64_replicas3"],
+    "w8_replicas5": _PART_EDGE_LAYOUTS["w8_replicas5"],
+    "exact": lambda: _EXACT,
+}
+
+
+def _b1_keys(kind, rng):
+    if kind == "sorted":            # a store build: neighbours share words
+        return np.sort(rng.integers(0, 1 << 32, 8192, dtype=np.uint64))
+    if kind == "duplicates":        # 40 distinct keys, 5000 times
+        return rng.integers(0, 40, 5000, dtype=np.uint64) << np.uint64(20)
+    return rng.integers(0, 1 << 32, 1001, dtype=np.uint64)  # a partial warp
+
+
+@pytest.mark.parametrize("kind", ["sorted", "duplicates", "odd_batch"])
+@pytest.mark.parametrize("name", list(_B1_LAYOUTS))
+def test_insert_kernel_matches_plain_version(cuda, name, kind):
+    """B1 bit for bit against its plain version on sorted keys, on keys with
+    many duplicates and on an odd batch whose last warp is partial, over
+    layouts with replicas 3 and 5 and an exact segment; into a state that
+    already holds bits, too."""
+    lay = _B1_LAYOUTS[name]()
+    f = BloomRF(lay, device=cuda)
+    rng = np.random.default_rng(11)
+    keys = torch.from_numpy(_b1_keys(kind, rng).astype(np.int64)).to(cuda)
+    n0 = insert_resident.launches
+    state = insert_resident(lay, f.init_state(), keys)
+    assert insert_resident.launches == n0 + 1
+    torch.testing.assert_close(state, f.insert(f.init_state(), keys),
+                               rtol=0, atol=0)
+    more = torch.from_numpy(rng.integers(0, 1 << 32, 777, dtype=np.uint64)
+                            .astype(np.int64)).to(cuda)
+    torch.testing.assert_close(insert_resident(lay, state.clone(), more),
+                               f.insert(state, more), rtol=0, atol=0)
+
+
+def test_store_builds_launch_the_insert_kernel(cuda):
+    """A CUDA store with the default config launches B1 once per filter build
+    (every flush and every rebuild), and each run's state equals the plain
+    build of its keys (distinct keys, no deletes: OR merges equal it too)."""
+    st = Store(StoreConfig(memtable_limit=256, level0_runs=2, fanout=2))
+    keys = np.random.default_rng(12).choice(1 << 32, 6000, replace=False)
+    n0 = insert_resident.launches
+    for i, k in enumerate(keys):
+        st.put(int(k), i)
+    st.flush()
+    assert st.stats.rebuild_merges > 0
+    assert insert_resident.launches - n0 == st.filter_builds \
+        == st.stats.flushes + st.stats.rebuild_merges
+    for run in st.live_runs():
+        f = BloomRF(run.layout, device=cuda)
+        want = f.build(torch.from_numpy(run.keys.astype(np.int64)).to(cuda))
+        torch.testing.assert_close(run.state, want, rtol=0, atol=0)

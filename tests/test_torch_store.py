@@ -27,8 +27,8 @@ from repro_torch.store import store as store_mod
 
 #: the reference builds filters with its insert kernel (interpret mode),
 #: which compiles once per key-batch shape instead of once per primitive;
-#: on the CPU the port's insert kernel takes BloomRF.insert, the same code
-#: as its default build
+#: the port's builds take its insert kernel under any config (on the CPU
+#: its plain version, BloomRF.insert)
 _CFG = dict(memtable_limit=64, level0_runs=2, fanout=2,
             use_insert_kernels=True)
 DMAX = (1 << 32) - 1
@@ -130,6 +130,34 @@ def test_op_stream_matches_reference(scan_backend):
         np.testing.assert_array_equal(gk, wk)
         np.testing.assert_array_equal(gt, wt)
         np.testing.assert_array_equal(gs, ws)
+
+
+def test_default_config_builds_through_the_insert_kernel(monkeypatch):
+    """Without ``use_insert_kernels`` (the façade's config) every flush and
+    rebuild goes through ``insert_resident`` (its plain version on the
+    CPU; one launch on a CUDA store), and the run states still equal the
+    reference store's."""
+    _, _, want_runs, _ = _reference()
+    calls = []
+    real = store_mod.insert_resident
+
+    def counting(layout, state, keys):
+        calls.append(len(keys))
+        return real(layout, state, keys)
+
+    monkeypatch.setattr(store_mod, "insert_resident", counting)
+    cfg = {k: v for k, v in _CFG.items() if k != "use_insert_kernels"}
+    st = Store(StoreConfig(**cfg), device="cpu")
+    assert not st.cfg.use_insert_kernels
+    _drive(st, _stream())
+    assert st.filter_builds == len(calls) > 0
+    assert st.filter_builds == st.stats.flushes + st.stats.rebuild_merges \
+        + st.stats.purge_rebuilds
+    got_runs = _runs(st)
+    assert len(got_runs) == len(want_runs)
+    for got, want in zip(got_runs, want_runs):
+        assert got[0] == want[0]
+        np.testing.assert_array_equal(got[5], want[5])
 
 
 def test_run_from_numpy_roundtrip():
