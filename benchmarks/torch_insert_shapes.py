@@ -94,53 +94,37 @@ def shapes(device, fn, cs, built, plain_reps: int = 3) -> dict:
             for name, lay, state, chunks, hot in built}
 
 
-def _variant(v: int):
+def probes(device, cs, built) -> dict:
+    """The probe kernels of this tree's build on every shape: 0 computes
+    every position and writes none, 1 issues as many atomic ORs a key on
+    uniformly spread lanes with no layout (times alone, cold as the
+    insert is)."""
     from repro_torch.kernels import _build
 
-    def fn(lay, state, keys):
-        _build.launch("bloomrf_insert_variant", state.device, v,
-                      keys.data_ptr(), keys.numel(), state.data_ptr(),
-                      _build.insert_descriptor(lay).ctypes.data)
-        return state
-    return fn
-
-
-def _variant_edges(device, v: int, cs) -> int:
-    """A variant against the plain version on sorted keys, many duplicates,
-    an odd batch whose last warp is partial, and layouts with replicas 3
-    and 5 and an exact segment; the largest difference (0: bit for bit)."""
-    import numpy as np
-
-    from repro_torch.core import BloomRF, FilterLayout, basic_layout
-
-    rng = np.random.default_rng(v)
-    layouts = [basic_layout(32, 8192, 14.0, delta=6),
-               FilterLayout(d=32, deltas=(7, 7), replicas=(3, 1),
-                            seg_of_layer=(0, 0), seg_bits=(16384,)),
-               FilterLayout(d=32, deltas=(4, 4, 4), replicas=(5, 1, 3),
-                            seg_of_layer=(0, 0, 0), seg_bits=(16384,)),
-               FilterLayout(d=32, deltas=(7, 7, 4, 2), replicas=(1, 1, 1, 2),
-                            seg_of_layer=(2, 2, 1, 1),
-                            seg_bits=(1 << 12, 4096, 8192), exact_seg=0)]
-    err = 0
-    for lay in layouts:
-        f = BloomRF(lay, device=device)
-        for keys in (np.sort(rng.integers(0, 1 << 32, 8192, dtype=np.uint64)),
-                     rng.integers(0, 40, 5000, dtype=np.uint64) << 20,
-                     rng.integers(0, 1 << 32, 1001, dtype=np.uint64)):
-            k = cs._i64(keys, device)
-            err = max(err, cs._max_err(_variant(v)(lay, f.init_state(), k),
-                                       f.insert(f.init_state(), k)))
-    return err
+    out = {}
+    for name, lay, state, chunks, _ in built:
+        st = state.clone()
+        npos = sum(lay.replicas) + int(lay.has_exact)
+        row = {}
+        for which in (0, 1):
+            def fn(c, w=which):
+                _build.launch("bloomrf_insert_probe", device, w,
+                              c.data_ptr(), c.numel(), st.data_ptr(),
+                              lay.total_u32, npos,
+                              _build.insert_descriptor(lay).ctypes.data)
+            calls = [lambda c=c: fn(c) for c in chunks]
+            row[("hash_only", "red_only")[which]] = cs._graph_ms(
+                calls if len(calls) > 1 else calls[0])
+        out[name] = row
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src directory whose repro_torch is timed")
-    ap.add_argument("--variants", type=int, default=0,
-                    help="also time bloomrf_insert_variant 0..N-1 of this "
-                         "tree's build")
+    ap.add_argument("--probes", action="store_true",
+                    help="also time this tree's probe kernels")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs    # puts this tree's src first on the path
@@ -160,15 +144,9 @@ def main() -> int:
            "card": cs._smi(), "build_s": build_all()}
     built = cases(device, cs)
     out["insert_resident"] = shapes(device, insert_resident, cs, built)
-    for v in range(args.variants):
-        out[f"variant_{v}"] = {
-            "edges_max_abs_err": _variant_edges(device, v, cs),
-            **shapes(device, _variant(v), cs, built, 0)}
-    errs = [row["max_abs_err"] for rows in out.values()
-            if isinstance(rows, dict) for row in rows.values()
-            if isinstance(row, dict)]
-    errs += [out[k]["edges_max_abs_err"] for k in out
-             if k.startswith("variant_")]
+    if args.probes:
+        out["probes"] = probes(device, cs, built)
+    errs = [row["max_abs_err"] for row in out["insert_resident"].values()]
     print(json.dumps(out))
     return 0 if not any(errs) else 1
 

@@ -26,7 +26,9 @@ Phases, one line of output each:
    CUDA graph; the plain version and the wrapper's back-to-back calls by
    CUDA events), beside each kernel's memory bound and the latency floor of
    its launch (an empty kernel with its grid, timed the same way; phases
-   6-8 report both for theirs too);
+   6-8 report both for theirs too); B1's bound counts the 32-byte sectors
+   its chunk's positions touch, each read and written back once, and B1
+   is also timed on phase 7's and phase 8's traffic shapes there;
 6. the store-scan kernel (B4) against its plain version, ``StackedProbe.
    touch_all``, bit for bit over the run-stack classes of
    tests/test_store_scan_kernel.py (mixed Δ, several segments, replicas,
@@ -39,9 +41,12 @@ Phases, one line of output each:
    YCSB-E mix of benchmarks/store_bench.py (95% scans 256 codes wide in
    batches of 512, 5% inserts); every scan equal to a numpy oracle, every
    batch's ``(fence, touch)`` equal to the plain ``touch_all``, exactly one
-   B4 launch per scan batch and no kernel fallback; the device probe plane
-   and B4 timed per batch, B4's bound counting the filter sectors that
-   the batch's range plans reach;
+   B4 launch per scan batch, one B1 launch per filter build (every flush
+   and rebuild, counted by ``Store.filter_builds``), no other launch and no
+   kernel fallback; the device probe plane and B4 timed per batch, B4's
+   bound counting the filter sectors that the batch's range plans reach;
+   B1 alone on the first flush (8,192 sorted keys) and the largest
+   rebuild, as the store issues them;
 8. the HBM-scale single filter: ``open_filter`` of a 25,000,000-key u32
    filter at 16 bits/key under ``auto`` (12,500,000 lanes, above the
    resident budget: the partitioned tier), 25,000,000 inserts, 1,048,576
@@ -54,6 +59,10 @@ Phases, one line of output each:
    ``backend="partitioned"`` equal to their twins; B7/B8 timed on the
    grown filter beside B2/B3 on the same filter and chunk, in turns; each
    partitioned wrapper call is one device operation under the profiler.
+   B7, B8 and B1 (on the state before and after ``grow``) are timed cold:
+   each of 20 input chunks is captured once in the CUDA graph, so the
+   others evict its sectors from the L2 before it comes round again; the
+   hot replay of one chunk rides beside it as ``ms_hot_replay``.
 
 It prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,

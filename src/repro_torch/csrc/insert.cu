@@ -20,8 +20,8 @@
 // first key; and every atomic's result is unused, so it compiles to a
 // fire-and-forget reduction.
 //
-// EXPLORATION BUILD: the variants below are timed against each other by
-// benchmarks/torch_insert_shapes.py --variants; the losers are deleted.
+// PROBE BUILD: the two probe kernels below measure what bounds the insert
+// (benchmarks/torch_insert_shapes.py --probes); they are deleted after.
 #include <cstring>
 
 #include "bloomrf.cuh"
@@ -36,76 +36,65 @@ struct DescParam {
   uint32_t w[CAP];
 };
 
-enum Mode { kPlain = 0, kMatch = 1, kGated = 2 };
-
-// OR `bit` into lane `word` of the state.  kPlain: one atomic per thread.
-// kMatch: the lanes of the warp that hit one word OR their bits together
-// and the lowest of them issues the one atomic.  kGated: kMatch only when
-// some lane hits the same word as its left neighbour (sorted keys).
-template <int MODE>
-__device__ __forceinline__ void or_bit(uint32_t* __restrict__ state,
-                                       uint32_t word, uint32_t bit,
-                                       unsigned valid, int lane) {
-  if (MODE == kGated) {
-    const uint32_t prev = __shfl_up_sync(valid, word, 1);
-    if (!__ballot_sync(valid, lane > 0 && prev == word)) {
-      atomicOr(state + word, bit);
-      return;
-    }
-  }
-  if (MODE == kPlain) {
-    atomicOr(state + word, bit);
-    return;
-  }
-  const unsigned grp = __match_any_sync(valid, word);
-  const uint32_t m = __reduce_or_sync(grp, bit);
-  if (lane == __ffs(grp) - 1) atomicOr(state + word, m);
-}
-
-// KPT keys a thread: thread j of block b takes keys b * 256 * KPT + j + r *
-// 256, r < KPT, all loaded before the first is hashed.
-template <int CAP, int MODE, int KPT>
+// KPT keys a thread was measured and lost (run 1); one key a thread here.
 __global__ void __launch_bounds__(bloomrf::kThreads)
     insert_kernel(const int64_t* __restrict__ keys, int64_t n,
                   uint32_t* __restrict__ state,
-                  const __grid_constant__ DescParam<CAP> p) {
+                  const __grid_constant__ DescParam<kDescCap> p) {
   const bloomrf::Desc D{p.w};
-  const int lane = static_cast<int>(threadIdx.x & 31u);
-  const int64_t base =
-      static_cast<int64_t>(blockIdx.x) * (bloomrf::kThreads * KPT) +
-      threadIdx.x;
-  uint32_t x[KPT];
-#pragma unroll
-  for (int r = 0; r < KPT; ++r) {
-    const int64_t t = base + r * bloomrf::kThreads;
-    x[r] = t < n ? static_cast<uint32_t>(keys[t]) : 0u;
-  }
-#pragma unroll
-  for (int r = 0; r < KPT; ++r) {
-    const bool live = base + r * bloomrf::kThreads < n;
-    const unsigned valid = MODE == kPlain ? 0u : __ballot_sync(~0u, live);
-    if (!live) return;
-    bloomrf::for_each_position(D, x[r], [&](uint32_t pos) {
-      or_bit<MODE>(state, pos >> 5, 1u << (pos & 31u), valid, lane);
-      return true;
-    });
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (t >= n) return;
+  const uint32_t x = static_cast<uint32_t>(keys[t]);
+  bloomrf::for_each_position(D, x, [&](uint32_t pos) {
+    atomicOr(state + (pos >> 5), 1u << (pos & 31u));
+    return true;
+  });
+}
+
+// PROBE: every position computed, none written (a data-dependent store
+// that never fires keeps the arithmetic): the kernel's work without its
+// memory traffic.
+__global__ void __launch_bounds__(bloomrf::kThreads)
+    probe_hash_kernel(const int64_t* __restrict__ keys, int64_t n,
+                      uint32_t* __restrict__ state,
+                      const __grid_constant__ DescParam<kDescCap> p) {
+  const bloomrf::Desc D{p.w};
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (t >= n) return;
+  const uint32_t x = static_cast<uint32_t>(keys[t]);
+  uint32_t acc = 0;
+  bloomrf::for_each_position(D, x, [&](uint32_t pos) {
+    acc = acc * 31u + pos;
+    return true;
+  });
+  if (acc == 0x9E3779B9u && x == 0x7F4A7C15u) state[0] = acc;
+}
+
+// PROBE: the memory traffic without the layout: `npos` atomic ORs a key
+// on lanes spread uniformly over `lanes` by one multiply-shift hash.
+__global__ void __launch_bounds__(bloomrf::kThreads)
+    probe_red_kernel(const int64_t* __restrict__ keys, int64_t n,
+                     uint32_t* __restrict__ state, uint32_t lanes,
+                     int npos) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (t >= n) return;
+  uint32_t h = static_cast<uint32_t>(keys[t]);
+  for (int i = 0; i < npos; ++i) {
+    h = bloomrf::mix32(h + 0x9E3779B9u);
+    const uint32_t lane = static_cast<uint32_t>(
+        (static_cast<uint64_t>(h) * lanes) >> 32);
+    atomicOr(state + lane, 1u << (h & 31u));
   }
 }
 
-template <int CAP, int MODE, int KPT>
-int launch(const int64_t* keys, int64_t n, uint32_t* state,
-           const uint32_t* desc, cudaStream_t stream) {
-  DescParam<CAP> p;
-  if (desc[bloomrf::H_LEN] > static_cast<uint32_t>(CAP))
-    return static_cast<int>(cudaErrorInvalidValue);
+bool pack(DescParam<kDescCap>& p, const uint32_t* desc) {
+  if (desc[bloomrf::H_LEN] > static_cast<uint32_t>(kDescCap)) return false;
   std::memset(&p, 0, sizeof(p));
   std::memcpy(p.w, desc, desc[bloomrf::H_LEN] * sizeof(uint32_t));
-  const int64_t per_block = int64_t{bloomrf::kThreads} * KPT;
-  const unsigned blocks = static_cast<unsigned>((n + per_block - 1) /
-                                                per_block);
-  insert_kernel<CAP, MODE, KPT>
-      <<<blocks, bloomrf::kThreads, 0, stream>>>(keys, n, state, p);
-  return static_cast<int>(cudaGetLastError());
+  return true;
 }
 
 }  // namespace
@@ -115,25 +104,26 @@ int launch(const int64_t* keys, int64_t n, uint32_t* state,
 extern "C" int bloomrf_insert(const int64_t* keys, int64_t n, uint32_t* state,
                               const uint32_t* desc, void* stream) {
   if (n <= 0) return 0;
-  return launch<kDescCap, kPlain, 1>(keys, n, state, desc,
-                                     static_cast<cudaStream_t>(stream));
+  DescParam<kDescCap> p;
+  if (!pack(p, desc)) return static_cast<int>(cudaErrorInvalidValue);
+  insert_kernel<<<bloomrf::grid_for(n), bloomrf::kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(keys, n, state, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// the exploration's variants: 0 plain, 1 match, 2 gated, 3 plain with 4
-// keys a thread, 4 gated with 4 keys a thread, 5 plain with a 64-word
-// descriptor parameter
-extern "C" int bloomrf_insert_variant(int variant, const int64_t* keys,
-                                      int64_t n, uint32_t* state,
-                                      const uint32_t* desc, void* stream) {
+// PROBES for run 2: which 0 the hash-only kernel, 1 the atomics-only one
+extern "C" int bloomrf_insert_probe(int which, const int64_t* keys, int64_t n,
+                                    uint32_t* state, int64_t lanes, int npos,
+                                    const uint32_t* desc, void* stream) {
   if (n <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (variant) {
-    case 0: return launch<kDescCap, kPlain, 1>(keys, n, state, desc, s);
-    case 1: return launch<kDescCap, kMatch, 1>(keys, n, state, desc, s);
-    case 2: return launch<kDescCap, kGated, 1>(keys, n, state, desc, s);
-    case 3: return launch<kDescCap, kPlain, 4>(keys, n, state, desc, s);
-    case 4: return launch<kDescCap, kGated, 4>(keys, n, state, desc, s);
-    case 5: return launch<64, kPlain, 1>(keys, n, state, desc, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  DescParam<kDescCap> p;
+  if (!pack(p, desc)) return static_cast<int>(cudaErrorInvalidValue);
+  if (which == 0)
+    probe_hash_kernel<<<bloomrf::grid_for(n), bloomrf::kThreads, 0, s>>>(
+        keys, n, state, p);
+  else
+    probe_red_kernel<<<bloomrf::grid_for(n), bloomrf::kThreads, 0, s>>>(
+        keys, n, state, static_cast<uint32_t>(lanes), npos);
+  return static_cast<int>(cudaGetLastError());
 }
