@@ -94,37 +94,10 @@ def shapes(device, fn, cs, built, plain_reps: int = 3) -> dict:
             for name, lay, state, chunks, hot in built}
 
 
-def probes(device, cs, built) -> dict:
-    """The probe kernels of this tree's build on every shape: 0 computes
-    every position and writes none, 1 issues as many atomic ORs a key on
-    uniformly spread lanes with no layout (times alone, cold as the
-    insert is)."""
-    from repro_torch.kernels import _build
-
-    out = {}
-    for name, lay, state, chunks, _ in built:
-        st = state.clone()
-        npos = sum(lay.replicas) + int(lay.has_exact)
-        row = {}
-        for which in (0, 1):
-            def fn(c, w=which):
-                _build.launch("bloomrf_insert_probe", device, w,
-                              c.data_ptr(), c.numel(), st.data_ptr(),
-                              lay.total_u32, npos,
-                              _build.insert_descriptor(lay).ctypes.data)
-            calls = [lambda c=c: fn(c) for c in chunks]
-            row[("hash_only", "red_only")[which]] = cs._graph_ms(
-                calls if len(calls) > 1 else calls[0])
-        out[name] = row
-    return out
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src directory whose repro_torch is timed")
-    ap.add_argument("--probes", action="store_true",
-                    help="also time this tree's probe kernels")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs    # puts this tree's src first on the path
@@ -144,8 +117,6 @@ def main() -> int:
            "card": cs._smi(), "build_s": build_all()}
     built = cases(device, cs)
     out["insert_resident"] = shapes(device, insert_resident, cs, built)
-    if args.probes:
-        out["probes"] = probes(device, cs, built)
     errs = [row["max_abs_err"] for row in out["insert_resident"].values()]
     print(json.dumps(out))
     return 0 if not any(errs) else 1

@@ -18,7 +18,8 @@ namespace bloomrf {
 // ---------------------------------------------------------------------------
 // Layout descriptor: a flat uint32 table built once per layout on the host
 // (kernels/_build.py::layout_descriptor) and copied into shared memory by
-// every block.  Header words, then one record per layer, then the seeds,
+// every block of the probe kernels (the insert kernel reads it from its
+// launch parameters).  Header words, then one record per layer, then the seeds,
 // then each layer's exact reciprocal of its word count (two words, low
 // first; read by rangeplan.cuh).
 // ---------------------------------------------------------------------------

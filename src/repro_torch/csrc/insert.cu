@@ -7,21 +7,26 @@
 // depend on order or grouping, so the state equals the reference insert bit
 // for bit.
 //
-// Bound: scattered memory traffic, on three shapes.  A per-SST filter (a
-// few MiB) stays in the 50 MB L2, so its atomics resolve there; an
-// HBM-scale filter (tens to hundreds of MiB) pays a sector read and a dirty
-// write-back per distinct 32-byte sector its keys touch; a store build
-// inserts sorted keys, whose upper layers put many neighbouring keys on one
-// word.  Keys are read once as the int64 carrier (8 bytes a key), coalesced.
+// Bound: the memory system's atomics, on all three traffic shapes.  A
+// per-SST filter or a store build's filter (a few MiB) stays in the 50 MB
+// L2, where the atomics resolve; an HBM-scale filter (tens to hundreds of
+// MiB) pays a device-memory read and a dirty write-back for each 32-byte
+// sector its keys touch.  A probe kernel issuing as many atomic ORs a key
+// on uniformly spread lanes, with no layout, took the same time as this
+// kernel on every shape, and one computing every position but writing none
+// 25-40% of it (PERF.md, PR 16).  Keys are read once as the int64 carrier
+// (8 bytes a key), coalesced.
 //
-// The design: the layout descriptor reaches every thread as a kernel
-// parameter (__grid_constant__, read through the constant cache), so no
-// block copies it into shared memory and waits at a barrier before its
-// first key; and every atomic's result is unused, so it compiles to a
-// fire-and-forget reduction.
-//
-// PROBE BUILD: the two probe kernels below measure what bounds the insert
-// (benchmarks/torch_insert_shapes.py --probes); they are deleted after.
+// The design: one thread a key; every atomic's result is unused, so it
+// compiles to a fire-and-forget reduction and a thread never waits on one.
+// The layout descriptor reaches every thread as a kernel parameter
+// (__grid_constant__, read through the constant cache), so no block copies
+// it into shared memory and waits at a barrier before its first key.
+// Aggregating a warp's atomics on one word (__match_any_sync +
+// __reduce_or_sync, always or gated by a ballot of equal neighbours) lost
+// on every shape, sorted store builds included, and so did four keys a
+// thread: the hardware already serves one warp's atomics on a word
+// together, and more loads in flight do not raise the atomics' rate.
 #include <cstring>
 
 #include "bloomrf.cuh"
@@ -31,16 +36,14 @@ namespace {
 // words of the descriptor parameter (kernels/_build.py::INSERT_DESC_WORDS)
 constexpr int kDescCap = 512;
 
-template <int CAP>
 struct DescParam {
-  uint32_t w[CAP];
+  uint32_t w[kDescCap];
 };
 
-// KPT keys a thread was measured and lost (run 1); one key a thread here.
 __global__ void __launch_bounds__(bloomrf::kThreads)
     insert_kernel(const int64_t* __restrict__ keys, int64_t n,
                   uint32_t* __restrict__ state,
-                  const __grid_constant__ DescParam<kDescCap> p) {
+                  const __grid_constant__ DescParam p) {
   const bloomrf::Desc D{p.w};
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
@@ -52,45 +55,8 @@ __global__ void __launch_bounds__(bloomrf::kThreads)
   });
 }
 
-// PROBE: every position computed, none written (a data-dependent store
-// that never fires keeps the arithmetic): the kernel's work without its
-// memory traffic.
-__global__ void __launch_bounds__(bloomrf::kThreads)
-    probe_hash_kernel(const int64_t* __restrict__ keys, int64_t n,
-                      uint32_t* __restrict__ state,
-                      const __grid_constant__ DescParam<kDescCap> p) {
-  const bloomrf::Desc D{p.w};
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (t >= n) return;
-  const uint32_t x = static_cast<uint32_t>(keys[t]);
-  uint32_t acc = 0;
-  bloomrf::for_each_position(D, x, [&](uint32_t pos) {
-    acc = acc * 31u + pos;
-    return true;
-  });
-  if (acc == 0x9E3779B9u && x == 0x7F4A7C15u) state[0] = acc;
-}
-
-// PROBE: the memory traffic without the layout: `npos` atomic ORs a key
-// on lanes spread uniformly over `lanes` by one multiply-shift hash.
-__global__ void __launch_bounds__(bloomrf::kThreads)
-    probe_red_kernel(const int64_t* __restrict__ keys, int64_t n,
-                     uint32_t* __restrict__ state, uint32_t lanes,
-                     int npos) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (t >= n) return;
-  uint32_t h = static_cast<uint32_t>(keys[t]);
-  for (int i = 0; i < npos; ++i) {
-    h = bloomrf::mix32(h + 0x9E3779B9u);
-    const uint32_t lane = static_cast<uint32_t>(
-        (static_cast<uint64_t>(h) * lanes) >> 32);
-    atomicOr(state + lane, 1u << (h & 31u));
-  }
-}
-
-bool pack(DescParam<kDescCap>& p, const uint32_t* desc) {
+// The host descriptor into the parameter; false when it does not fit.
+bool pack(DescParam& p, const uint32_t* desc) {
   if (desc[bloomrf::H_LEN] > static_cast<uint32_t>(kDescCap)) return false;
   std::memset(&p, 0, sizeof(p));
   std::memcpy(p.w, desc, desc[bloomrf::H_LEN] * sizeof(uint32_t));
@@ -104,26 +70,9 @@ bool pack(DescParam<kDescCap>& p, const uint32_t* desc) {
 extern "C" int bloomrf_insert(const int64_t* keys, int64_t n, uint32_t* state,
                               const uint32_t* desc, void* stream) {
   if (n <= 0) return 0;
-  DescParam<kDescCap> p;
+  DescParam p;
   if (!pack(p, desc)) return static_cast<int>(cudaErrorInvalidValue);
   insert_kernel<<<bloomrf::grid_for(n), bloomrf::kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(keys, n, state, p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// PROBES for run 2: which 0 the hash-only kernel, 1 the atomics-only one
-extern "C" int bloomrf_insert_probe(int which, const int64_t* keys, int64_t n,
-                                    uint32_t* state, int64_t lanes, int npos,
-                                    const uint32_t* desc, void* stream) {
-  if (n <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DescParam<kDescCap> p;
-  if (!pack(p, desc)) return static_cast<int>(cudaErrorInvalidValue);
-  if (which == 0)
-    probe_hash_kernel<<<bloomrf::grid_for(n), bloomrf::kThreads, 0, s>>>(
-        keys, n, state, p);
-  else
-    probe_red_kernel<<<bloomrf::grid_for(n), bloomrf::kThreads, 0, s>>>(
-        keys, n, state, static_cast<uint32_t>(lanes), npos);
   return static_cast<int>(cudaGetLastError());
 }
