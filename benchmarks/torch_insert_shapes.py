@@ -87,10 +87,9 @@ def cases(device, cs) -> list:
     return out
 
 
-def shapes(device, fn, cs, built, plain_reps: int = 3) -> dict:
+def shapes(device, fn, cs, built) -> dict:
     """Every shape's row for the insert ``fn(layout, state, keys)``."""
-    return {name: cs._b1_shape(device, fn, lay, state, chunks, plain_reps,
-                               hot_too=hot)
+    return {name: cs._b1_shape(device, fn, lay, state, chunks, hot_too=hot)
             for name, lay, state, chunks, hot in built}
 
 

@@ -611,20 +611,20 @@ def _insert_sectors(f, keys) -> int:
     return int(torch.unique(f.positions(keys) >> 8).numel())
 
 
-def _cold_keys(device, n: int = COLD_CHUNKS, size: int = CHUNK, seed=SEED):
-    """``n`` chunks of ``size`` fresh uniform u32 codes (int64 carriers),
+def _cold_keys(device):
+    """COLD_CHUNKS chunks of CHUNK fresh uniform u32 codes (int64 carriers),
     made on the card from a seed."""
     import torch
 
     gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    keys = torch.randint(0, 1 << 32, (n, size), generator=gen,
+    gen.manual_seed(SEED)
+    keys = torch.randint(0, 1 << 32, (COLD_CHUNKS, CHUNK), generator=gen,
                          device=device, dtype=torch.int64)
     return list(keys.unbind(0))
 
 
 def _b1_shape(device, fn, lay, state, chunks, plain_reps: int = 3,
-              hot_too: bool = False, floor_ms=None) -> dict:
+              hot_too: bool = False) -> dict:
     """B1 alone on one traffic shape: ``fn(lay, state, keys)`` on a copy of
     ``state``; one chunk is replayed (hot: the state and the chunk's
     sectors stay in the L2), several are captured once each (cold, see
@@ -645,13 +645,11 @@ def _b1_shape(device, fn, lay, state, chunks, plain_reps: int = 3,
     sectors = sum(_insert_sectors(f, c) for c in chunks) / len(chunks)
     nbytes = n * 8 + 2 * 32 * sectors
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    if floor_ms is None:
-        floor_ms = _floor_ms(device, _grid(n), 256, 0)
+    floor_ms = _floor_ms(device, _grid(n), 256, 0)
     calls = [lambda c=c: fn(lay, st, c) for c in chunks]
     row = {"keys": n, "lanes": lay.total_u32, "chunks": len(chunks),
            "ms": _graph_ms(calls if len(calls) > 1 else calls[0]),
-           "plain_ms": _cuda_ms(lambda: f.insert(st, chunks[0]), plain_reps)
-           if plain_reps else None,
+           "plain_ms": _cuda_ms(lambda: f.insert(st, chunks[0]), plain_reps),
            "sectors": sectors, "bound_ms": bound, "bound_by": "bytes",
            "floor_ms": floor_ms, "floored_bound_ms": max(bound, floor_ms),
            "floored_bound_by": "bytes" if bound >= floor_ms else "floor",

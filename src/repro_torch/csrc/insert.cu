@@ -55,23 +55,17 @@ __global__ void __launch_bounds__(bloomrf::kThreads)
   });
 }
 
-// The host descriptor into the parameter; false when it does not fit.
-bool pack(DescParam& p, const uint32_t* desc) {
-  if (desc[bloomrf::H_LEN] > static_cast<uint32_t>(kDescCap)) return false;
-  std::memset(&p, 0, sizeof(p));
-  std::memcpy(p.w, desc, desc[bloomrf::H_LEN] * sizeof(uint32_t));
-  return true;
-}
-
 }  // namespace
 
-// desc: the layout descriptor in host memory (kernels/_build.py::
-// insert_descriptor), copied into the launch's parameters
+// desc: the insert kernel's descriptor parameter in host memory, kDescCap
+// words (kernels/_build.py::insert_descriptor), copied into the launch
 extern "C" int bloomrf_insert(const int64_t* keys, int64_t n, uint32_t* state,
                               const uint32_t* desc, void* stream) {
   if (n <= 0) return 0;
   DescParam p;
-  if (!pack(p, desc)) return static_cast<int>(cudaErrorInvalidValue);
+  std::memcpy(p.w, desc, sizeof(p.w));
+  if (p.w[bloomrf::H_LEN] > static_cast<uint32_t>(kDescCap))
+    return static_cast<int>(cudaErrorInvalidValue);
   insert_kernel<<<bloomrf::grid_for(n), bloomrf::kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(keys, n, state, p);
   return static_cast<int>(cudaGetLastError());
