@@ -14,8 +14,8 @@
 // sector its keys touch.  A probe kernel issuing as many atomic ORs a key
 // on uniformly spread lanes, with no layout, took the same time as this
 // kernel on every shape, and one computing every position but writing none
-// 25-40% of it (PERF.md, PR 16).  Keys are read once as the int64 carrier
-// (8 bytes a key), coalesced.
+// 25-40% of it (PERF.md, the insert kernel's findings).  Keys are read once
+// as the int64 carrier (8 bytes a key), coalesced.
 //
 // The design: one thread a key; every atomic's result is unused, so it
 // compiles to a fire-and-forget reduction and a thread never waits on one.
@@ -24,9 +24,10 @@
 // it into shared memory and waits at a barrier before its first key.
 // Aggregating a warp's atomics on one word (__match_any_sync +
 // __reduce_or_sync, always or gated by a ballot of equal neighbours) lost
-// on every shape, sorted store builds included, and so did four keys a
-// thread: the hardware already serves one warp's atomics on a word
-// together, and more loads in flight do not raise the atomics' rate.
+// on every shape, sorted store builds included (plain atomics on a word
+// that neighbouring keys share cost no more than on spread words), and so
+// did four keys a thread: more loads in flight do not raise the atomics'
+// rate.
 #include <cstring>
 
 #include "bloomrf.cuh"
