@@ -115,10 +115,11 @@ def _ptxas_usage() -> dict:
             raise RuntimeError(f"nvcc -Xptxas -v {name}.cu:\n{text}")
         kernel = None
         for line in text.splitlines():
-            m = re.search(r"entry function '\w*?\d([a-z][a-z_]*_kernel)",
-                          line)
-            if m:
-                kernel = m.group(1)
+            m = re.search(r"entry function '\w*?\d([a-z][a-z_]*_kernel)"
+                          r"(I\w*?E)?E", line)
+            if m:     # a template's instances apart: name<mangled args>
+                kernel = m.group(1) + (f"<{m.group(2)[1:-1]}>"
+                                       if m.group(2) else "")
                 usage[kernel] = {}
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and kernel:
@@ -194,16 +195,16 @@ def _graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (len(fns) * replays)
 
 
-def _floor_ms(device, blocks, threads: int, smem: int,
-              rows: int = 1) -> float:
+def _floor_ms(device, blocks, threads: int, smem: int, rows: int = 1,
+              param: bool = False) -> float:
     """The latency floor of a launch: an empty kernel (``csrc/floor.cu``)
-    with the grid ``(blocks, rows)``, ``threads`` per block and ``smem``
-    bytes of dynamic shared memory, timed as the kernels are
-    (:func:`_graph_ms`)."""
+    with the grid ``(blocks, rows)``, ``threads`` per block, ``smem``
+    bytes of dynamic shared memory and, with ``param``, the descriptor
+    launch parameter, timed as the kernels are (:func:`_graph_ms`)."""
     from repro_torch.kernels import _build
 
     return _graph_ms(lambda: _build.launch("bloomrf_empty", device, blocks,
-                                           rows, threads, smem))
+                                           rows, threads, smem, int(param)))
 
 
 def _grid(n: int, threads: int = 256) -> int:
@@ -645,7 +646,7 @@ def _b1_shape(device, fn, lay, state, chunks, plain_reps: int = 3,
     sectors = sum(_insert_sectors(f, c) for c in chunks) / len(chunks)
     nbytes = n * 8 + 2 * 32 * sectors
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    floor_ms = _floor_ms(device, _grid(n), 256, 0)
+    floor_ms = _floor_ms(device, _grid(n), 256, 0, param=True)
     calls = [lambda c=c: fn(lay, st, c) for c in chunks]
     row = {"keys": n, "lanes": lay.total_u32, "chunks": len(chunks),
            "ms": _graph_ms(calls if len(calls) > 1 else calls[0]),
@@ -677,12 +678,12 @@ def phase_times(device, lay, kernels):
     tq, tlo, thi = _i64(pq, device), _i64(lo, device), _i64(hi, device)
     ins, pt, rg = (kernels[k]["fn"] for k in ("insert", "point", "range"))
     state_b = lay.total_u32 * 4
-    # B1-B3 launch one thread per key or range, 256 a block; B2/B3 with the
-    # layout descriptor in shared memory, B1 with it in its parameters
-    floor = _floor_ms(device, _grid(CHUNK), 256,
-                      _build.device_descriptor(lay, device).numel() * 4)
-    floors = {"insert": _floor_ms(device, _grid(CHUNK), 256, 0),
-              "point": floor, "range": floor}
+    # B1-B3 launch one thread per key or range, 256 a block; B1/B2 with the
+    # layout descriptor in their parameters, B3 with it in shared memory
+    param = _floor_ms(device, _grid(CHUNK), 256, 0, param=True)
+    floors = {"insert": param, "point": param,
+              "range": _floor_ms(device, _grid(CHUNK), 256, _build.
+                                 device_descriptor(lay, device).numel() * 4)}
     sectors = _insert_sectors(f, batch)
     out = {}
     # bytes the function must move: inputs read once, outputs written once;
@@ -837,8 +838,13 @@ def phase_stacked_vs_plain(device, kernels, errs, big_layout):
     # probes need most sectors at this batch) the whole stack once
     stack_b = rows * lay.total_u32 * 4
     sectors = _range_read_sectors(probe, flat, tlo, thi)
-    floor = _floor_ms(device, _grid(CHUNK), 256,
-                      _build.device_descriptor(lay, device).numel() * 4, rows)
+    # B5: a thread a query, the descriptor in its parameters; B6: a thread
+    # a (query, row) cell, the descriptor in shared memory
+    floors = {"range_stacked": _floor_ms(device, _grid(CHUNK), 256, 0,
+                                         param=True),
+              "point_stacked": _floor_ms(
+                  device, _grid(CHUNK), 256,
+                  _build.device_descriptor(lay, device).numel() * 4, rows)}
     times = {}
     for name, kern, plain_fn, nbytes in (
             ("range_stacked", lambda: rstack(lay, stack, tlo, thi),
@@ -847,7 +853,7 @@ def phase_stacked_vs_plain(device, kernels, errs, big_layout):
             ("point_stacked", lambda: pstack(lay, stack, tq),
              lambda: probe._point_all(flat, tq),
              CHUNK * 8 + stack_b + CHUNK * rows)):
-        times[name] = _times(kern, plain_fn, 5, nbytes, floor)
+        times[name] = _times(kern, plain_fn, 5, nbytes, floors[name])
     return {"scan_cells_checked": cells, "stacked_rows": rows,
             "stack_lanes": rows * lay.total_u32,
             "range_sectors_read": sectors,
@@ -1188,8 +1194,8 @@ def phase_hbm(device, kernels, errs):
     from repro_torch.core import BloomRF, stacked_probe
     from repro_torch.kernels import DEFAULT_BLOCK_U32, DEFAULT_TILE, _build
     from repro_torch.core.bloomrf import lanes_u32
-    from repro_torch.kernels.probe import (_bucket_probes, _check_tiling,
-                                           _point_buckets,
+    from repro_torch.kernels.probe import (VARIANTS, _bucket_probes,
+                                           _check_tiling, _point_buckets,
                                            point_partitioned_plain)
     from repro_torch.kernels.rangeprobe import (_range_buckets,
                                                 range_partitioned_plain)
@@ -1287,13 +1293,14 @@ def phase_hbm(device, kernels, errs):
     pq, lo, hi = _queries(np.random.default_rng(SEED + 88), CHUNK, keys, top)
     tq, tlo, thi = _i64(pq, device), _i64(lo, device), _i64(hi, device)
     desc = _build.device_descriptor(lay, device)
+    pdesc = _build.param_descriptor(lay)
     pout = torch.empty(CHUNK, dtype=torch.bool, device=device)
     rout = torch.empty(CHUNK, dtype=torch.bool, device=device)
 
     def b7(q=tq):
         _build.launch("bloomrf_point_probe", device, q.data_ptr(),
-                      CHUNK, state.data_ptr(), desc.data_ptr(), desc.numel(),
-                      pout.data_ptr())
+                      CHUNK, state.data_ptr(), pdesc.ctypes.data,
+                      VARIANTS["partitioned"], pout.data_ptr())
 
     def b8(a=tlo, b=thi):
         _build.launch("bloomrf_range_partitioned", device, a.data_ptr(),
@@ -1337,7 +1344,8 @@ def phase_hbm(device, kernels, errs):
     times = {
         "point_part": _times(b7, lambda: point_partitioned_plain(lay, state,
                                                                  tq),
-                             5, pbytes, floor,
+                             5, pbytes, _floor_ms(device, _grid(CHUNK), 256,
+                                                  0, param=True),
                              call=lambda: ppart(lay, state, tq),
                              cold=[lambda c=c: b7(c[0]) for c in qcold]),
         "range_part": _times(b8, lambda: range_partitioned_plain(

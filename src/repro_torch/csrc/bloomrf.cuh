@@ -1,8 +1,8 @@
 // Device code shared by the bloomRF kernels (insert.cu, probe.cu,
 // stacked.cu, and through rangeplan.cuh partitioned.cu and store_scan.cu):
-// the layout descriptor, mix32, position and word addressing, the uint32
-// mask algebra of repro/core/bloomrf.py, and the per-key point and range
-// verdicts.
+// the layout descriptor and its launch parameter, mix32, position and word
+// addressing, the uint32 mask algebra of repro/core/bloomrf.py, and the
+// per-key point verdict of the stacked point kernel.
 //
 // All state arithmetic is uint32, as in the reference.  Where the reference
 // relies on XLA defining a shift by >= 32 as 0, the code here guards the
@@ -11,17 +11,19 @@
 #pragma once
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace bloomrf {
 
 // ---------------------------------------------------------------------------
 // Layout descriptor: a flat uint32 table built once per layout on the host
-// (kernels/_build.py::layout_descriptor) and copied into shared memory by
-// every block of the probe kernels (the insert kernel reads it from its
-// launch parameters).  Header words, then one record per layer, then the seeds,
-// then each layer's exact reciprocal of its word count (two words, low
-// first; read by rangeplan.cuh).
+// (kernels/_build.py::layout_descriptor).  The insert, point (B2/B7) and
+// stacked range (B5) kernels read it from a launch parameter (DescParam);
+// the range kernel of partitioned.cu and the stacked point kernel (B6) copy
+// it into shared memory in every block (load_desc).  Header words, then one
+// record per layer, then the seeds, then each layer's exact reciprocal of
+// its word count (two words, low first; read by rangeplan.cuh).
 // ---------------------------------------------------------------------------
 constexpr int kHdr = 8;
 constexpr int kLayerStride = 8;
@@ -43,6 +45,24 @@ struct Desc {
     return w[layer(i)[L_SEED_OFF] + rep];
   }
 };
+
+// Words of the descriptor as a launch parameter
+// (kernels/_build.py::PARAM_DESC_WORDS); every basic layout needs at most 349.
+constexpr int kParamDescWords = 512;
+
+// The descriptor as a __grid_constant__ kernel parameter: every thread reads
+// it through the constant cache, so no block stages it in shared memory and
+// waits at a barrier before its first key.
+struct DescParam {
+  uint32_t w[kParamDescWords];
+};
+
+// Copies a padded host descriptor (kernels/_build.py::param_descriptor) into
+// a launch parameter; false when the length it records exceeds the capacity.
+inline bool to_param(const uint32_t* desc, DescParam& p) {
+  std::memcpy(p.w, desc, sizeof(p.w));
+  return p.w[H_LEN] <= static_cast<uint32_t>(kParamDescWords);
+}
 
 // Copy the descriptor into shared memory.  Every thread of the block calls
 // this before any thread returns (it synchronises the block).
@@ -97,31 +117,6 @@ struct Word {
   uint32_t lo, hi;  // hi is 0 unless W == 64
 };
 
-// Layer-i word at `wordkey`, AND-combined across replicas
-// (BloomRF._load_word).  W = 64 words take two lanes; words below 32 bits
-// are extracted from their lane (W < 32, so the shifts are defined).
-__device__ __forceinline__ Word load_word(const uint32_t* __restrict__ state,
-                                          const Desc& D, int i,
-                                          uint32_t wordkey) {
-  const uint32_t* L = D.layer(i);
-  const uint32_t W = L[L_W];
-  Word w{0xFFFFFFFFu, W == 64u ? 0xFFFFFFFFu : 0u};
-  for (uint32_t rep = 0; rep < L[L_REPS]; ++rep) {
-    const uint32_t bitoff = word_bitoff(D, i, rep, wordkey);
-    const uint32_t lane = bitoff >> 5;
-    const uint32_t v = __ldg(state + lane);
-    if (W == 64u) {
-      w.lo &= v;
-      w.hi &= __ldg(state + lane + 1);
-    } else if (W == 32u) {
-      w.lo &= v;
-    } else {
-      w.lo &= (v >> (bitoff & 31u)) & ((1u << W) - 1u);
-    }
-  }
-  return w;
-}
-
 // uint32 mask with bits [a..b] set, empty when b < a (bloomrf.py::_mask_u32):
 // a width of 32 is the full mask, never a shift by 32.
 __device__ __forceinline__ uint32_t mask_u32(int a, int b) {
@@ -174,97 +169,9 @@ __device__ __forceinline__ bool cov_bit(const Desc& D, int i, uint32_t x,
   return bit != 0u;
 }
 
-// Range verdict for [L, R] (swapped bounds allowed) against the filter at
-// `state` (ProbeEngine.plan_range + combine_range of repro/core/engine.py,
-// with the clip and select order of BloomRF._range_one), in one thread's
-// registers, top layer first.  The words of a path that is already dead
-// are not loaded, the right path reuses the left path's words before the
-// split, and the thread returns as soon as the verdict is known: skipped
-// words are exactly those the reference masks out, so verdicts are
-// unchanged.  Hashed layouts only (no exact segment).  Used by stacked.cu
-// (B5); B3, B4 and B8 run the read plans of rangeplan.cuh.
-__device__ inline bool range_one(const uint32_t* __restrict__ state,
-                                 const Desc& D, uint32_t L, uint32_t R) {
-  if (L > R) {  // swapped bounds are allowed (L, R = min, max)
-    const uint32_t t = L;
-    L = R;
-    R = t;
-  }
-  const uint32_t top = D.top();
-  bool split = false, left_alive = true, right_alive = false;
-  if (top < D.d()) {
-    const uint32_t lt = shr(L, top), rt = shr(R, top);
-    // saturated top levels: a middle gap of >= 1 top-level DI is positive
-    if (rt - lt >= 2u) return true;
-    split = lt != rt;
-    right_alive = split;
-  }
-  for (int i = D.k() - 1; i >= 0; --i) {
-    const uint32_t* lay = D.layer(i);
-    const uint32_t li = lay[L_LEVEL];
-    const uint32_t delta = lay[L_DELTA];
-    const bool bottom = i == 0;
-    const uint32_t edge = bottom ? 0u : 1u;
-    const uint32_t Lp = shr(L, li), Rp = shr(R, li);
-    const uint32_t Lpar = shr(L, li + delta);
-    const uint32_t Rpar = shr(R, li + delta);
-
-    // child words: the left pair while the left path lives; the right pair
-    // while the right path lives or may split off below this layer
-    Word wLA{0u, 0u}, wLB{0u, 0u}, wRA{0u, 0u}, wRB{0u, 0u};
-    const bool need_l = left_alive;
-    const bool need_r = right_alive || (!split && left_alive && !bottom);
-    if (need_l) {
-      wLA = load_word(state, D, i, Lpar << 1);
-      wLB = load_word(state, D, i, (Lpar << 1) | 1u);
-    }
-    if (need_r && need_l && Rpar == Lpar) {
-      wRA = wLA;
-      wRB = wLB;
-    } else if (need_r) {
-      wRA = load_word(state, D, i, Rpar << 1);
-      wRB = load_word(state, D, i, (Rpar << 1) | 1u);
-    }
-
-    // left path (doubles as the single pre-split path); uint32 wraps as in
-    // the reference, and every wrapped bound is masked by its nonempty flag
-    const uint32_t l_end = (Lpar << delta) | ((1u << delta) - 1u);
-    const uint32_t l_qlo = Lp + edge;
-    const uint32_t l_qhi = split ? l_end : Rp - edge;
-    const bool l_nonempty =
-        bottom || (split ? (Lp != l_end) : (Rp - Lp >= 2u));
-    if (l_nonempty && left_alive &&
-        children_hit(delta, Lpar, l_qlo, l_qhi, wLA, wLB))
-      return true;
-
-    // right path (only live after the split)
-    const uint32_t r_start = Rpar << delta;
-    const uint32_t r_qhi = Rp - edge;
-    const bool r_nonempty = bottom || (Rp != r_start);
-    if (r_nonempty && right_alive &&
-        children_hit(delta, Rpar, r_start, r_qhi, wRA, wRB))
-      return true;
-
-    // covering continuation (early stop as mask AND)
-    if (!bottom) {
-      const bool covL = cov_bit(D, i, L, wLA, wLB);
-      const bool covR = cov_bit(D, i, R, wRA, wRB);
-      const bool new_split = split || (Lp != Rp);
-      const bool nxt_left = left_alive && covL;
-      const bool nxt_right =
-          (split ? right_alive : (left_alive && new_split)) && covR;
-      left_alive = nxt_left;
-      right_alive = nxt_right;
-      split = new_split;
-      if (!left_alive && !right_alive) return false;
-    }
-  }
-  return false;
-}
-
 // Point verdict for key x against the filter at `state`: the AND of every
-// position's bit, stopping at the first clear one.  Shared by probe.cu (B2)
-// and stacked.cu (B6).
+// position's bit, stopping at the first clear one.  Used by stacked.cu (B6);
+// probe.cu (B2, B7) issues its positions' loads in groups.
 __device__ inline bool point_one(const uint32_t* __restrict__ state,
                                  const Desc& D, uint32_t x) {
   bool all = true;

@@ -28,23 +28,14 @@
 // that neighbouring keys share cost no more than on spread words), and so
 // did four keys a thread: more loads in flight do not raise the atomics'
 // rate.
-#include <cstring>
-
 #include "bloomrf.cuh"
 
 namespace {
 
-// words of the descriptor parameter (kernels/_build.py::INSERT_DESC_WORDS)
-constexpr int kDescCap = 512;
-
-struct DescParam {
-  uint32_t w[kDescCap];
-};
-
 __global__ void __launch_bounds__(bloomrf::kThreads)
     insert_kernel(const int64_t* __restrict__ keys, int64_t n,
                   uint32_t* __restrict__ state,
-                  const __grid_constant__ DescParam p) {
+                  const __grid_constant__ bloomrf::DescParam p) {
   const bloomrf::Desc D{p.w};
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
@@ -58,14 +49,13 @@ __global__ void __launch_bounds__(bloomrf::kThreads)
 
 }  // namespace
 
-// desc: the insert kernel's descriptor parameter in host memory, kDescCap
-// words (kernels/_build.py::insert_descriptor), copied into the launch
+// desc: the descriptor parameter in host memory, kParamDescWords words
+// (kernels/_build.py::param_descriptor), copied into the launch
 extern "C" int bloomrf_insert(const int64_t* keys, int64_t n, uint32_t* state,
                               const uint32_t* desc, void* stream) {
   if (n <= 0) return 0;
-  DescParam p;
-  std::memcpy(p.w, desc, sizeof(p.w));
-  if (p.w[bloomrf::H_LEN] > static_cast<uint32_t>(kDescCap))
+  bloomrf::DescParam p;
+  if (!bloomrf::to_param(desc, p))
     return static_cast<int>(cudaErrorInvalidValue);
   insert_kernel<<<bloomrf::grid_for(n), bloomrf::kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(keys, n, state, p);

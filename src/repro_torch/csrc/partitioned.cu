@@ -27,8 +27,8 @@
 // together: rangeplan::range_layers, whose word addresses use each layer's
 // exact reciprocal of its word count.  Verdicts are those of
 // ProbeEngine.plan_range + combine_range (repro/core/engine.py) in
-// BloomRF._range_one's clip and select order, as bloomrf::range_one
-// computes them: a word is skipped only where the reference masks it out.
+// BloomRF._range_one's clip and select order: a word is skipped only where
+// the reference masks it out.
 // Hashed layouts only: the wrappers reject exact segments for ranges, as
 // the TPU kernels do.
 #include "rangeplan.cuh"

@@ -1,15 +1,17 @@
 // Range read plans of the kernels that read the filter words straight from
-// L2 or device memory: partitioned.cu (B8, whose kernel B3 launches too)
-// and store_scan.cu (B4).  Both give bloomrf::range_one's verdict
-// (ProbeEngine.plan_range + combine_range of repro/core/engine.py, in
-// BloomRF._range_one's clip and select order); they differ in which words
-// they read and when:
+// L2 or device memory: partitioned.cu (B8, whose kernel B3 launches too),
+// stacked.cu (B5) and store_scan.cu (B4); probe.cu (B2, B7) takes its word
+// addressing.  All give the verdict of ProbeEngine.plan_range +
+// combine_range (repro/core/engine.py) in BloomRF._range_one's clip and
+// select order, skipping only words the reference masks out; they differ in
+// which words they read and when:
 //
 // * range_layers (B3, B8): one thread per range, top layer first, reading
 //   per layer only the child words that a live path's hit mask or covering
 //   bit can select (layer_needs), issued together; the next layer's words
 //   wait for this layer's path flags.  Fewest sectors, which is what a
-//   batch of many ranges is bound by.
+//   batch of many ranges is bound by.  B5 runs the same plan for several
+//   filter rows at once, over word addresses computed once (stacked.cu).
 // * layer_bits + scan_layer (B4): one thread per layer of a range, each
 //   reading its layer's candidate words (left and right pair) at once and
 //   computing the layer's tests; the path flags then run over those test
@@ -105,16 +107,14 @@ __device__ __forceinline__ unsigned layer_needs(const Desc& D, int i,
   return need;
 }
 
-// Replica r's word of layer i at `wordkey` as two lanes: a W = 64 word's
-// low and high lane, or a narrower word's lane and its bit offset in that
-// lane.  A W = 64 word starts on an even lane (its segment is 64-bit
-// aligned), so one 8-byte load reads it when the state is 8-byte aligned.
-__device__ __forceinline__ void load_lanes(const uint32_t* __restrict__ state,
-                                           bool pairs, const Desc& D, int i,
-                                           uint32_t r, uint32_t wordkey,
-                                           uint32_t W, uint32_t& lo,
-                                           uint32_t& hi) {
-  const uint32_t bitoff = rangeplan::word_bitoff(D, i, r, wordkey);
+// The W-bit word at bit offset `bitoff` as two lanes: a W = 64 word's low
+// and high lane, or a narrower word's lane and its bit offset in that lane.
+// A W = 64 word starts on an even lane (its segment is 64-bit aligned), so
+// one 8-byte load reads it when the state is 8-byte aligned (`pairs`).
+__device__ __forceinline__ void lanes_at(const uint32_t* __restrict__ state,
+                                         bool pairs, uint32_t bitoff,
+                                         uint32_t W, uint32_t& lo,
+                                         uint32_t& hi) {
   const uint32_t lane = bitoff >> 5;
   if (W == 64u && pairs) {
     const uint2 p = __ldg(reinterpret_cast<const uint2*>(state + lane));
@@ -126,7 +126,18 @@ __device__ __forceinline__ void load_lanes(const uint32_t* __restrict__ state,
   }
 }
 
-// AND one replica's lanes into w (as bloomrf::load_word does for each).
+// Replica r's word of layer i at `wordkey` as two lanes (lanes_at).
+__device__ __forceinline__ void load_lanes(const uint32_t* __restrict__ state,
+                                           bool pairs, const Desc& D, int i,
+                                           uint32_t r, uint32_t wordkey,
+                                           uint32_t W, uint32_t& lo,
+                                           uint32_t& hi) {
+  lanes_at(state, pairs, rangeplan::word_bitoff(D, i, r, wordkey), W, lo, hi);
+}
+
+// AND one replica's lanes into w (BloomRF._load_word's AND over replicas;
+// a word below 32 bits is cut out of its lane, W < 32 so the shifts are
+// defined).
 __device__ __forceinline__ void and_lanes(uint32_t W, uint32_t lo,
                                           uint32_t hi, Word& w) {
   if (W == 64u) {
@@ -158,12 +169,12 @@ __device__ __forceinline__ void fold_rest(const uint32_t* __restrict__ state,
   }
 }
 
-// Path state of range_one between layers.
+// Path state of a range plan between layers.
 struct Paths {
   bool split, left_alive, right_alive;
 };
 
-// The top-level test of range_one: sets the bounds in order and the path
+// The top-level test of a range plan: sets the bounds in order and the path
 // flags; returns 1 when the range spans a whole top-level interval (a hit
 // with no word read), else -1.
 __device__ __forceinline__ int start(const Desc& D, uint32_t& L, uint32_t& R,
@@ -185,7 +196,7 @@ __device__ __forceinline__ int start(const Desc& D, uint32_t& L, uint32_t& R,
   return -1;
 }
 
-// Layer i of range_one's combine over its child words: 1 for a hit, 0 when
+// Layer i of the plan's combine over its child words: 1 for a hit, 0 when
 // both paths die, -1 to go on to layer i - 1 (path flags updated).
 __device__ __forceinline__ int combine_layer(const Desc& D, int i, uint32_t L,
                                              uint32_t R, Word wLA, Word wLB,

@@ -1,36 +1,185 @@
 // bloomRF stacked probes for Hopper: R filter rows of one layout, one launch.
 //
 // Replaces the Pallas TPU kernels
-// repro/kernels/rangeprobe.py::range_probe_stacked_resident and
-// repro/kernels/probe.py::point_probe_stacked_resident, which pin a
+// repro/kernels/rangeprobe.py::range_probe_stacked_resident (B5) and
+// repro/kernels/probe.py::point_probe_stacked_resident (B6), which pin a
 // uint32[R, total_u32] stack in VMEM and trace StackedProbe._range_all /
-// _point_all (one gather for all rows) over a tile of queries.
+// _point_all (one gather for all rows) over a tile of queries.  Row r
+// starts at lane r * row_lanes.
 //
-// Grid: (query tiles x rows); row r starts at lane r * row_lanes, and every
-// row shares the one descriptor in shared memory.  A thread answers one
-// (query, row) cell with the device functions of the single-filter kernels
-// (bloomrf::range_one of B3, bloomrf::point_one of B2, which stops at the
-// first clear bit).  Bound: scattered 4-byte reads of the stack through L2,
+// B5: the bounds are shared and the layout is one, so every row's word
+// addresses are the same; only the row base differs.  Bound: the distinct
+// sectors the verdicts need, read at random through L2, and the hashing of
+// their addresses.  The kernel reads with rangeplan's read plan (per layer
+// only the child words a live path can select, issued together) over word
+// addresses computed from the layout descriptor, a __grid_constant__ launch
+// parameter.
+//
+// B6: grid (query tiles x rows), the descriptor in shared memory; a thread
+// answers one (query, row) cell with bloomrf::point_one, which stops at the
+// first clear bit.  Bound: scattered 4-byte reads of the stack through L2,
 // the queries (int64 carriers) and the bool[B, R] output.
-#include "bloomrf.cuh"
+#include "rangeplan.cuh"
 
 namespace {
 
-__global__ void range_stacked_kernel(const int64_t* __restrict__ lo,
-                                     const int64_t* __restrict__ hi, int64_t n,
-                                     const uint32_t* __restrict__ stack,
-                                     int64_t row_lanes,
-                                     const uint32_t* __restrict__ gdesc,
-                                     int desc_len, int R,
-                                     bool* __restrict__ out) {
-  extern __shared__ uint32_t sdesc[];
-  const bloomrf::Desc D = bloomrf::load_desc(gdesc, sdesc, desc_len);
+using bloomrf::Desc;
+using bloomrf::Word;
+
+// One thread per (query, row) cell, grid (query tiles x rows): the plan of
+// partitioned.cu on the cell's row.
+__global__ void __launch_bounds__(bloomrf::kThreads)
+    range_cells_kernel(const int64_t* __restrict__ lo,
+                       const int64_t* __restrict__ hi, int64_t n,
+                       const uint32_t* __restrict__ stack, int64_t row_lanes,
+                       const __grid_constant__ bloomrf::DescParam p, int rows,
+                       bool* __restrict__ out) {
+  const Desc D{p.w};
   const int r = blockIdx.y;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= n) return;
-  out[t * R + r] = bloomrf::range_one(stack + r * row_lanes, D,
-                                      static_cast<uint32_t>(lo[t]),
-                                      static_cast<uint32_t>(hi[t]));
+  out[t * rows + r] = rangeplan::range_layers(
+      stack + r * row_lanes, D, static_cast<uint32_t>(lo[t]),
+      static_cast<uint32_t>(hi[t]));
+}
+
+// One thread per (query, row) cell, cells in output order: the R cells of
+// a query sit on adjacent lanes, which read the same bounds and write
+// adjacent bytes.
+__global__ void __launch_bounds__(bloomrf::kThreads)
+    range_adjacent_kernel(const int64_t* __restrict__ lo,
+                          const int64_t* __restrict__ hi, int64_t n,
+                          const uint32_t* __restrict__ stack,
+                          int64_t row_lanes,
+                          const __grid_constant__ bloomrf::DescParam p,
+                          int rows, bool* __restrict__ out) {
+  const Desc D{p.w};
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (c >= n * rows) return;
+  const int64_t t = c / rows;
+  const int r = static_cast<int>(c - t * rows);
+  out[c] = rangeplan::range_layers(stack + r * row_lanes, D,
+                                   static_cast<uint32_t>(lo[t]),
+                                   static_cast<uint32_t>(hi[t]));
+}
+
+// Range verdicts of one query for rows r0 .. r0 + nr - 1 (nr <= RB), RB
+// rows at once: per layer the word addresses are computed once and every
+// live row's needed words (layer_needs over its own path flags) are issued
+// together; a row stops at its verdict.  Replicas beyond kRepBuf are read
+// one at a time (rangeplan::fold_rest).
+template <int RB>
+__device__ __forceinline__ void range_rows(const uint32_t* __restrict__ stack,
+                                           int64_t row_lanes, int r0, int nr,
+                                           const Desc& D, uint32_t L,
+                                           uint32_t R,
+                                           const rangeplan::Paths& start,
+                                           bool* __restrict__ out) {
+  using rangeplan::kRepBuf;
+  rangeplan::Paths paths[RB];
+  const uint32_t* row[RB];
+  bool pairs[RB];
+  unsigned live = 0u, hit = 0u;
+#pragma unroll
+  for (int b = 0; b < RB; ++b) {
+    paths[b] = start;
+    row[b] = stack + static_cast<int64_t>(r0 + b) * row_lanes;
+    pairs[b] = (reinterpret_cast<uintptr_t>(row[b]) & 7u) == 0u;
+    if (b < nr) live |= 1u << b;
+  }
+  for (int i = D.k() - 1; i >= 0 && live; --i) {
+    const uint32_t* lay = D.layer(i);
+    const uint32_t W = lay[bloomrf::L_W];
+    const uint32_t up = lay[bloomrf::L_LEVEL] + lay[bloomrf::L_DELTA];
+    const uint32_t Lpar = bloomrf::shr(L, up), Rpar = bloomrf::shr(R, up);
+    const uint32_t key[4] = {Lpar << 1, (Lpar << 1) | 1u, Rpar << 1,
+                             (Rpar << 1) | 1u};
+    const uint32_t reps = lay[bloomrf::L_REPS];
+    unsigned need[RB], any = 0u;
+#pragma unroll
+    for (int b = 0; b < RB; ++b) {
+      need[b] = ((live >> b) & 1u)
+                    ? rangeplan::layer_needs(D, i, L, R, paths[b].split,
+                                             paths[b].left_alive,
+                                             paths[b].right_alive)
+                    : 0u;
+      any |= need[b];
+    }
+    uint32_t off[4][kRepBuf];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int r = 0; r < kRepBuf; ++r)
+        off[j][r] = (((any >> j) & 1u) && static_cast<uint32_t>(r) < reps)
+                        ? rangeplan::word_bitoff(D, i, r, key[j])
+                        : 0u;
+    }
+    uint32_t v[RB][4][kRepBuf][2];
+#pragma unroll
+    for (int b = 0; b < RB; ++b) {
+#pragma unroll
+      for (int r = 0; r < kRepBuf; ++r) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t wlo = 0xFFFFFFFFu, whi = W == 64u ? 0xFFFFFFFFu : 0u;
+          if (((need[b] >> j) & 1u) && static_cast<uint32_t>(r) < reps)
+            rangeplan::lanes_at(row[b], pairs[b], off[j][r], W, wlo, whi);
+          v[b][j][r][0] = wlo;
+          v[b][j][r][1] = whi;
+        }
+      }
+    }
+    const bool same = Lpar == Rpar;
+#pragma unroll
+    for (int b = 0; b < RB; ++b) {
+      if (!((live >> b) & 1u)) continue;
+      Word w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        w[j] = Word{0u, 0u};
+        if (!((need[b] >> j) & 1u)) continue;
+        w[j] = rangeplan::all_ones(W);
+#pragma unroll
+        for (int r = 0; r < kRepBuf; ++r)
+          rangeplan::and_lanes(W, v[b][j][r][0], v[b][j][r][1], w[j]);
+        rangeplan::fold_rest(row[b], pairs[b], D, i, key[j], kRepBuf, w[j]);
+      }
+      const int verdict =
+          rangeplan::combine_layer(D, i, L, R, w[0], w[1], same ? w[0] : w[2],
+                                   same ? w[1] : w[3], paths[b]);
+      if (verdict >= 0) {
+        live &= ~(1u << b);
+        if (verdict) hit |= 1u << b;
+      }
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < RB; ++b)
+    if (b < nr) out[b] = ((hit >> b) & 1u) != 0u;
+}
+
+// One thread per query: its top-level test once, then its rows RB at a
+// time (range_rows); the query's R verdicts are adjacent bytes.
+template <int RB>
+__global__ void __launch_bounds__(bloomrf::kThreads)
+    range_rows_kernel(const int64_t* __restrict__ lo,
+                      const int64_t* __restrict__ hi, int64_t n,
+                      const uint32_t* __restrict__ stack, int64_t row_lanes,
+                      const __grid_constant__ bloomrf::DescParam p, int rows,
+                      bool* __restrict__ out) {
+  const Desc D{p.w};
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  uint32_t L = static_cast<uint32_t>(lo[t]), R = static_cast<uint32_t>(hi[t]);
+  bool* o = out + t * rows;
+  rangeplan::Paths start;
+  if (rangeplan::start(D, L, R, start) >= 0) {
+    for (int r = 0; r < rows; ++r) o[r] = true;
+    return;
+  }
+  for (int r0 = 0; r0 < rows; r0 += RB)
+    range_rows<RB>(stack, row_lanes, r0, min(RB, rows - r0), D, L, R, start,
+                   o + r0);
 }
 
 __global__ void point_stacked_kernel(const int64_t* __restrict__ keys,
@@ -55,16 +204,41 @@ dim3 stacked_grid(int64_t n, int R) {
 
 }  // namespace
 
+// desc: the descriptor parameter in host memory, kParamDescWords words
+// (kernels/_build.py::param_descriptor), copied into the launch.
+// variant: 0 a cell a thread on a (tiles x rows) grid, 1 a cell a thread in
+// output order, 2 / 3 a query a thread, 4 / 2 rows at once.
 extern "C" int bloomrf_range_stacked(const int64_t* lo, const int64_t* hi,
                                      int64_t n, const uint32_t* stack,
                                      int64_t row_lanes, int R,
-                                     const uint32_t* desc, int desc_len,
+                                     const uint32_t* desc, int variant,
                                      bool* out, void* stream) {
   if (n <= 0 || R <= 0) return 0;
-  range_stacked_kernel<<<stacked_grid(n, R), bloomrf::kThreads,
-                         desc_len * sizeof(uint32_t),
-                         static_cast<cudaStream_t>(stream)>>>(
-      lo, hi, n, stack, row_lanes, desc, desc_len, R, out);
+  bloomrf::DescParam p;
+  if (!bloomrf::to_param(desc, p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned tb = bloomrf::kThreads;
+  switch (variant) {
+    case 0:
+      range_cells_kernel<<<stacked_grid(n, R), tb, 0, s>>>(
+          lo, hi, n, stack, row_lanes, p, R, out);
+      break;
+    case 1:
+      range_adjacent_kernel<<<bloomrf::grid_for(n * R), tb, 0, s>>>(
+          lo, hi, n, stack, row_lanes, p, R, out);
+      break;
+    case 2:
+      range_rows_kernel<4><<<bloomrf::grid_for(n), tb, 0, s>>>(
+          lo, hi, n, stack, row_lanes, p, R, out);
+      break;
+    case 3:
+      range_rows_kernel<2><<<bloomrf::grid_for(n), tb, 0, s>>>(
+          lo, hi, n, stack, row_lanes, p, R, out);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

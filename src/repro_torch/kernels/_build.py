@@ -10,11 +10,11 @@ sources and flags, so an edited source is rebuilt and never mistaken for
 a stale build.
 
 Also here: the per-layout descriptor table the kernels read
-(``csrc/bloomrf.cuh``), cached per layout and device (or, for the insert
-kernel, per layout in host memory, padded to the kernel parameter's
-fixed capacity), and the stack
-descriptor of a row stack (the store-scan kernel), cached per row stack and
-device.
+(``csrc/bloomrf.cuh``), cached per layout and device, or, for the kernels
+that take it as a launch parameter (insert, point probe, stacked range),
+per layout in host memory, padded to the parameter's fixed capacity; and
+the stack descriptor of a row stack (the store-scan kernel), cached per
+row stack and device.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ import torch
 from ..core.layout import FilterLayout
 
 __all__ = ["build_all", "launch", "layout_descriptor", "device_descriptor",
-           "insert_descriptor", "stack_descriptor"]
+           "param_descriptor", "stack_descriptor"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -55,7 +55,7 @@ _ENTRY = {
                                           _P)),
     "bloomrf_range_partitioned": ("partitioned", (_P, _P, _I64, _P, _P, _I,
                                                   _P, _P)),
-    "bloomrf_empty": ("floor", (_I, _I, _I, _I, _P)),
+    "bloomrf_empty": ("floor", (_I, _I, _I, _I, _I, _P)),
 }
 SOURCES = tuple(dict.fromkeys(src for src, _ in _ENTRY.values()))
 
@@ -192,23 +192,23 @@ def device_descriptor(layout: FilterLayout, device: torch.device) -> torch.Tenso
     return torch.from_numpy(layout_descriptor(layout).view(np.int32)).to(device)
 
 
-#: capacity in words of the insert kernel's descriptor parameter
-#: (``csrc/insert.cu``: ``kDescCap``); every basic layout needs at most 349
-INSERT_DESC_WORDS = 512
+#: capacity in words of the descriptor launch parameter
+#: (``csrc/bloomrf.cuh``: ``kParamDescWords``); every basic layout needs at
+#: most 349
+PARAM_DESC_WORDS = 512
 
 
 @functools.lru_cache(maxsize=None)
-def insert_descriptor(layout: FilterLayout) -> np.ndarray:
-    """The layout descriptor as the insert kernel's parameter: uint32 host
-    words zero-padded to :data:`INSERT_DESC_WORDS`, built once per layout
-    (the launch copies them into its parameters, so nothing is staged on
+def param_descriptor(layout: FilterLayout) -> np.ndarray:
+    """The layout descriptor as a kernel's launch parameter: uint32 host
+    words zero-padded to :data:`PARAM_DESC_WORDS`, built once per layout
+    (each launch copies them into its parameters, so nothing is staged on
     the device).  Raises for a descriptor longer than the capacity."""
     desc = layout_descriptor(layout)
-    if len(desc) > INSERT_DESC_WORDS:
+    if len(desc) > PARAM_DESC_WORDS:
         raise ValueError(f"layout descriptor of {len(desc)} words exceeds "
-                         f"the insert kernel's {INSERT_DESC_WORDS}-word "
-                         f"parameter")
-    out = np.zeros(INSERT_DESC_WORDS, np.uint32)
+                         f"the {PARAM_DESC_WORDS}-word descriptor parameter")
+    out = np.zeros(PARAM_DESC_WORDS, np.uint32)
     out[:len(desc)] = desc
     out.flags.writeable = False
     return out

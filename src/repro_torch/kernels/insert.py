@@ -30,7 +30,7 @@ def insert_resident(layout: FilterLayout, state: torch.Tensor,
         plain = filter_for_layout(layout, state.device)
         return state.copy_(plain.insert(state, keys))
     if keys.numel():
-        desc = _build.insert_descriptor(layout)
+        desc = _build.param_descriptor(layout)
         _build.launch("bloomrf_insert", state.device, keys.data_ptr(),
                       keys.numel(), state.data_ptr(), desc.ctypes.data)
         insert_resident.launches += 1

@@ -89,6 +89,10 @@ def range_probe_resident(layout: FilterLayout, state: torch.Tensor,
 range_probe_resident.launches = 0
 
 
+#: kernel variant the stacked wrapper launches (``csrc/stacked.cu``'s entry)
+VARIANTS = {"stacked": 2}
+
+
 def range_probe_stacked_resident(layout: FilterLayout, stack: torch.Tensor,
                                  lo: torch.Tensor,
                                  hi: torch.Tensor) -> torch.Tensor:
@@ -105,10 +109,10 @@ def range_probe_stacked_resident(layout: FilterLayout, stack: torch.Tensor,
         return probe.range_all(stack.reshape(-1), lo, hi)
     out = torch.empty((lo.shape[0], R), dtype=torch.bool, device=stack.device)
     if lo.numel():
-        desc = _build.device_descriptor(layout, stack.device)
+        desc = _build.param_descriptor(layout)
         _build.launch("bloomrf_range_stacked", stack.device, lo.data_ptr(),
                       hi.data_ptr(), lo.numel(), stack.data_ptr(), u, R,
-                      desc.data_ptr(), desc.numel(), out.data_ptr())
+                      desc.ctypes.data, VARIANTS["stacked"], out.data_ptr())
         range_probe_stacked_resident.launches += 1
     return out
 

@@ -1,8 +1,9 @@
-"""The host side of the range and store-scan kernels' descriptors
+"""The host side of the kernels' descriptors
 (``repro_torch/kernels/_build.py``): each layer's exact reciprocal of its
 word count, emulated in numpy exactly as ``csrc/rangeplan.cuh::fast_mod``
-computes it on the card, against ``h % n``; and the stack descriptor's row
-table.  No card, no nvcc, no JAX."""
+computes it on the card, against ``h % n``; the stack descriptor's row
+table; and the descriptor launch parameter and its capacity.  No card, no
+nvcc, no JAX."""
 import numpy as np
 import pytest
 import torch
@@ -95,17 +96,18 @@ def test_stack_descriptor_row_table():
 
 @pytest.mark.parametrize("name", list(_LAYOUTS))
 def test_insert_descriptor_is_the_layout_descriptor_padded(name):
-    """The insert kernel's descriptor parameter: the layout descriptor word
-    for word, zero-padded to the parameter's fixed capacity."""
+    """The descriptor launch parameter (insert, point probe and stacked
+    range kernels): the layout descriptor word for word, zero-padded to the
+    parameter's fixed capacity."""
     lay = _LAYOUTS[name]
     desc = _build.layout_descriptor(lay)
-    param = _build.insert_descriptor(lay)
+    param = _build.param_descriptor(lay)
     assert param.dtype == np.uint32
-    assert param.shape == (_build.INSERT_DESC_WORDS,)
+    assert param.shape == (_build.PARAM_DESC_WORDS,)
     np.testing.assert_array_equal(param[:len(desc)], desc)
     assert not param[len(desc):].any()
     assert param[5] == len(desc)                    # H_LEN, the kernel checks
-    assert _build.insert_descriptor(lay) is param   # packed once per layout
+    assert _build.param_descriptor(lay) is param    # packed once per layout
 
 
 def test_insert_descriptor_refuses_what_exceeds_its_capacity():
@@ -113,9 +115,19 @@ def test_insert_descriptor_refuses_what_exceeds_its_capacity():
     (d = 32, Δ = 1) needs 349."""
     wide = FilterLayout(d=32, deltas=(1,) * 31, replicas=(8,) * 31,
                         seg_of_layer=(0,) * 31, seg_bits=(1 << 16,))
-    assert len(_build.layout_descriptor(wide)) > _build.INSERT_DESC_WORDS
-    with pytest.raises(ValueError, match="insert kernel"):
-        _build.insert_descriptor(wide)
+    assert len(_build.layout_descriptor(wide)) > _build.PARAM_DESC_WORDS
+    with pytest.raises(ValueError, match="descriptor parameter"):
+        _build.param_descriptor(wide)
     widest_basic = basic_layout(32, 3000, 16.0, delta=1)
-    assert len(_build.insert_descriptor(widest_basic)) == \
-        _build.INSERT_DESC_WORDS
+    assert len(_build.param_descriptor(widest_basic)) == \
+        _build.PARAM_DESC_WORDS
+
+
+def test_param_capacity_matches_the_kernels():
+    """The host packer pads to the capacity the CUDA parameter struct holds
+    (``csrc/bloomrf.cuh``: ``kParamDescWords``), read from the source."""
+    import re
+
+    src = (_build.CSRC / "bloomrf.cuh").read_text()
+    m = re.search(r"constexpr int kParamDescWords = (\d+);", src)
+    assert m and int(m.group(1)) == _build.PARAM_DESC_WORDS

@@ -44,6 +44,13 @@ _LAYOUTS = {
     "multiseg": lambda: FilterLayout(
         d=32, deltas=(6, 5, 4), replicas=(2, 1, 2), seg_of_layer=(0, 1, 0),
         seg_bits=(8192, 4096)),
+    # more replicas than a range word issues at once (rangeplan::kRepBuf)
+    "w64_replicas3": lambda: FilterLayout(
+        d=32, deltas=(7, 7), replicas=(3, 1), seg_of_layer=(0, 0),
+        seg_bits=(16384,)),
+    "w8_replicas5": lambda: FilterLayout(
+        d=32, deltas=(4, 4, 4), replicas=(5, 1, 3), seg_of_layer=(0, 0, 0),
+        seg_bits=(16384,)),
 }
 
 _EXACT = FilterLayout(d=32, deltas=(7, 7, 4, 2), replicas=(1, 1, 1, 2),
@@ -78,6 +85,10 @@ def test_kernels_match_plain_versions(cuda, name):
     qs = torch.cat([keys[:1000], lo])
     torch.testing.assert_close(point_probe_resident(lay, state, qs),
                                f.engine.point_batched(state, qs))
+    odd = qs[:1001]                                   # a partial warp
+    torch.testing.assert_close(point_probe_resident(lay, state, odd),
+                               f.engine.point_batched(state, odd))
+    assert point_probe_resident(lay, state, keys[:999]).all()
     torch.testing.assert_close(range_probe_resident(lay, state, lo, hi),
                                f.engine.range_batched(state, lo, hi))
     torch.testing.assert_close(range_probe_resident(lay, state, hi, lo),
@@ -125,7 +136,8 @@ def test_facade_auto_routes_through_kernels(cuda):
 
 @pytest.mark.parametrize("block_u32", [256, 2048, 16384])
 @pytest.mark.parametrize("name", ["d16_delta4", "d32_delta1", "d32_delta7",
-                                  "top_eq_d", "w64_replicas", "multiseg"])
+                                  "top_eq_d", "w64_replicas", "multiseg",
+                                  "w8_replicas5"])
 def test_partitioned_kernels_match_plain_versions(cuda, name, block_u32):
     lay = _LAYOUTS[name]()
     f = BloomRF(lay, device=cuda)
@@ -154,12 +166,8 @@ def test_partitioned_kernels_match_plain_versions(cuda, name, block_u32):
 
 
 _PART_EDGE_LAYOUTS = {
-    "w64_replicas3": lambda: FilterLayout(
-        d=32, deltas=(7, 7), replicas=(3, 1), seg_of_layer=(0, 0),
-        seg_bits=(16384,)),
-    "w8_replicas5": lambda: FilterLayout(
-        d=32, deltas=(4, 4, 4), replicas=(5, 1, 3), seg_of_layer=(0, 0, 0),
-        seg_bits=(16384,)),
+    "w64_replicas3": _LAYOUTS["w64_replicas3"],
+    "w8_replicas5": _LAYOUTS["w8_replicas5"],
     "top_eq_d": _LAYOUTS["top_eq_d"],
     "d32_delta1": _LAYOUTS["d32_delta1"],
 }
@@ -282,16 +290,29 @@ def _rows(layouts, device, rng, n=800):
     return states, kmin, kmax
 
 
+@pytest.mark.parametrize("rows", [1, 3, 4, 8])
 @pytest.mark.parametrize("name", ["d32_delta4", "d32_delta7", "w64_replicas",
-                                  "multiseg", "top_eq_d"])
-def test_stacked_kernels_match_plain_versions(cuda, name):
+                                  "multiseg", "top_eq_d", "w64_replicas3",
+                                  "w8_replicas5"])
+def test_stacked_kernels_match_plain_versions(cuda, name, rows):
+    """B5/B6 against StackedProbe over 1, 3, 4 and 8 rows: W = 64, several
+    segments, replicas above what a range word issues at once, top level =
+    d; the edge bounds (the whole domain, lo = hi, swapped, a split at
+    2^31) and a batch that is no multiple of 32."""
     lay = _LAYOUTS[name]()
     rng = np.random.default_rng(5)
-    states, _, _ = _rows([lay] * 3, cuda, rng)
+    states, _, _ = _rows([lay] * rows, cuda, rng)
     stack = torch.stack(states)
     keys, lo, hi = _inputs(lay, cuda)
-    plain = stacked_probe((lay,) * 3, tuple(r * lay.total_u32
-                                            for r in range(3)), cuda)
+    top = (1 << lay.d) - 1
+    edges = torch.tensor([[top, 0], [5, 5], [1 << (lay.d - 1),
+                                              (1 << (lay.d - 1)) - 1]],
+                         dtype=torch.int64, device=cuda)
+    lo = torch.cat([edges[:, 0], keys[:40], lo])[:-11]
+    hi = torch.cat([edges[:, 1], keys[:40], hi])[:-11]
+    assert lo.numel() % 32
+    plain = stacked_probe((lay,) * rows, tuple(r * lay.total_u32
+                                               for r in range(rows)), cuda)
     flat = stack.reshape(-1)
     n0 = (range_probe_stacked_resident.launches,
           point_probe_stacked_resident.launches)
@@ -299,11 +320,13 @@ def test_stacked_kernels_match_plain_versions(cuda, name):
                                plain.range_all(flat, lo, hi))
     torch.testing.assert_close(range_probe_stacked_resident(lay, stack, hi, lo),
                                plain.range_all(flat, lo, hi))
+    assert range_probe_stacked_resident(lay, stack, keys[:40],
+                                        keys[:40]).all()
     qs = torch.cat([keys[:1000], lo])
     torch.testing.assert_close(point_probe_stacked_resident(lay, stack, qs),
                                plain.point_all(flat, qs))
     assert (range_probe_stacked_resident.launches - n0[0],
-            point_probe_stacked_resident.launches - n0[1]) == (2, 1)
+            point_probe_stacked_resident.launches - n0[1]) == (3, 1)
     ops = FilterOps(lay)                   # the dispatcher takes the kernels
     torch.testing.assert_close(ops.range_stacked(stack, lo, hi),
                                plain.range_all(flat, lo, hi))
@@ -529,3 +552,52 @@ def test_store_builds_launch_the_insert_kernel(cuda):
         f = BloomRF(run.layout, device=cuda)
         want = f.build(torch.from_numpy(run.keys.astype(np.int64)).to(cuda))
         torch.testing.assert_close(run.state, want, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the descriptor launch parameter (B1, B2/B7, B5)
+# ---------------------------------------------------------------------------
+
+def _wide_layout(replicas: int):
+    """31 layers of Δ = 1: the descriptor takes 8 + 10 * 31 + ``replicas``
+    words (the seeds of every replica)."""
+    per = [replicas // 31 + (i < replicas % 31) for i in range(31)]
+    return FilterLayout(d=32, deltas=(1,) * 31, replicas=tuple(per),
+                        seg_of_layer=(0,) * 31, seg_bits=(1 << 16,))
+
+
+@pytest.mark.parametrize("kernel", ["insert", "point", "point_part",
+                                    "range_stacked"])
+def test_descriptor_parameter_at_and_above_its_capacity(cuda, kernel):
+    """A layout whose descriptor fills the parameter to its last word runs
+    and equals the plain version; one word more raises before any launch
+    (no kernel falls back to shared memory or to the plain version)."""
+    from repro_torch.kernels import _build
+
+    full, over = _wide_layout(194), _wide_layout(195)
+    assert len(_build.layout_descriptor(full)) == _build.PARAM_DESC_WORDS
+    assert len(_build.layout_descriptor(over)) == _build.PARAM_DESC_WORDS + 1
+    keys, lo, hi = _inputs(full, cuda, n=2000, q=3001)
+    f = BloomRF(full, device=cuda)
+    plain = f.insert(f.init_state(), keys)
+    qs = torch.cat([keys[:500], lo])
+    stack = torch.stack([plain, f.insert(f.init_state(), lo)])
+    probe = stacked_probe((full,) * 2, (0, full.total_u32), cuda)
+    run = {
+        "insert": (lambda lay, st: insert_resident(lay, st.clone(), keys),
+                   plain),
+        "point": (lambda lay, st: point_probe_resident(lay, st, qs),
+                  f.engine.point_batched(plain, qs)),
+        "point_part": (lambda lay, st: point_probe_partitioned(lay, st, qs),
+                       f.engine.point_batched(plain, qs)),
+        "range_stacked": (
+            lambda lay, st: range_probe_stacked_resident(
+                lay, torch.stack([st, stack[1]]), lo, hi),
+            probe.range_all(stack.reshape(-1), lo, hi)),
+    }
+    fn, want = run[kernel]
+    torch.testing.assert_close(fn(full, plain), want, rtol=0, atol=0)
+    state = BloomRF(over, device=cuda).init_state()
+    with pytest.raises(ValueError, match="descriptor parameter"):
+        fn(over, state)
+    torch.cuda.synchronize()
