@@ -200,7 +200,7 @@ def main() -> int:
     variants = {}
     for mod, key, values in ((probe, "resident", (1, 2, 0)),
                              (probe, "partitioned", (1, 0)),
-                             (rangeprobe, "stacked", (0, 1, 3, 2))):
+                             (rangeprobe, "stacked", (0, 1, 3, 4, 2))):
         if not hasattr(mod, "VARIANTS"):
             continue
         for v in values:

@@ -133,21 +133,34 @@ __device__ __forceinline__ Word mask_pair(int a, int b, uint32_t W) {
   return Word{mask_u32(a, min(b, 31)), mask_u32(a - 32, b - 32)};
 }
 
-// Any child prefix of `parent` in [qlo, qhi] set in child words wa/wb
-// (BloomRF._children_any without its nonempty flag).
-__device__ __forceinline__ bool children_hit(uint32_t delta, uint32_t parent,
-                                             uint32_t qlo, uint32_t qhi,
-                                             Word wa, Word wb) {
+// The masks over child words A (children 0..W-1) and B (W..2W-1) that
+// select the child prefixes of `parent` in [qlo, qhi] (BloomRF._children_any
+// without its nonempty flag); each is empty where the range misses its word.
+__device__ __forceinline__ void child_masks(uint32_t delta, uint32_t parent,
+                                            uint32_t qlo, uint32_t qhi,
+                                            Word& mA, Word& mB) {
   const int W = 1 << (delta - 1u);
   const uint32_t base = parent << delta;
   const uint32_t last = base | ((1u << delta) - 1u);
   const int o_lo = static_cast<int>(min(max(qlo, base), last) - base);
   const int o_hi = static_cast<int>(min(max(qhi, base), last) - base);
-  const Word mA = mask_pair(o_lo, min(o_hi, W - 1), W);
-  uint32_t acc = (wa.lo & mA.lo) | (wa.hi & mA.hi);
-  const Word mB = mask_pair(max(o_lo - W, 0), o_hi - W, W);
-  acc |= (wb.lo & mB.lo) | (wb.hi & mB.hi);
-  return acc != 0u;
+  mA = mask_pair(o_lo, min(o_hi, W - 1), W);
+  mB = mask_pair(max(o_lo - W, 0), o_hi - W, W);
+}
+
+// Any bit of mask m set in word w.
+__device__ __forceinline__ bool any_bit(Word w, Word m) {
+  return ((w.lo & m.lo) | (w.hi & m.hi)) != 0u;
+}
+
+// Any child prefix of `parent` in [qlo, qhi] set in child words wa/wb.
+__device__ __forceinline__ bool children_hit(uint32_t delta, uint32_t parent,
+                                             uint32_t qlo, uint32_t qhi,
+                                             Word wa, Word wb) {
+  Word mA, mB;
+  child_masks(delta, parent, qlo, qhi, mA, mB);
+  return ((wa.lo & mA.lo) | (wa.hi & mA.hi) | (wb.lo & mB.lo) |
+          (wb.hi & mB.hi)) != 0u;
 }
 
 // Covering bit of x at layer i, served from the child words of x's parent

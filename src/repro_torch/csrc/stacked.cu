@@ -63,123 +63,182 @@ __global__ void __launch_bounds__(bloomrf::kThreads)
                                    static_cast<uint32_t>(hi[t]));
 }
 
-// Range verdicts of one query for rows r0 .. r0 + nr - 1 (nr <= RB), RB
-// rows at once: per layer the word addresses are computed once and every
-// live row's needed words (layer_needs over its own path flags) are issued
-// together; a row stops at its verdict.  Replicas beyond kRepBuf are read
-// one at a time (rangeplan::fold_rest).
-template <int RB>
-__device__ __forceinline__ void range_rows(const uint32_t* __restrict__ stack,
-                                           int64_t row_lanes, int r0, int nr,
-                                           const Desc& D, uint32_t L,
-                                           uint32_t R,
-                                           const rangeplan::Paths& start,
-                                           bool* __restrict__ out) {
-  using rangeplan::kRepBuf;
-  rangeplan::Paths paths[RB];
-  const uint32_t* row[RB];
-  bool pairs[RB];
-  unsigned live = 0u, hit = 0u;
-#pragma unroll
-  for (int b = 0; b < RB; ++b) {
-    paths[b] = start;
-    row[b] = stack + static_cast<int64_t>(r0 + b) * row_lanes;
-    pairs[b] = (reinterpret_cast<uintptr_t>(row[b]) & 7u) == 0u;
-    if (b < nr) live |= 1u << b;
-  }
-  for (int i = D.k() - 1; i >= 0 && live; --i) {
-    const uint32_t* lay = D.layer(i);
-    const uint32_t W = lay[bloomrf::L_W];
-    const uint32_t up = lay[bloomrf::L_LEVEL] + lay[bloomrf::L_DELTA];
-    const uint32_t Lpar = bloomrf::shr(L, up), Rpar = bloomrf::shr(R, up);
-    const uint32_t key[4] = {Lpar << 1, (Lpar << 1) | 1u, Rpar << 1,
-                             (Rpar << 1) | 1u};
-    const uint32_t reps = lay[bloomrf::L_REPS];
-    unsigned need[RB], any = 0u;
-#pragma unroll
-    for (int b = 0; b < RB; ++b) {
-      need[b] = ((live >> b) & 1u)
-                    ? rangeplan::layer_needs(D, i, L, R, paths[b].split,
-                                             paths[b].left_alive,
-                                             paths[b].right_alive)
-                    : 0u;
-      any |= need[b];
-    }
-    uint32_t off[4][kRepBuf];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int r = 0; r < kRepBuf; ++r)
-        off[j][r] = (((any >> j) & 1u) && static_cast<uint32_t>(r) < reps)
-                        ? rangeplan::word_bitoff(D, i, r, key[j])
-                        : 0u;
-    }
-    uint32_t v[RB][4][kRepBuf][2];
-#pragma unroll
-    for (int b = 0; b < RB; ++b) {
-#pragma unroll
-      for (int r = 0; r < kRepBuf; ++r) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          uint32_t wlo = 0xFFFFFFFFu, whi = W == 64u ? 0xFFFFFFFFu : 0u;
-          if (((need[b] >> j) & 1u) && static_cast<uint32_t>(r) < reps)
-            rangeplan::lanes_at(row[b], pairs[b], off[j][r], W, wlo, whi);
-          v[b][j][r][0] = wlo;
-          v[b][j][r][1] = whi;
-        }
-      }
-    }
-    const bool same = Lpar == Rpar;
-#pragma unroll
-    for (int b = 0; b < RB; ++b) {
-      if (!((live >> b) & 1u)) continue;
-      Word w[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        w[j] = Word{0u, 0u};
-        if (!((need[b] >> j) & 1u)) continue;
-        w[j] = rangeplan::all_ones(W);
-#pragma unroll
-        for (int r = 0; r < kRepBuf; ++r)
-          rangeplan::and_lanes(W, v[b][j][r][0], v[b][j][r][1], w[j]);
-        rangeplan::fold_rest(row[b], pairs[b], D, i, key[j], kRepBuf, w[j]);
-      }
-      const int verdict =
-          rangeplan::combine_layer(D, i, L, R, w[0], w[1], same ? w[0] : w[2],
-                                   same ? w[1] : w[3], paths[b]);
-      if (verdict >= 0) {
-        live &= ~(1u << b);
-        if (verdict) hit |= 1u << b;
-      }
-    }
-  }
-#pragma unroll
-  for (int b = 0; b < RB; ++b)
-    if (b < nr) out[b] = ((hit >> b) & 1u) != 0u;
+// One layer of a query's range plan, the part every row shares: which
+// child words each path can read (as bits over the slots LA, LB, RA, RB,
+// layer_needs's), the masks its hit test and covering bits apply to them
+// (combine_layer's), and the slots' word addresses (replica 0).  Only the
+// path flags (left and right alive) and the words differ between rows.
+struct LayerPlan {
+  uint32_t W;
+  bool bottom, same, l_ne, r_ne, lp_ne_rp;
+  unsigned need_l, need_r, need_cov;   // slot bits
+  bool b_l, b_r;                       // covering bits in word B, not A
+  Word m_la, m_lb, m_ra, m_rb;         // hit masks
+  Word cm_l, cm_r;                     // covering-bit masks
+  uint32_t key[4], off[4];
+};
+
+__device__ __forceinline__ Word bit_of(uint32_t off) {
+  return off < 32u ? Word{1u << off, 0u} : Word{0u, 1u << (off - 32u)};
 }
 
-// One thread per query: its top-level test once, then its rows RB at a
+__device__ __forceinline__ LayerPlan plan_layer(const Desc& D, int i,
+                                                uint32_t L, uint32_t R,
+                                                bool split) {
+  const uint32_t* lay = D.layer(i);
+  const uint32_t li = lay[bloomrf::L_LEVEL];
+  const uint32_t delta = lay[bloomrf::L_DELTA];
+  LayerPlan q;
+  q.W = lay[bloomrf::L_W];
+  q.bottom = i == 0;
+  const uint32_t edge = q.bottom ? 0u : 1u;
+  const uint32_t Lp = bloomrf::shr(L, li), Rp = bloomrf::shr(R, li);
+  const uint32_t Lpar = bloomrf::shr(L, li + delta);
+  const uint32_t Rpar = bloomrf::shr(R, li + delta);
+  q.same = Lpar == Rpar;
+  q.lp_ne_rp = Lp != Rp;
+  const uint32_t l_end = (Lpar << delta) | ((1u << delta) - 1u);
+  const uint32_t l_qhi = split ? l_end : Rp - edge;
+  q.l_ne = q.bottom || (split ? (Lp != l_end) : (Rp - Lp >= 2u));
+  const uint32_t r_start = Rpar << delta;
+  q.r_ne = q.bottom || (Rp != r_start);
+  bloomrf::child_masks(delta, Lpar, Lp + edge, l_qhi, q.m_la, q.m_lb);
+  bloomrf::child_masks(delta, Rpar, r_start, Rp - edge, q.m_ra, q.m_rb);
+  const uint32_t cov = li + delta - 1u;
+  q.b_l = ((L >> cov) & 1u) != 0u;
+  q.b_r = ((R >> cov) & 1u) != 0u;
+  q.need_l =
+      (q.l_ne ? rangeplan::pair_halves(delta, Lpar, Lp + edge, l_qhi) : 0u) |
+      (q.bottom ? 0u : (q.b_l ? 2u : 1u));
+  q.need_r = q.r_ne ? rangeplan::pair_halves(delta, Rpar, r_start,
+                                             Rp - edge) << 2
+                    : 0u;
+  q.need_cov = q.bottom ? 0u : (q.b_r ? 8u : 4u);
+  q.cm_l = bit_of((L >> li) & (q.W - 1u));
+  q.cm_r = bit_of((R >> li) & (q.W - 1u));
+  q.key[0] = Lpar << 1;
+  q.key[1] = (Lpar << 1) | 1u;
+  q.key[2] = Rpar << 1;
+  q.key[3] = (Rpar << 1) | 1u;
+  unsigned any = q.need_l | q.need_r | q.need_cov;
+  if (q.same) any = (any | (any >> 2)) & 3u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    q.off[j] = ((any >> j) & 1u) ? rangeplan::word_bitoff(D, i, 0u, q.key[j])
+                                 : 0u;
+  return q;
+}
+
+// A row's slots at this layer from its path flags (layer_needs).
+__device__ __forceinline__ unsigned row_need(const LayerPlan& q, bool split,
+                                             bool left, bool right) {
+  unsigned need = (left ? q.need_l : 0u) | (right ? q.need_r : 0u) |
+                  ((split ? right : (left && q.lp_ne_rp)) ? q.need_cov : 0u);
+  return q.same ? (need | (need >> 2)) & 3u : need;
+}
+
+// Range verdicts of one query for its rows, a thread per query.  Per layer
+// the shared part (plan_layer) is computed once; then RB rows at a time
+// issue their replica-0 loads together, fold further replicas one load
+// each, and test their hits and covering bits against the shared masks.
+// The path flags of up to 32 rows are bit masks; a row leaves at its
+// verdict, the query when every row has one.
+template <int RB>
+__device__ __forceinline__ unsigned range_rows(
+    const uint32_t* __restrict__ stack, int64_t row_lanes, int nrows,
+    const Desc& D, uint32_t L, uint32_t R, const rangeplan::Paths& start) {
+  const unsigned all = nrows == 32 ? ~0u : (1u << nrows) - 1u;
+  unsigned left = all, right = start.right_alive ? all : 0u, hit = 0u;
+  bool split = start.split;
+  for (int i = D.k() - 1; i >= 0 && (left | right); --i) {
+    const LayerPlan q = plan_layer(D, i, L, R, split);
+    unsigned cov_l = 0u, cov_r = 0u;
+    for (int r0 = 0; r0 < nrows; r0 += RB) {
+      unsigned need[RB];
+      uint32_t v[RB][4][2];
+#pragma unroll
+      for (int b = 0; b < RB; ++b) {
+        const unsigned bit = 1u << (r0 + b);
+        need[b] = (r0 + b < nrows)
+                      ? row_need(q, split, left & bit, right & bit)
+                      : 0u;
+        const uint32_t* row = stack + (r0 + b) * row_lanes;
+        const bool pairs = (reinterpret_cast<uintptr_t>(row) & 7u) == 0u;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          v[b][j][0] = 0xFFFFFFFFu;
+          v[b][j][1] = q.W == 64u ? 0xFFFFFFFFu : 0u;
+          if ((need[b] >> j) & 1u)
+            rangeplan::lanes_at(row, pairs, q.off[j], q.W, v[b][j][0],
+                                v[b][j][1]);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < RB; ++b) {
+        if (!need[b]) continue;
+        const unsigned bit = 1u << (r0 + b);
+        const uint32_t* row = stack + (r0 + b) * row_lanes;
+        const bool pairs = (reinterpret_cast<uintptr_t>(row) & 7u) == 0u;
+        Word w[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          w[j] = Word{0u, 0u};
+          if (!((need[b] >> j) & 1u)) continue;
+          w[j] = rangeplan::all_ones(q.W);
+          rangeplan::and_lanes(q.W, v[b][j][0], v[b][j][1], w[j]);
+          rangeplan::fold_rest(row, pairs, D, i, q.key[j], 1u, w[j]);
+        }
+        const Word ra = q.same ? w[0] : w[2], rb = q.same ? w[1] : w[3];
+        const bool h =
+            ((left & bit) && q.l_ne &&
+             (bloomrf::any_bit(w[0], q.m_la) ||
+              bloomrf::any_bit(w[1], q.m_lb))) ||
+            ((right & bit) && q.r_ne &&
+             (bloomrf::any_bit(ra, q.m_ra) || bloomrf::any_bit(rb, q.m_rb)));
+        if (h) hit |= bit;
+        if (bloomrf::any_bit(q.b_l ? w[1] : w[0], q.cm_l)) cov_l |= bit;
+        if (bloomrf::any_bit(q.b_r ? rb : ra, q.cm_r)) cov_r |= bit;
+      }
+    }
+    // a row that hit leaves; below the bottom layer every row has its
+    // verdict; else the covering continuation (combine_layer's)
+    left &= ~hit;
+    right &= ~hit;
+    if (q.bottom) break;
+    const bool new_split = split || q.lp_ne_rp;
+    const unsigned nxt_right =
+        (split ? right : (new_split ? left : 0u)) & cov_r;
+    left &= cov_l;
+    right = nxt_right;
+    split = new_split;
+  }
+  return hit;
+}
+
+// One thread per query: its top-level test once, then its rows 32 at a
 // time (range_rows); the query's R verdicts are adjacent bytes.
 template <int RB>
 __global__ void __launch_bounds__(bloomrf::kThreads)
-    range_rows_kernel(const int64_t* __restrict__ lo,
-                      const int64_t* __restrict__ hi, int64_t n,
-                      const uint32_t* __restrict__ stack, int64_t row_lanes,
-                      const __grid_constant__ bloomrf::DescParam p, int rows,
-                      bool* __restrict__ out) {
+    range_query_kernel(const int64_t* __restrict__ lo,
+                       const int64_t* __restrict__ hi, int64_t n,
+                       const uint32_t* __restrict__ stack, int64_t row_lanes,
+                       const __grid_constant__ bloomrf::DescParam p, int rows,
+                       bool* __restrict__ out) {
   const Desc D{p.w};
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= n) return;
   uint32_t L = static_cast<uint32_t>(lo[t]), R = static_cast<uint32_t>(hi[t]);
   bool* o = out + t * rows;
   rangeplan::Paths start;
-  if (rangeplan::start(D, L, R, start) >= 0) {
-    for (int r = 0; r < rows; ++r) o[r] = true;
-    return;
+  const bool whole = rangeplan::start(D, L, R, start) >= 0;
+  for (int c0 = 0; c0 < rows; c0 += 32) {
+    const int nc = min(32, rows - c0);
+    const unsigned hit =
+        whole ? ~0u
+              : range_rows<RB>(stack + c0 * row_lanes, row_lanes, nc, D, L,
+                               R, start);
+    for (int r = 0; r < nc; ++r) o[c0 + r] = ((hit >> r) & 1u) != 0u;
   }
-  for (int r0 = 0; r0 < rows; r0 += RB)
-    range_rows<RB>(stack, row_lanes, r0, min(RB, rows - r0), D, L, R, start,
-                   o + r0);
 }
 
 __global__ void point_stacked_kernel(const int64_t* __restrict__ keys,
@@ -207,7 +266,8 @@ dim3 stacked_grid(int64_t n, int R) {
 // desc: the descriptor parameter in host memory, kParamDescWords words
 // (kernels/_build.py::param_descriptor), copied into the launch.
 // variant: 0 a cell a thread on a (tiles x rows) grid, 1 a cell a thread in
-// output order, 2 / 3 a query a thread, 4 / 2 rows at once.
+// output order, 2 / 3 / 4 a query a thread, the loads of 4 / 2 / 8 rows
+// issued together.
 extern "C" int bloomrf_range_stacked(const int64_t* lo, const int64_t* hi,
                                      int64_t n, const uint32_t* stack,
                                      int64_t row_lanes, int R,
@@ -229,11 +289,15 @@ extern "C" int bloomrf_range_stacked(const int64_t* lo, const int64_t* hi,
           lo, hi, n, stack, row_lanes, p, R, out);
       break;
     case 2:
-      range_rows_kernel<4><<<bloomrf::grid_for(n), tb, 0, s>>>(
+      range_query_kernel<4><<<bloomrf::grid_for(n), tb, 0, s>>>(
           lo, hi, n, stack, row_lanes, p, R, out);
       break;
     case 3:
-      range_rows_kernel<2><<<bloomrf::grid_for(n), tb, 0, s>>>(
+      range_query_kernel<2><<<bloomrf::grid_for(n), tb, 0, s>>>(
+          lo, hi, n, stack, row_lanes, p, R, out);
+      break;
+    case 4:
+      range_query_kernel<8><<<bloomrf::grid_for(n), tb, 0, s>>>(
           lo, hi, n, stack, row_lanes, p, R, out);
       break;
     default:
