@@ -198,9 +198,7 @@ def main() -> int:
     out["kernels"] = kernels(device, cs, built)
     # the variants of a tree that has them, each in every kernel's place
     variants = {}
-    for mod, key, values in ((probe, "resident", (1, 2, 0)),
-                             (probe, "partitioned", (1, 0)),
-                             (rangeprobe, "stacked", (0, 1, 3, 4, 2))):
+    for mod, key, values in ((rangeprobe, "stacked", (5, 6, 7, 8, 3)),):
         if not hasattr(mod, "VARIANTS"):
             continue
         for v in values:

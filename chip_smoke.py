@@ -1194,8 +1194,8 @@ def phase_hbm(device, kernels, errs):
     from repro_torch.core import BloomRF, stacked_probe
     from repro_torch.kernels import DEFAULT_BLOCK_U32, DEFAULT_TILE, _build
     from repro_torch.core.bloomrf import lanes_u32
-    from repro_torch.kernels.probe import (VARIANTS, _bucket_probes,
-                                           _check_tiling, _point_buckets,
+    from repro_torch.kernels.probe import (_bucket_probes, _check_tiling,
+                                           _point_buckets,
                                            point_partitioned_plain)
     from repro_torch.kernels.rangeprobe import (_range_buckets,
                                                 range_partitioned_plain)
@@ -1300,7 +1300,7 @@ def phase_hbm(device, kernels, errs):
     def b7(q=tq):
         _build.launch("bloomrf_point_probe", device, q.data_ptr(),
                       CHUNK, state.data_ptr(), pdesc.ctypes.data,
-                      VARIANTS["partitioned"], pout.data_ptr())
+                      pout.data_ptr())
 
     def b8(a=tlo, b=thi):
         _build.launch("bloomrf_range_partitioned", device, a.data_ptr(),

@@ -1,7 +1,7 @@
 // bloomRF batched point probe for Hopper.
 //
 // Replaces the Pallas TPU kernel repro/kernels/probe.py::point_probe_resident
-// (body _resident_kernel), which pins the filter in VMEM and runs the
+// (B2, body _resident_kernel), which pins the filter in VMEM and runs the
 // engine's point plan -> gather -> AND over a tile of keys.
 //
 // The same kernel replaces repro/kernels/probe.py::point_probe_partitioned
@@ -9,115 +9,67 @@
 // on Hopper a probe reads one 32-byte sector through L2 whether the state
 // sits in L2 or in device memory.
 //
-// Bound: scattered 4-byte reads and the chain in front of them.  One thread
-// per key computes its positions in registers and reads one lane per
-// position straight from L2 or device memory (the filter of a per-SST
-// deployment fits the 50 MB L2, so no staging in shared memory).  A chunk
-// of 262,144 keys fits the card in one wave, so each thread's chain
-// (int64 key -> hash -> load -> test -> hash -> load) sets the time as much
-// as the L2's rate for random sectors.  The design shortens that chain:
-// the layout descriptor is a __grid_constant__ launch parameter (no block
-// stages it in shared memory behind a barrier), word addresses use each
-// layer's exact reciprocal (rangeplan::word_bitoff, no division), and the
-// positions are read G at a time, the loads of a group issued together,
-// stopping after the first group with a clear bit.  Keys are read once as
-// the int64 carrier (8 bytes a key), coalesced; verdicts are written as
-// one byte each.
+// Bound: the L2's rate for random sectors, and the chain in front of each
+// read.  One thread per key computes its positions in registers and reads
+// one lane per position straight from L2 or device memory (the filter of a
+// per-SST deployment fits the 50 MB L2, so no staging in shared memory),
+// stopping at the first clear bit, so absent keys mostly cost one read.
+// Issuing every position's read at once was measured slower on both
+// tiers: it reads a second sector for most absent keys, and the sectors,
+// not the chain, set the time.  What the design takes off the chain: the
+// layout descriptor is a __grid_constant__ launch parameter, read through
+// the constant cache (no block stages it in shared memory behind a
+// barrier), and word addresses use each layer's exact reciprocal of its
+// word count (rangeplan::word_bitoff) instead of a division.  Keys are read
+// once as the int64 carrier (8 bytes a key), coalesced; verdicts are
+// written as one byte each.
 #include "rangeplan.cuh"
 
 namespace {
 
-using bloomrf::Desc;
-
-// Point verdict for key x: the AND of every position's bit, in
-// BloomRF._positions_one's order, G positions a group.  kFast picks the
-// reciprocal addressing (rangeplan::word_bitoff) over the division
-// (bloomrf::word_bitoff).  Every thread walks the same layers, so the
-// descriptor reads stay uniform across a warp.
-template <int G, bool kFast>
-__device__ __forceinline__ bool point_groups(const uint32_t* __restrict__ state,
-                                             const Desc& D, uint32_t x) {
-  const int k = D.k();
-  int i = 0;
-  uint32_t rep = 0;
-  bool exact = D.has_exact();
-  while (i < k || exact) {
-    uint32_t pos[G];
-    bool live[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      live[g] = i < k || exact;
-      pos[g] = 0u;
-      if (i < k) {
-        const uint32_t* L = D.layer(i);
-        const uint32_t li = L[bloomrf::L_LEVEL];
-        const uint32_t wkey = x >> (li + L[bloomrf::L_DELTA] - 1u);
-        const uint32_t word = kFast ? rangeplan::word_bitoff(D, i, rep, wkey)
-                                    : bloomrf::word_bitoff(D, i, rep, wkey);
-        pos[g] = word + ((x >> li) & (L[bloomrf::L_W] - 1u));
-        if (++rep == L[bloomrf::L_REPS]) {
-          rep = 0u;
-          ++i;
-        }
-      } else if (exact) {
-        pos[g] = D.exact_off() + bloomrf::shr(x, D.top());
-        exact = false;
-      }
+// The AND of key x's bits in BloomRF._positions_one's order, stopping at
+// the first clear one.
+__device__ __forceinline__ bool point_verdict(
+    const uint32_t* __restrict__ state, const bloomrf::Desc& D, uint32_t x) {
+  for (int i = 0; i < D.k(); ++i) {
+    const uint32_t* L = D.layer(i);
+    const uint32_t li = L[bloomrf::L_LEVEL];
+    const uint32_t off = (x >> li) & (L[bloomrf::L_W] - 1u);
+    const uint32_t wkey = x >> (li + L[bloomrf::L_DELTA] - 1u);
+    for (uint32_t rep = 0; rep < L[bloomrf::L_REPS]; ++rep) {
+      const uint32_t pos = rangeplan::word_bitoff(D, i, rep, wkey) + off;
+      if (!((__ldg(state + (pos >> 5)) >> (pos & 31u)) & 1u)) return false;
     }
-    uint32_t v[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-      v[g] = live[g] ? __ldg(state + (pos[g] >> 5)) : 0xFFFFFFFFu;
-    bool all = true;
-#pragma unroll
-    for (int g = 0; g < G; ++g) all &= ((v[g] >> (pos[g] & 31u)) & 1u) != 0u;
-    if (!all) return false;
   }
-  return true;
+  if (!D.has_exact()) return true;
+  const uint32_t pos = D.exact_off() + bloomrf::shr(x, D.top());
+  return ((__ldg(state + (pos >> 5)) >> (pos & 31u)) & 1u) != 0u;
 }
 
-template <int G, bool kFast>
 __global__ void __launch_bounds__(bloomrf::kThreads)
     point_probe_kernel(const int64_t* __restrict__ keys, int64_t n,
                        const uint32_t* __restrict__ state,
                        const __grid_constant__ bloomrf::DescParam p,
                        bool* __restrict__ out) {
-  const Desc D{p.w};
+  const bloomrf::Desc D{p.w};
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= n) return;
-  out[t] = point_groups<G, kFast>(state, D, static_cast<uint32_t>(keys[t]));
+  out[t] = point_verdict(state, D, static_cast<uint32_t>(keys[t]));
 }
 
 }  // namespace
 
 // desc: the descriptor parameter in host memory, kParamDescWords words
-// (kernels/_build.py::param_descriptor), copied into the launch.
-// variant: 0 one position a group, 1 two a group, 2 one a group with the
-// division.
+// (kernels/_build.py::param_descriptor), copied into the launch
 extern "C" int bloomrf_point_probe(const int64_t* keys, int64_t n,
                                    const uint32_t* state, const uint32_t* desc,
-                                   int variant, bool* out, void* stream) {
+                                   bool* out, void* stream) {
   if (n <= 0) return 0;
   bloomrf::DescParam p;
   if (!bloomrf::to_param(desc, p))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(bloomrf::grid_for(n));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (variant) {
-    case 0:
-      point_probe_kernel<1, true><<<grid, bloomrf::kThreads, 0, s>>>(
-          keys, n, state, p, out);
-      break;
-    case 1:
-      point_probe_kernel<2, true><<<grid, bloomrf::kThreads, 0, s>>>(
-          keys, n, state, p, out);
-      break;
-    case 2:
-      point_probe_kernel<1, false><<<grid, bloomrf::kThreads, 0, s>>>(
-          keys, n, state, p, out);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  point_probe_kernel<<<bloomrf::grid_for(n), bloomrf::kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(keys, n, state, p,
+                                                            out);
   return static_cast<int>(cudaGetLastError());
 }

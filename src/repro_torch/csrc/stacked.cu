@@ -26,43 +26,6 @@ namespace {
 using bloomrf::Desc;
 using bloomrf::Word;
 
-// One thread per (query, row) cell, grid (query tiles x rows): the plan of
-// partitioned.cu on the cell's row.
-__global__ void __launch_bounds__(bloomrf::kThreads)
-    range_cells_kernel(const int64_t* __restrict__ lo,
-                       const int64_t* __restrict__ hi, int64_t n,
-                       const uint32_t* __restrict__ stack, int64_t row_lanes,
-                       const __grid_constant__ bloomrf::DescParam p, int rows,
-                       bool* __restrict__ out) {
-  const Desc D{p.w};
-  const int r = blockIdx.y;
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  out[t * rows + r] = rangeplan::range_layers(
-      stack + r * row_lanes, D, static_cast<uint32_t>(lo[t]),
-      static_cast<uint32_t>(hi[t]));
-}
-
-// One thread per (query, row) cell, cells in output order: the R cells of
-// a query sit on adjacent lanes, which read the same bounds and write
-// adjacent bytes.
-__global__ void __launch_bounds__(bloomrf::kThreads)
-    range_adjacent_kernel(const int64_t* __restrict__ lo,
-                          const int64_t* __restrict__ hi, int64_t n,
-                          const uint32_t* __restrict__ stack,
-                          int64_t row_lanes,
-                          const __grid_constant__ bloomrf::DescParam p,
-                          int rows, bool* __restrict__ out) {
-  const Desc D{p.w};
-  const int64_t c = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (c >= n * rows) return;
-  const int64_t t = c / rows;
-  const int r = static_cast<int>(c - t * rows);
-  out[c] = rangeplan::range_layers(stack + r * row_lanes, D,
-                                   static_cast<uint32_t>(lo[t]),
-                                   static_cast<uint32_t>(hi[t]));
-}
-
 // One layer of a query's range plan, the part every row shares: which
 // child words each path can read (as bits over the slots LA, LB, RA, RB,
 // layer_needs's), the masks its hit test and covering bits apply to them
@@ -74,12 +37,26 @@ struct LayerPlan {
   unsigned need_l, need_r, need_cov;   // slot bits
   bool b_l, b_r;                       // covering bits in word B, not A
   Word m_la, m_lb, m_ra, m_rb;         // hit masks
-  Word cm_l, cm_r;                     // covering-bit masks
-  uint32_t key[4], off[4];
+  uint32_t bit_l, bit_r;               // covering bits' offsets in their word
+  uint32_t off[4];                     // the slots' bit offsets, replica 0
 };
 
 __device__ __forceinline__ Word bit_of(uint32_t off) {
   return off < 32u ? Word{1u << off, 0u} : Word{0u, 1u << (off - 32u)};
+}
+
+// The level of layer i's parents (its level + Δ).
+__device__ __forceinline__ uint32_t up(const Desc& D, int i) {
+  const uint32_t* lay = D.layer(i);
+  return lay[bloomrf::L_LEVEL] + lay[bloomrf::L_DELTA];
+}
+
+// The word key of slot j (LA, LB, RA, RB): a child word of L's or R's
+// parent at level `lvl`.
+__device__ __forceinline__ uint32_t slot_key(uint32_t L, uint32_t R,
+                                             uint32_t lvl, int j) {
+  return (bloomrf::shr(j < 2 ? L : R, lvl) << 1) |
+         static_cast<uint32_t>(j & 1);
 }
 
 __device__ __forceinline__ LayerPlan plan_layer(const Desc& D, int i,
@@ -114,18 +91,16 @@ __device__ __forceinline__ LayerPlan plan_layer(const Desc& D, int i,
                                              Rp - edge) << 2
                     : 0u;
   q.need_cov = q.bottom ? 0u : (q.b_r ? 8u : 4u);
-  q.cm_l = bit_of((L >> li) & (q.W - 1u));
-  q.cm_r = bit_of((R >> li) & (q.W - 1u));
-  q.key[0] = Lpar << 1;
-  q.key[1] = (Lpar << 1) | 1u;
-  q.key[2] = Rpar << 1;
-  q.key[3] = (Rpar << 1) | 1u;
+  q.bit_l = (L >> li) & (q.W - 1u);
+  q.bit_r = (R >> li) & (q.W - 1u);
   unsigned any = q.need_l | q.need_r | q.need_cov;
   if (q.same) any = (any | (any >> 2)) & 3u;
 #pragma unroll
   for (int j = 0; j < 4; ++j)
-    q.off[j] = ((any >> j) & 1u) ? rangeplan::word_bitoff(D, i, 0u, q.key[j])
-                                 : 0u;
+    q.off[j] = ((any >> j) & 1u)
+                   ? rangeplan::word_bitoff(D, i, 0u,
+                                            slot_key(L, R, li + delta, j))
+                   : 0u;
   return q;
 }
 
@@ -186,7 +161,8 @@ __device__ __forceinline__ unsigned range_rows(
           if (!((need[b] >> j) & 1u)) continue;
           w[j] = rangeplan::all_ones(q.W);
           rangeplan::and_lanes(q.W, v[b][j][0], v[b][j][1], w[j]);
-          rangeplan::fold_rest(row, pairs, D, i, q.key[j], 1u, w[j]);
+          rangeplan::fold_rest(row, pairs, D, i,
+                               slot_key(L, R, up(D, i), j), 1u, w[j]);
         }
         const Word ra = q.same ? w[0] : w[2], rb = q.same ? w[1] : w[3];
         const bool h =
@@ -196,8 +172,9 @@ __device__ __forceinline__ unsigned range_rows(
             ((right & bit) && q.r_ne &&
              (bloomrf::any_bit(ra, q.m_ra) || bloomrf::any_bit(rb, q.m_rb)));
         if (h) hit |= bit;
-        if (bloomrf::any_bit(q.b_l ? w[1] : w[0], q.cm_l)) cov_l |= bit;
-        if (bloomrf::any_bit(q.b_r ? rb : ra, q.cm_r)) cov_r |= bit;
+        if (bloomrf::any_bit(q.b_l ? w[1] : w[0], bit_of(q.bit_l)))
+          cov_l |= bit;
+        if (bloomrf::any_bit(q.b_r ? rb : ra, bit_of(q.bit_r))) cov_r |= bit;
       }
     }
     // a row that hit leaves; below the bottom layer every row has its
@@ -217,8 +194,8 @@ __device__ __forceinline__ unsigned range_rows(
 
 // One thread per query: its top-level test once, then its rows 32 at a
 // time (range_rows); the query's R verdicts are adjacent bytes.
-template <int RB>
-__global__ void __launch_bounds__(bloomrf::kThreads)
+template <int RB, int MINB>
+__global__ void __launch_bounds__(bloomrf::kThreads, MINB)
     range_query_kernel(const int64_t* __restrict__ lo,
                        const int64_t* __restrict__ hi, int64_t n,
                        const uint32_t* __restrict__ stack, int64_t row_lanes,
@@ -239,6 +216,30 @@ __global__ void __launch_bounds__(bloomrf::kThreads)
                                R, start);
     for (int r = 0; r < nc; ++r) o[c0 + r] = ((hit >> r) & 1u) != 0u;
   }
+}
+
+// One thread per (query, group of RB rows), grid (query tiles x groups).
+template <int RB>
+__global__ void __launch_bounds__(bloomrf::kThreads)
+    range_group_kernel(const int64_t* __restrict__ lo,
+                       const int64_t* __restrict__ hi, int64_t n,
+                       const uint32_t* __restrict__ stack, int64_t row_lanes,
+                       const __grid_constant__ bloomrf::DescParam p, int rows,
+                       bool* __restrict__ out) {
+  const Desc D{p.w};
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  const int r0 = static_cast<int>(blockIdx.y) * RB;
+  const int nr = min(RB, rows - r0);
+  uint32_t L = static_cast<uint32_t>(lo[t]), R = static_cast<uint32_t>(hi[t]);
+  rangeplan::Paths start;
+  const bool whole = rangeplan::start(D, L, R, start) >= 0;
+  const unsigned hit =
+      whole ? ~0u
+            : range_rows<RB>(stack + r0 * row_lanes, row_lanes, nr, D, L, R,
+                             start);
+  bool* o = out + t * rows + r0;
+  for (int r = 0; r < nr; ++r) o[r] = ((hit >> r) & 1u) != 0u;
 }
 
 __global__ void point_stacked_kernel(const int64_t* __restrict__ keys,
@@ -265,9 +266,9 @@ dim3 stacked_grid(int64_t n, int R) {
 
 // desc: the descriptor parameter in host memory, kParamDescWords words
 // (kernels/_build.py::param_descriptor), copied into the launch.
-// variant: 0 a cell a thread on a (tiles x rows) grid, 1 a cell a thread in
-// output order, 2 / 3 / 4 a query a thread, the loads of 4 / 2 / 8 rows
-// issued together.
+// variant: 3 a query a thread, 2 rows' loads at once; 5 the same held to
+// 64 registers; 6 / 7 a thread per query and group of 2 / 1 rows; 8 a query
+// a thread, a row at a time.
 extern "C" int bloomrf_range_stacked(const int64_t* lo, const int64_t* hi,
                                      int64_t n, const uint32_t* stack,
                                      int64_t row_lanes, int R,
@@ -279,26 +280,27 @@ extern "C" int bloomrf_range_stacked(const int64_t* lo, const int64_t* hi,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned tb = bloomrf::kThreads;
+  const unsigned g = bloomrf::grid_for(n);
   switch (variant) {
-    case 0:
-      range_cells_kernel<<<stacked_grid(n, R), tb, 0, s>>>(
-          lo, hi, n, stack, row_lanes, p, R, out);
-      break;
-    case 1:
-      range_adjacent_kernel<<<bloomrf::grid_for(n * R), tb, 0, s>>>(
-          lo, hi, n, stack, row_lanes, p, R, out);
-      break;
-    case 2:
-      range_query_kernel<4><<<bloomrf::grid_for(n), tb, 0, s>>>(
-          lo, hi, n, stack, row_lanes, p, R, out);
-      break;
     case 3:
-      range_query_kernel<2><<<bloomrf::grid_for(n), tb, 0, s>>>(
+      range_query_kernel<2, 1><<<g, tb, 0, s>>>(lo, hi, n, stack, row_lanes,
+                                                p, R, out);
+      break;
+    case 5:
+      range_query_kernel<2, 4><<<g, tb, 0, s>>>(lo, hi, n, stack, row_lanes,
+                                                p, R, out);
+      break;
+    case 6:
+      range_group_kernel<2><<<dim3(g, (R + 1) / 2), tb, 0, s>>>(
           lo, hi, n, stack, row_lanes, p, R, out);
       break;
-    case 4:
-      range_query_kernel<8><<<bloomrf::grid_for(n), tb, 0, s>>>(
+    case 7:
+      range_group_kernel<1><<<dim3(g, R), tb, 0, s>>>(
           lo, hi, n, stack, row_lanes, p, R, out);
+      break;
+    case 8:
+      range_query_kernel<1, 1><<<g, tb, 0, s>>>(lo, hi, n, stack, row_lanes,
+                                                p, R, out);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -46,7 +46,7 @@ _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 #: the last of which is always the stream
 _ENTRY = {
     "bloomrf_insert": ("insert", (_P, _I64, _P, _P, _P)),
-    "bloomrf_point_probe": ("probe", (_P, _I64, _P, _P, _I, _P, _P)),
+    "bloomrf_point_probe": ("probe", (_P, _I64, _P, _P, _P, _P)),
     "bloomrf_store_scan": ("store_scan", (_P, _P, _I64, _P, _P, _I, _P, _P,
                                           _P, _P, _I, _P, _P, _I, _P)),
     "bloomrf_range_stacked": ("stacked", (_P, _P, _I64, _P, _I64, _I, _P, _I,

@@ -47,12 +47,8 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-#: kernel variant each wrapper launches (``csrc/probe.cu``'s entry)
-VARIANTS = {"resident": 0, "partitioned": 0}
-
-
 def _launch_point(layout: FilterLayout, state: torch.Tensor,
-                  keys: torch.Tensor, variant: int) -> torch.Tensor:
+                  keys: torch.Tensor) -> torch.Tensor:
     """The verdicts from one launch of ``csrc/probe.cu``'s kernel (none for
     an empty batch); the calling wrapper counts the launch."""
     out = torch.empty(keys.shape[0], dtype=torch.bool, device=state.device)
@@ -60,7 +56,7 @@ def _launch_point(layout: FilterLayout, state: torch.Tensor,
         desc = _build.param_descriptor(layout)
         _build.launch("bloomrf_point_probe", state.device, keys.data_ptr(),
                       keys.numel(), state.data_ptr(), desc.ctypes.data,
-                      variant, out.data_ptr())
+                      out.data_ptr())
     return out
 
 
@@ -74,7 +70,7 @@ def point_probe_resident(layout: FilterLayout, state: torch.Tensor,
     if state.device.type == "cpu":
         plain = filter_for_layout(layout, state.device)
         return plain.engine.point_batched(state, keys)
-    out = _launch_point(layout, state, keys, VARIANTS["resident"])
+    out = _launch_point(layout, state, keys)
     if keys.numel():
         point_probe_resident.launches += 1
     return out
@@ -224,7 +220,7 @@ def point_probe_partitioned(layout: FilterLayout, state: torch.Tensor,
     nblocks = _check_point_partitioned(layout, state, keys, tile, block_u32)
     if state.device.type == "cpu":
         return _point_plain(layout, state, keys, tile, block_u32, nblocks)
-    out = _launch_point(layout, state, keys, VARIANTS["partitioned"])
+    out = _launch_point(layout, state, keys)
     if keys.numel():
         point_probe_partitioned.launches += 1
     return out

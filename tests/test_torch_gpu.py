@@ -308,8 +308,8 @@ def test_stacked_kernels_match_plain_versions(cuda, name, rows):
     edges = torch.tensor([[top, 0], [5, 5], [1 << (lay.d - 1),
                                               (1 << (lay.d - 1)) - 1]],
                          dtype=torch.int64, device=cuda)
-    lo = torch.cat([edges[:, 0], keys[:40], lo])[:-11]
-    hi = torch.cat([edges[:, 1], keys[:40], hi])[:-11]
+    lo = torch.cat([edges[:, 0], keys[:40], lo])[:-13]
+    hi = torch.cat([edges[:, 1], keys[:40], hi])[:-13]
     assert lo.numel() % 32
     plain = stacked_probe((lay,) * rows, tuple(r * lay.total_u32
                                                for r in range(rows)), cuda)
