@@ -198,7 +198,7 @@ def main() -> int:
     out["kernels"] = kernels(device, cs, built)
     # the variants of a tree that has them, each in every kernel's place
     variants = {}
-    for mod, key, values in ((rangeprobe, "stacked", (5, 6, 7, 8, 3)),):
+    for mod, key, values in ((rangeprobe, "stacked", (9, 10, 11, 3, 8)),):
         if not hasattr(mod, "VARIANTS"):
             continue
         for v in values:

@@ -38,6 +38,8 @@ struct LayerPlan {
   bool b_l, b_r;                       // covering bits in word B, not A
   Word m_la, m_lb, m_ra, m_rb;         // hit masks
   uint32_t bit_l, bit_r;               // covering bits' offsets in their word
+  Word cm_l, cm_r;                     // the same as masks
+  uint32_t key[4];                     // the slots' word keys
   uint32_t off[4];                     // the slots' bit offsets, replica 0
 };
 
@@ -93,14 +95,16 @@ __device__ __forceinline__ LayerPlan plan_layer(const Desc& D, int i,
   q.need_cov = q.bottom ? 0u : (q.b_r ? 8u : 4u);
   q.bit_l = (L >> li) & (q.W - 1u);
   q.bit_r = (R >> li) & (q.W - 1u);
+  q.cm_l = bit_of(q.bit_l);
+  q.cm_r = bit_of(q.bit_r);
   unsigned any = q.need_l | q.need_r | q.need_cov;
   if (q.same) any = (any | (any >> 2)) & 3u;
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    q.off[j] = ((any >> j) & 1u)
-                   ? rangeplan::word_bitoff(D, i, 0u,
-                                            slot_key(L, R, li + delta, j))
-                   : 0u;
+  for (int j = 0; j < 4; ++j) {
+    q.key[j] = slot_key(L, R, li + delta, j);
+    q.off[j] = ((any >> j) & 1u) ? rangeplan::word_bitoff(D, i, 0u, q.key[j])
+                                 : 0u;
+  }
   return q;
 }
 
@@ -118,7 +122,7 @@ __device__ __forceinline__ unsigned row_need(const LayerPlan& q, bool split,
 // each, and test their hits and covering bits against the shared masks.
 // The path flags of up to 32 rows are bit masks; a row leaves at its
 // verdict, the query when every row has one.
-template <int RB>
+template <int RB, bool kKeys>
 __device__ __forceinline__ unsigned range_rows(
     const uint32_t* __restrict__ stack, int64_t row_lanes, int nrows,
     const Desc& D, uint32_t L, uint32_t R, const rangeplan::Paths& start) {
@@ -162,7 +166,8 @@ __device__ __forceinline__ unsigned range_rows(
           w[j] = rangeplan::all_ones(q.W);
           rangeplan::and_lanes(q.W, v[b][j][0], v[b][j][1], w[j]);
           rangeplan::fold_rest(row, pairs, D, i,
-                               slot_key(L, R, up(D, i), j), 1u, w[j]);
+                               kKeys ? q.key[j] : slot_key(L, R, up(D, i), j),
+                               1u, w[j]);
         }
         const Word ra = q.same ? w[0] : w[2], rb = q.same ? w[1] : w[3];
         const bool h =
@@ -172,9 +177,12 @@ __device__ __forceinline__ unsigned range_rows(
             ((right & bit) && q.r_ne &&
              (bloomrf::any_bit(ra, q.m_ra) || bloomrf::any_bit(rb, q.m_rb)));
         if (h) hit |= bit;
-        if (bloomrf::any_bit(q.b_l ? w[1] : w[0], bit_of(q.bit_l)))
+        if (bloomrf::any_bit(q.b_l ? w[1] : w[0],
+                             kKeys ? q.cm_l : bit_of(q.bit_l)))
           cov_l |= bit;
-        if (bloomrf::any_bit(q.b_r ? rb : ra, bit_of(q.bit_r))) cov_r |= bit;
+        if (bloomrf::any_bit(q.b_r ? rb : ra,
+                             kKeys ? q.cm_r : bit_of(q.bit_r)))
+          cov_r |= bit;
       }
     }
     // a row that hit leaves; below the bottom layer every row has its
@@ -194,7 +202,7 @@ __device__ __forceinline__ unsigned range_rows(
 
 // One thread per query: its top-level test once, then its rows 32 at a
 // time (range_rows); the query's R verdicts are adjacent bytes.
-template <int RB, int MINB>
+template <int RB, int MINB, bool kKeys>
 __global__ void __launch_bounds__(bloomrf::kThreads, MINB)
     range_query_kernel(const int64_t* __restrict__ lo,
                        const int64_t* __restrict__ hi, int64_t n,
@@ -212,34 +220,10 @@ __global__ void __launch_bounds__(bloomrf::kThreads, MINB)
     const int nc = min(32, rows - c0);
     const unsigned hit =
         whole ? ~0u
-              : range_rows<RB>(stack + c0 * row_lanes, row_lanes, nc, D, L,
-                               R, start);
+              : range_rows<RB, kKeys>(stack + c0 * row_lanes, row_lanes, nc,
+                                      D, L, R, start);
     for (int r = 0; r < nc; ++r) o[c0 + r] = ((hit >> r) & 1u) != 0u;
   }
-}
-
-// One thread per (query, group of RB rows), grid (query tiles x groups).
-template <int RB>
-__global__ void __launch_bounds__(bloomrf::kThreads)
-    range_group_kernel(const int64_t* __restrict__ lo,
-                       const int64_t* __restrict__ hi, int64_t n,
-                       const uint32_t* __restrict__ stack, int64_t row_lanes,
-                       const __grid_constant__ bloomrf::DescParam p, int rows,
-                       bool* __restrict__ out) {
-  const Desc D{p.w};
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  const int r0 = static_cast<int>(blockIdx.y) * RB;
-  const int nr = min(RB, rows - r0);
-  uint32_t L = static_cast<uint32_t>(lo[t]), R = static_cast<uint32_t>(hi[t]);
-  rangeplan::Paths start;
-  const bool whole = rangeplan::start(D, L, R, start) >= 0;
-  const unsigned hit =
-      whole ? ~0u
-            : range_rows<RB>(stack + r0 * row_lanes, row_lanes, nr, D, L, R,
-                             start);
-  bool* o = out + t * rows + r0;
-  for (int r = 0; r < nr; ++r) o[r] = ((hit >> r) & 1u) != 0u;
 }
 
 __global__ void point_stacked_kernel(const int64_t* __restrict__ keys,
@@ -266,9 +250,9 @@ dim3 stacked_grid(int64_t n, int R) {
 
 // desc: the descriptor parameter in host memory, kParamDescWords words
 // (kernels/_build.py::param_descriptor), copied into the launch.
-// variant: 3 a query a thread, 2 rows' loads at once; 5 the same held to
-// 64 registers; 6 / 7 a thread per query and group of 2 / 1 rows; 8 a query
-// a thread, a row at a time.
+// variant: a query a thread; 3 two rows' loads at once, 8 / 9 / 10 / 11 a
+// row at a time, 10 and 11 held to 64 registers; 3, 9, 11 keep each slot's
+// word key and covering-bit mask in the plan, 8 and 10 recompute them.
 extern "C" int bloomrf_range_stacked(const int64_t* lo, const int64_t* hi,
                                      int64_t n, const uint32_t* stack,
                                      int64_t row_lanes, int R,
@@ -283,24 +267,24 @@ extern "C" int bloomrf_range_stacked(const int64_t* lo, const int64_t* hi,
   const unsigned g = bloomrf::grid_for(n);
   switch (variant) {
     case 3:
-      range_query_kernel<2, 1><<<g, tb, 0, s>>>(lo, hi, n, stack, row_lanes,
-                                                p, R, out);
-      break;
-    case 5:
-      range_query_kernel<2, 4><<<g, tb, 0, s>>>(lo, hi, n, stack, row_lanes,
-                                                p, R, out);
-      break;
-    case 6:
-      range_group_kernel<2><<<dim3(g, (R + 1) / 2), tb, 0, s>>>(
-          lo, hi, n, stack, row_lanes, p, R, out);
-      break;
-    case 7:
-      range_group_kernel<1><<<dim3(g, R), tb, 0, s>>>(
-          lo, hi, n, stack, row_lanes, p, R, out);
+      range_query_kernel<2, 1, true><<<g, tb, 0, s>>>(lo, hi, n, stack,
+                                                      row_lanes, p, R, out);
       break;
     case 8:
-      range_query_kernel<1, 1><<<g, tb, 0, s>>>(lo, hi, n, stack, row_lanes,
-                                                p, R, out);
+      range_query_kernel<1, 1, false><<<g, tb, 0, s>>>(lo, hi, n, stack,
+                                                       row_lanes, p, R, out);
+      break;
+    case 9:
+      range_query_kernel<1, 1, true><<<g, tb, 0, s>>>(lo, hi, n, stack,
+                                                      row_lanes, p, R, out);
+      break;
+    case 10:
+      range_query_kernel<1, 4, false><<<g, tb, 0, s>>>(lo, hi, n, stack,
+                                                       row_lanes, p, R, out);
+      break;
+    case 11:
+      range_query_kernel<1, 4, true><<<g, tb, 0, s>>>(lo, hi, n, stack,
+                                                      row_lanes, p, R, out);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -90,7 +90,7 @@ range_probe_resident.launches = 0
 
 
 #: kernel variant the stacked wrapper launches (``csrc/stacked.cu``'s entry)
-VARIANTS = {"stacked": 3}
+VARIANTS = {"stacked": 8}
 
 
 def range_probe_stacked_resident(layout: FilterLayout, stack: torch.Tensor,

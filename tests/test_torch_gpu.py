@@ -301,9 +301,10 @@ def test_stacked_kernels_match_plain_versions(cuda, name, rows):
     2^31) and a batch that is no multiple of 32."""
     lay = _LAYOUTS[name]()
     rng = np.random.default_rng(5)
-    states, _, _ = _rows([lay] * rows, cuda, rng)
-    stack = torch.stack(states)
     keys, lo, hi = _inputs(lay, cuda)
+    f = BloomRF(lay, device=cuda)
+    states, _, _ = _rows([lay] * rows, cuda, rng)
+    stack = torch.stack([f.insert(s, keys[:40]) for s in states])
     top = (1 << lay.d) - 1
     edges = torch.tensor([[top, 0], [5, 5], [1 << (lay.d - 1),
                                               (1 << (lay.d - 1)) - 1]],
