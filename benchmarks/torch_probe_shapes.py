@@ -188,7 +188,6 @@ def main() -> int:
         print("torch_probe_shapes: no CUDA device", file=sys.stderr)
         return 1
     import repro_torch
-    from repro_torch.kernels import probe, rangeprobe
     from repro_torch.kernels._build import build_all
 
     device = torch.device("cuda")
@@ -196,22 +195,7 @@ def main() -> int:
            "card": cs._smi(), "build_s": build_all()}
     built = cases(device, cs)
     out["kernels"] = kernels(device, cs, built)
-    # the variants of a tree that has them, each in every kernel's place
-    variants = {}
-    for mod, key, values in ((rangeprobe, "stacked", (9, 10, 11, 3, 8)),):
-        if not hasattr(mod, "VARIANTS"):
-            continue
-        for v in values:
-            mod.VARIANTS[key] = v
-            rows = kernels(device, cs, built)
-            name = {"resident": "B2_point_resident",
-                    "partitioned": "B7_point_partitioned",
-                    "stacked": "B5_range_stacked"}[key]
-            variants[f"{name}_v{v}"] = rows[name]
-    if variants:
-        out["variants"] = variants
-    errs = [row["max_abs_err"] for rows in (out["kernels"], variants)
-            for row in rows.values()]
+    errs = [row["max_abs_err"] for row in out["kernels"].values()]
     print(json.dumps(out))
     return 0 if not any(errs) else 1
 

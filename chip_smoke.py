@@ -25,8 +25,9 @@ Phases, one line of output each:
 5. per-kernel times at phase 3's shapes (the kernel alone, replayed from a
    CUDA graph; the plain version and the wrapper's back-to-back calls by
    CUDA events), beside each kernel's memory bound and the latency floor of
-   its launch (an empty kernel with its grid, timed the same way; phases
-   6-8 report both for theirs too); B1's bound counts the 32-byte sectors
+   its launch (an empty kernel with its grid and its shared memory or
+   descriptor parameter, timed the same way; phases 6-8 report both for
+   theirs too); B1's bound counts the 32-byte sectors
    its chunk's positions touch, each read and written back once, and B1
    is also timed on phase 7's and phase 8's traffic shapes there;
 6. the store-scan kernel (B4) against its plain version, ``StackedProbe.
@@ -115,11 +116,10 @@ def _ptxas_usage() -> dict:
             raise RuntimeError(f"nvcc -Xptxas -v {name}.cu:\n{text}")
         kernel = None
         for line in text.splitlines():
-            m = re.search(r"entry function '\w*?\d([a-z][a-z_]*_kernel)"
-                          r"(I\w*?E)?E", line)
-            if m:     # a template's instances apart: name<mangled args>
-                kernel = m.group(1) + (f"<{m.group(2)[1:-1]}>"
-                                       if m.group(2) else "")
+            m = re.search(r"entry function '\w*?\d([a-z][a-z_]*_kernel)",
+                          line)
+            if m:
+                kernel = m.group(1)
                 usage[kernel] = {}
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and kernel:

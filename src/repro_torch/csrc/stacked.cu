@@ -7,13 +7,22 @@
 // _point_all (one gather for all rows) over a tile of queries.  Row r
 // starts at lane r * row_lanes.
 //
-// B5: the bounds are shared and the layout is one, so every row's word
-// addresses are the same; only the row base differs.  Bound: the distinct
-// sectors the verdicts need, read at random through L2, and the hashing of
-// their addresses.  The kernel reads with rangeplan's read plan (per layer
-// only the child words a live path can select, issued together) over word
-// addresses computed from the layout descriptor, a __grid_constant__ launch
-// parameter.
+// B5, one thread per query.  The bounds are shared and the layout is one,
+// so everything a range plan computes per layer (the paths' hit masks,
+// which child words they can read, the covering bits' places, the word
+// addresses) is the same for every row; only the words and the path flags
+// differ.  Bound: instructions, then the chain of dependent loads.  A
+// thread per (query, row) cell ran the whole plan once per row (0.050 ms
+// on phase 6's 4 rows, a third of a cell's time in work every row repeats;
+// PERF.md, PR 17).  Here a thread computes each layer's shared part once
+// (plan_layer) and then, row by row, reads only the words that row's live
+// paths need (rangeplan::layer_needs's choice, over word addresses from
+// each layer's exact reciprocal), tests them against the shared masks and
+// keeps the rows' path flags as bit masks.  Several rows' loads in flight
+// at once, more threads a query, or a thread a cell were each measured
+// slower: their registers cost more threads in flight, or they repeat the
+// shared part.  The layout descriptor is a __grid_constant__ launch
+// parameter; a query's R verdicts are adjacent bytes.
 //
 // B6: grid (query tiles x rows), the descriptor in shared memory; a thread
 // answers one (query, row) cell with bloomrf::point_one, which stops at the
@@ -38,8 +47,6 @@ struct LayerPlan {
   bool b_l, b_r;                       // covering bits in word B, not A
   Word m_la, m_lb, m_ra, m_rb;         // hit masks
   uint32_t bit_l, bit_r;               // covering bits' offsets in their word
-  Word cm_l, cm_r;                     // the same as masks
-  uint32_t key[4];                     // the slots' word keys
   uint32_t off[4];                     // the slots' bit offsets, replica 0
 };
 
@@ -95,16 +102,14 @@ __device__ __forceinline__ LayerPlan plan_layer(const Desc& D, int i,
   q.need_cov = q.bottom ? 0u : (q.b_r ? 8u : 4u);
   q.bit_l = (L >> li) & (q.W - 1u);
   q.bit_r = (R >> li) & (q.W - 1u);
-  q.cm_l = bit_of(q.bit_l);
-  q.cm_r = bit_of(q.bit_r);
   unsigned any = q.need_l | q.need_r | q.need_cov;
   if (q.same) any = (any | (any >> 2)) & 3u;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    q.key[j] = slot_key(L, R, li + delta, j);
-    q.off[j] = ((any >> j) & 1u) ? rangeplan::word_bitoff(D, i, 0u, q.key[j])
-                                 : 0u;
-  }
+  for (int j = 0; j < 4; ++j)
+    q.off[j] = ((any >> j) & 1u)
+                   ? rangeplan::word_bitoff(D, i, 0u,
+                                            slot_key(L, R, li + delta, j))
+                   : 0u;
   return q;
 }
 
@@ -116,13 +121,11 @@ __device__ __forceinline__ unsigned row_need(const LayerPlan& q, bool split,
   return q.same ? (need | (need >> 2)) & 3u : need;
 }
 
-// Range verdicts of one query for its rows, a thread per query.  Per layer
-// the shared part (plan_layer) is computed once; then RB rows at a time
-// issue their replica-0 loads together, fold further replicas one load
-// each, and test their hits and covering bits against the shared masks.
-// The path flags of up to 32 rows are bit masks; a row leaves at its
-// verdict, the query when every row has one.
-template <int RB, bool kKeys>
+// Range verdicts of one query for nrows <= 32 rows, as a bit mask: per
+// layer the shared part once (plan_layer), then each live row's needed
+// words (replica 0 issued together, further replicas one load each), its
+// hit test and its covering bits; the path flags of the rows are bit
+// masks, and a row leaves at its verdict.
 __device__ __forceinline__ unsigned range_rows(
     const uint32_t* __restrict__ stack, int64_t row_lanes, int nrows,
     const Desc& D, uint32_t L, uint32_t R, const rangeplan::Paths& start) {
@@ -132,58 +135,40 @@ __device__ __forceinline__ unsigned range_rows(
   for (int i = D.k() - 1; i >= 0 && (left | right); --i) {
     const LayerPlan q = plan_layer(D, i, L, R, split);
     unsigned cov_l = 0u, cov_r = 0u;
-    for (int r0 = 0; r0 < nrows; r0 += RB) {
-      unsigned need[RB];
-      uint32_t v[RB][4][2];
+    for (int r = 0; r < nrows; ++r) {
+      const unsigned bit = 1u << r;
+      const unsigned need = row_need(q, split, left & bit, right & bit);
+      if (!need) continue;
+      const uint32_t* row = stack + r * row_lanes;
+      const bool pairs = (reinterpret_cast<uintptr_t>(row) & 7u) == 0u;
+      uint32_t v[4][2];
 #pragma unroll
-      for (int b = 0; b < RB; ++b) {
-        const unsigned bit = 1u << (r0 + b);
-        need[b] = (r0 + b < nrows)
-                      ? row_need(q, split, left & bit, right & bit)
-                      : 0u;
-        const uint32_t* row = stack + (r0 + b) * row_lanes;
-        const bool pairs = (reinterpret_cast<uintptr_t>(row) & 7u) == 0u;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          v[b][j][0] = 0xFFFFFFFFu;
-          v[b][j][1] = q.W == 64u ? 0xFFFFFFFFu : 0u;
-          if ((need[b] >> j) & 1u)
-            rangeplan::lanes_at(row, pairs, q.off[j], q.W, v[b][j][0],
-                                v[b][j][1]);
-        }
+      for (int j = 0; j < 4; ++j) {
+        v[j][0] = 0xFFFFFFFFu;
+        v[j][1] = q.W == 64u ? 0xFFFFFFFFu : 0u;
+        if ((need >> j) & 1u)
+          rangeplan::lanes_at(row, pairs, q.off[j], q.W, v[j][0], v[j][1]);
       }
+      Word w[4];
 #pragma unroll
-      for (int b = 0; b < RB; ++b) {
-        if (!need[b]) continue;
-        const unsigned bit = 1u << (r0 + b);
-        const uint32_t* row = stack + (r0 + b) * row_lanes;
-        const bool pairs = (reinterpret_cast<uintptr_t>(row) & 7u) == 0u;
-        Word w[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          w[j] = Word{0u, 0u};
-          if (!((need[b] >> j) & 1u)) continue;
-          w[j] = rangeplan::all_ones(q.W);
-          rangeplan::and_lanes(q.W, v[b][j][0], v[b][j][1], w[j]);
-          rangeplan::fold_rest(row, pairs, D, i,
-                               kKeys ? q.key[j] : slot_key(L, R, up(D, i), j),
-                               1u, w[j]);
-        }
-        const Word ra = q.same ? w[0] : w[2], rb = q.same ? w[1] : w[3];
-        const bool h =
-            ((left & bit) && q.l_ne &&
-             (bloomrf::any_bit(w[0], q.m_la) ||
-              bloomrf::any_bit(w[1], q.m_lb))) ||
-            ((right & bit) && q.r_ne &&
-             (bloomrf::any_bit(ra, q.m_ra) || bloomrf::any_bit(rb, q.m_rb)));
-        if (h) hit |= bit;
-        if (bloomrf::any_bit(q.b_l ? w[1] : w[0],
-                             kKeys ? q.cm_l : bit_of(q.bit_l)))
-          cov_l |= bit;
-        if (bloomrf::any_bit(q.b_r ? rb : ra,
-                             kKeys ? q.cm_r : bit_of(q.bit_r)))
-          cov_r |= bit;
+      for (int j = 0; j < 4; ++j) {
+        w[j] = Word{0u, 0u};
+        if (!((need >> j) & 1u)) continue;
+        w[j] = rangeplan::all_ones(q.W);
+        rangeplan::and_lanes(q.W, v[j][0], v[j][1], w[j]);
+        rangeplan::fold_rest(row, pairs, D, i, slot_key(L, R, up(D, i), j),
+                             1u, w[j]);
       }
+      const Word ra = q.same ? w[0] : w[2], rb = q.same ? w[1] : w[3];
+      if (((left & bit) && q.l_ne &&
+           (bloomrf::any_bit(w[0], q.m_la) ||
+            bloomrf::any_bit(w[1], q.m_lb))) ||
+          ((right & bit) && q.r_ne &&
+           (bloomrf::any_bit(ra, q.m_ra) || bloomrf::any_bit(rb, q.m_rb))))
+        hit |= bit;
+      if (bloomrf::any_bit(q.b_l ? w[1] : w[0], bit_of(q.bit_l)))
+        cov_l |= bit;
+      if (bloomrf::any_bit(q.b_r ? rb : ra, bit_of(q.bit_r))) cov_r |= bit;
     }
     // a row that hit leaves; below the bottom layer every row has its
     // verdict; else the covering continuation (combine_layer's)
@@ -201,14 +186,14 @@ __device__ __forceinline__ unsigned range_rows(
 }
 
 // One thread per query: its top-level test once, then its rows 32 at a
-// time (range_rows); the query's R verdicts are adjacent bytes.
-template <int RB, int MINB, bool kKeys>
-__global__ void __launch_bounds__(bloomrf::kThreads, MINB)
-    range_query_kernel(const int64_t* __restrict__ lo,
-                       const int64_t* __restrict__ hi, int64_t n,
-                       const uint32_t* __restrict__ stack, int64_t row_lanes,
-                       const __grid_constant__ bloomrf::DescParam p, int rows,
-                       bool* __restrict__ out) {
+// time (range_rows).  At most 64 registers (four blocks a SM).
+__global__ void __launch_bounds__(bloomrf::kThreads, 4)
+    range_stacked_kernel(const int64_t* __restrict__ lo,
+                         const int64_t* __restrict__ hi, int64_t n,
+                         const uint32_t* __restrict__ stack,
+                         int64_t row_lanes,
+                         const __grid_constant__ bloomrf::DescParam p,
+                         int rows, bool* __restrict__ out) {
   const Desc D{p.w};
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= n) return;
@@ -220,8 +205,8 @@ __global__ void __launch_bounds__(bloomrf::kThreads, MINB)
     const int nc = min(32, rows - c0);
     const unsigned hit =
         whole ? ~0u
-              : range_rows<RB, kKeys>(stack + c0 * row_lanes, row_lanes, nc,
-                                      D, L, R, start);
+              : range_rows(stack + c0 * row_lanes, row_lanes, nc, D, L, R,
+                           start);
     for (int r = 0; r < nc; ++r) o[c0 + r] = ((hit >> r) & 1u) != 0u;
   }
 }
@@ -249,46 +234,19 @@ dim3 stacked_grid(int64_t n, int R) {
 }  // namespace
 
 // desc: the descriptor parameter in host memory, kParamDescWords words
-// (kernels/_build.py::param_descriptor), copied into the launch.
-// variant: a query a thread; 3 two rows' loads at once, 8 / 9 / 10 / 11 a
-// row at a time, 10 and 11 held to 64 registers; 3, 9, 11 keep each slot's
-// word key and covering-bit mask in the plan, 8 and 10 recompute them.
+// (kernels/_build.py::param_descriptor), copied into the launch
 extern "C" int bloomrf_range_stacked(const int64_t* lo, const int64_t* hi,
                                      int64_t n, const uint32_t* stack,
                                      int64_t row_lanes, int R,
-                                     const uint32_t* desc, int variant,
-                                     bool* out, void* stream) {
+                                     const uint32_t* desc, bool* out,
+                                     void* stream) {
   if (n <= 0 || R <= 0) return 0;
   bloomrf::DescParam p;
   if (!bloomrf::to_param(desc, p))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned tb = bloomrf::kThreads;
-  const unsigned g = bloomrf::grid_for(n);
-  switch (variant) {
-    case 3:
-      range_query_kernel<2, 1, true><<<g, tb, 0, s>>>(lo, hi, n, stack,
-                                                      row_lanes, p, R, out);
-      break;
-    case 8:
-      range_query_kernel<1, 1, false><<<g, tb, 0, s>>>(lo, hi, n, stack,
-                                                       row_lanes, p, R, out);
-      break;
-    case 9:
-      range_query_kernel<1, 1, true><<<g, tb, 0, s>>>(lo, hi, n, stack,
-                                                      row_lanes, p, R, out);
-      break;
-    case 10:
-      range_query_kernel<1, 4, false><<<g, tb, 0, s>>>(lo, hi, n, stack,
-                                                       row_lanes, p, R, out);
-      break;
-    case 11:
-      range_query_kernel<1, 4, true><<<g, tb, 0, s>>>(lo, hi, n, stack,
-                                                      row_lanes, p, R, out);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  range_stacked_kernel<<<bloomrf::grid_for(n), bloomrf::kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      lo, hi, n, stack, row_lanes, p, R, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -49,8 +49,8 @@ _ENTRY = {
     "bloomrf_point_probe": ("probe", (_P, _I64, _P, _P, _P, _P)),
     "bloomrf_store_scan": ("store_scan", (_P, _P, _I64, _P, _P, _I, _P, _P,
                                           _P, _P, _I, _P, _P, _I, _P)),
-    "bloomrf_range_stacked": ("stacked", (_P, _P, _I64, _P, _I64, _I, _P, _I,
-                                          _P, _P)),
+    "bloomrf_range_stacked": ("stacked", (_P, _P, _I64, _P, _I64, _I, _P, _P,
+                                          _P)),
     "bloomrf_point_stacked": ("stacked", (_P, _I64, _P, _I64, _I, _P, _I, _P,
                                           _P)),
     "bloomrf_range_partitioned": ("partitioned", (_P, _P, _I64, _P, _P, _I,

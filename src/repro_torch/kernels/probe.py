@@ -3,8 +3,9 @@
 Replaces the Pallas TPU kernel
 ``repro/kernels/probe.py::point_probe_resident``.  On the TPU the filter is
 pinned in VMEM; on Hopper the kernel reads it through L2 and device memory,
-one thread per key.  On a CPU state the wrapper takes the plain version,
-the engine's ``point_batched``.
+one thread per key up to its first clear bit, the layout descriptor in the
+launch's parameters (``_build.param_descriptor``).  On a CPU state the
+wrapper takes the plain version, the engine's ``point_batched``.
 
 ``point_probe_stacked_resident`` replaces
 ``repro/kernels/probe.py::point_probe_stacked_resident``: the same probe

@@ -18,10 +18,11 @@ by filter block (``probe._bucket_probes``), a torch gather and the
 engine's combine.
 
 ``range_probe_stacked_resident`` replaces
-``repro/kernels/rangeprobe.py::range_probe_stacked_resident``: the same
-per-thread plan over ``R`` same-layout rows, one launch for the whole
-``(B, R)`` verdict matrix (``csrc/stacked.cu``); its plain version is
-``StackedProbe._range_all``.
+``repro/kernels/rangeprobe.py::range_probe_stacked_resident``: one launch
+for the whole ``(B, R)`` verdict matrix over ``R`` same-layout rows
+(``csrc/stacked.cu``), one thread per range computing each layer's plan
+once for all rows, the layout descriptor in the launch's parameters; its
+plain version is ``StackedProbe._range_all``.
 
 Exact-bitmap layouts are rejected, as by the TPU kernels: ``FilterOps``
 routes their range queries to the engine path.
@@ -89,10 +90,6 @@ def range_probe_resident(layout: FilterLayout, state: torch.Tensor,
 range_probe_resident.launches = 0
 
 
-#: kernel variant the stacked wrapper launches (``csrc/stacked.cu``'s entry)
-VARIANTS = {"stacked": 8}
-
-
 def range_probe_stacked_resident(layout: FilterLayout, stack: torch.Tensor,
                                  lo: torch.Tensor,
                                  hi: torch.Tensor) -> torch.Tensor:
@@ -112,7 +109,7 @@ def range_probe_stacked_resident(layout: FilterLayout, stack: torch.Tensor,
         desc = _build.param_descriptor(layout)
         _build.launch("bloomrf_range_stacked", stack.device, lo.data_ptr(),
                       hi.data_ptr(), lo.numel(), stack.data_ptr(), u, R,
-                      desc.ctypes.data, VARIANTS["stacked"], out.data_ptr())
+                      desc.ctypes.data, out.data_ptr())
         range_probe_stacked_resident.launches += 1
     return out
 
