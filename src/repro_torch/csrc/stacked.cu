@@ -13,8 +13,8 @@
 // addresses) is the same for every row; only the words and the path flags
 // differ.  Bound: instructions, then the chain of dependent loads.  A
 // thread per (query, row) cell ran the whole plan once per row (0.050 ms
-// on phase 6's 4 rows, a third of a cell's time in work every row repeats;
-// PERF.md, PR 17).  Here a thread computes each layer's shared part once
+// on phase 6's 4 rows against 0.035 here; PERF.md, the stacked range
+// kernel's findings).  Here a thread computes each layer's shared part once
 // (plan_layer) and then, row by row, reads only the words that row's live
 // paths need (rangeplan::layer_needs's choice, over word addresses from
 // each layer's exact reciprocal), tests them against the shared masks and
