@@ -59,11 +59,24 @@ Phases, one line of output each:
    TTL filter (4 generations) of 2,000,000 keys through
    ``backend="partitioned"`` equal to their twins; B7/B8 timed on the
    grown filter beside B2/B3 on the same filter and chunk, in turns; each
-   partitioned wrapper call is one device operation under the profiler.
+   partitioned wrapper call is one device operation under the profiler
+   (counted from the trace's host-side enqueue records, each device record
+   joined to its own by correlation id, and the wrapper's launch count
+   over the same calls).
    B7, B8 and B1 (on the state before and after ``grow``) are timed cold:
    each of 20 input chunks is captured once in the CUDA graph, so the
    others evict its sectors from the L2 before it comes round again; the
-   hot replay of one chunk rides beside it as ``ms_hot_replay``.
+   hot replay of one chunk rides beside it as ``ms_hot_replay``;
+9. 64-bit key domains on the plain path on the card, as in the reference
+   (no kernel takes a ``d > 32`` layout, and none is launched): ``mix64``
+   on the card against a numpy splitmix64 finalizer on 1,000,000 keys with
+   the top bit set; the default ``open_filter(FilterSpec(n=2_000_000,
+   bits_per_key=16))`` (u64, keys over the whole domain) and an f64 filter
+   of the same size with phase 3's query mix plus the domain's edges: no
+   false negatives, 65,536 verdicts equal to the same code on the CPU and
+   a state built on both equal; a d = 64 store with phase 7's settings and
+   mix (4,194,304 keys, 30% of the scans starting within a scan's width of
+   a stored key), every scan equal to a numpy oracle.
 
 It prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -212,17 +225,36 @@ def _grid(n: int, threads: int = 256) -> int:
     return -(-n // threads)
 
 
-def _device_busy(fn, reps: int = 4):
+#: host-side records of the calls that put work on a device: kernel
+#: launches, copies and sets (CUDA runtime and driver API)
+_ENQUEUE = r"^cu(da)?(Launch|Memcpy|Memset)"
+
+
+def _device_busy(fn, reps: int = 4, launches=None):
     """``fn``'s wall milliseconds per call (host clock, closed by a
     synchronize) beside the device time of the kernels and copies it ran
     and their count per call, from a ``torch.profiler`` trace of ``reps``
     calls (the profiler's own cost included in the wall time); None when
-    the trace holds no device time."""
+    the trace holds no device time.
+
+    The operations are counted from the trace's host-side records of the
+    calls that enqueue device work (CUPTI's API callbacks, taken in the
+    calling thread as each call returns), plus any device record that joins
+    none of them by correlation id.  A device record is delivered later,
+    from CUPTI's activity buffers, and can be missing from a trace whose
+    enqueue record is there (PERF.md §7): it is counted in
+    ``device_records_missing`` and its time is not in ``device_ms``.
+    ``launches`` (a wrapper's own launch count) must move by exactly
+    ``reps`` over the traced calls."""
+    import re
+
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    before = launches() if launches else None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -230,16 +262,24 @@ def _device_busy(fn, reps: int = 4):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us, ops = 0.0, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            dev_us += e.time_range.elapsed_us()
-            ops += 1
+    if launches and launches() - before != reps:
+        raise AssertionError(f"{launches() - before} launches counted over "
+                             f"{reps} traced calls")
+    raw = prof.profiler.kineto_results.events()
+    enqueued = {e.correlation_id() for e in raw
+                if e.device_type() == DeviceType.CPU
+                and re.match(_ENQUEUE, e.name())}
+    device = [e for e in raw if e.device_type() != DeviceType.CPU]
+    dev_us = sum(e.end_ns() - e.start_ns() for e in device) / 1e3
+    joined = {e.correlation_id() for e in device} & enqueued
+    orphans = sum(e.correlation_id() not in enqueued for e in device)
     if not dev_us:
         return None
     return {"wall_ms": wall / reps * 1e3, "device_ms": dev_us / reps / 1e3,
             "device_busy_share": dev_us / 1e6 / wall,
-            "device_ops_per_call": ops / reps}
+            "device_ops_per_call": (len(enqueued) + orphans) / reps,
+            "device_records": len(device),
+            "device_records_missing": len(enqueued - joined)}
 
 
 def _pair_halves(delta, par, qlo, qhi):
@@ -381,15 +421,17 @@ def _range_read_sectors(probe, flat, lo, hi, run=None) -> int:
 
 def _queries(rng, n_keys, keys, top):
     """Half present / half uniform point queries, and ranges with lengths
-    log-uniform in 2^0..2^14 from uniform starts (mostly empty)."""
+    log-uniform in 2^0..2^14 from uniform starts (mostly empty), clipped at
+    ``top`` (up to 2^64 - 1)."""
     import numpy as np
 
     pq = np.concatenate([rng.choice(keys, n_keys // 2),
-                         rng.integers(0, top + 1, n_keys - n_keys // 2,
-                                      dtype=np.uint64)])
-    lo = rng.integers(0, top + 1, n_keys, dtype=np.uint64)
-    length = np.floor(np.exp2(rng.uniform(0, 14, n_keys))).astype(np.uint64)
-    hi = np.minimum(lo + length - np.uint64(1), np.uint64(top))
+                         rng.integers(0, top, n_keys - n_keys // 2,
+                                      dtype=np.uint64, endpoint=True)])
+    lo = rng.integers(0, top, n_keys, dtype=np.uint64, endpoint=True)
+    span = np.floor(np.exp2(rng.uniform(0, 14, n_keys))).astype(np.uint64) \
+        - np.uint64(1)
+    hi = np.where(lo > np.uint64(top) - span, np.uint64(top), lo + span)
     return pq, lo, hi
 
 
@@ -752,8 +794,7 @@ def phase_stacked_vs_plain(device, kernels, errs, big_layout):
     import torch
 
     from repro_torch.core import BloomRF, stacked_probe
-    from repro_torch.kernels import (FilterOps, _build, build_run_stack,
-                                     insert_resident)
+    from repro_torch.kernels import FilterOps, build_run_stack, insert_resident
     from repro_torch.kernels.store_scan import store_scan_probe_flat
 
     rng = np.random.default_rng(SEED + 6)
@@ -838,13 +879,12 @@ def phase_stacked_vs_plain(device, kernels, errs, big_layout):
     # probes need most sectors at this batch) the whole stack once
     stack_b = rows * lay.total_u32 * 4
     sectors = _range_read_sectors(probe, flat, tlo, thi)
-    # B5: a thread a query, the descriptor in its parameters; B6: a thread
-    # a (query, row) cell, the descriptor in shared memory
+    # B5: a thread a query over every row; B6: a thread a (query, row)
+    # cell; both with the descriptor in the launch's parameters
     floors = {"range_stacked": _floor_ms(device, _grid(CHUNK), 256, 0,
                                          param=True),
-              "point_stacked": _floor_ms(
-                  device, _grid(CHUNK), 256,
-                  _build.device_descriptor(lay, device).numel() * 4, rows)}
+              "point_stacked": _floor_ms(device, _grid(CHUNK), 256, 0, rows,
+                                         param=True)}
     times = {}
     for name, kern, plain_fn, nbytes in (
             ("range_stacked", lambda: rstack(lay, stack, tlo, thi),
@@ -895,6 +935,54 @@ def _scan_ends(lo):
     return np.minimum(lo + np.uint64(RSIZE - 1), np.uint64((1 << 32) - 1))
 
 
+def _ycsb_e(h, data, lo, hi, ins):
+    """The store's load (``put`` of every key of ``data``, value its index,
+    then a flush) and YCSB-E mix (the scans in batches of SCAN_BATCH, the
+    inserts, value 0, spread between them); returns the scan results, each
+    batch's count of inserts before it, and the load and mix seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    for i, k in enumerate(data):
+        h.put(int(k), i)
+    h.flush()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    results, done = [], []
+    done_ins = 0
+    for s in range(0, len(lo), SCAN_BATCH):
+        done.append(done_ins)
+        results += h.scan_many(lo[s:s + SCAN_BATCH], hi[s:s + SCAN_BATCH])
+        owed = round(len(ins) * min(s + SCAN_BATCH, len(lo)) / len(lo))
+        for k in ins[done_ins:owed]:
+            h.put(int(k), 0)
+        done_ins = owed
+    return results, done, t1 - t0, time.perf_counter() - t1
+
+
+def _scan_mismatches(data, ins, lo, hi, done, results) -> int:
+    """Scans that differ from a numpy oracle of the store's contents when
+    each batch ran (last write wins; the mixed phase's inserts carry value
+    0)."""
+    import numpy as np
+
+    rev = data[::-1]
+    keys, first = np.unique(rev, return_index=True)
+    vals = len(data) - 1 - first
+    bad = 0
+    for b in range(len(done)):
+        extra = np.unique(ins[:done[b]])
+        for j in range(b * SCAN_BATCH, min((b + 1) * SCAN_BATCH, len(lo))):
+            a = np.searchsorted(keys, lo[j], side="left")
+            z = np.searchsorted(keys, hi[j], side="right")
+            want = dict(zip(keys[a:z].tolist(), vals[a:z].tolist()))
+            ea = np.searchsorted(extra, lo[j], side="left")
+            ez = np.searchsorted(extra, hi[j], side="right")
+            want.update((int(k), 0) for k in extra[ea:ez])
+            bad += results[j] != sorted(want.items())
+    return bad
+
+
 def _record_builds(st) -> dict:
     """Watch a store's filter builds: every build's key count, and the
     ``(layout, keys)`` of the first (a level-0 flush) and of the largest."""
@@ -939,22 +1027,7 @@ def phase_store(device, kernels, errs):
         dtype="u32", placement="store", memtable_limit=8192, level0_runs=8,
         fanout=4, bits_per_key=14.0, delta=6))
     builds = _record_builds(h.store)
-    t0 = time.perf_counter()
-    for i, k in enumerate(data):
-        h.put(int(k), i)
-    h.flush()
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    results, done = [], []
-    done_ins = 0
-    for s in range(0, n_scans, SCAN_BATCH):
-        done.append(done_ins)
-        results += h.scan_many(lo[s:s + SCAN_BATCH], hi[s:s + SCAN_BATCH])
-        owed = round(n_ins * min(s + SCAN_BATCH, n_scans) / n_scans)
-        for k in ins[done_ins:owed]:
-            h.put(int(k), 0)
-        done_ins = owed
-    t2 = time.perf_counter()
+    results, done, load_s, mix_s = _ycsb_e(h, data, lo, hi, ins)
     launches = {name: k["fn"].launches for name, k in kernels.items()}
     n_batches = n_scans // SCAN_BATCH
     st = h.store
@@ -971,22 +1044,7 @@ def phase_store(device, kernels, errs):
     if st.stats.kernel_fallbacks:
         raise AssertionError(f"{st.stats.kernel_fallbacks} kernel fallbacks")
 
-    # every scan against the numpy oracle (last write wins; the mixed
-    # phase's inserts carry value 0)
-    rev = data[::-1]
-    keys, first = np.unique(rev, return_index=True)
-    vals = len(data) - 1 - first
-    bad = 0
-    for b in range(n_batches):
-        extra = np.unique(ins[:done[b]])
-        for j in range(b * SCAN_BATCH, (b + 1) * SCAN_BATCH):
-            a = np.searchsorted(keys, lo[j], side="left")
-            z = np.searchsorted(keys, hi[j], side="right")
-            want = dict(zip(keys[a:z].tolist(), vals[a:z].tolist()))
-            ea = np.searchsorted(extra, lo[j], side="left")
-            ez = np.searchsorted(extra, hi[j], side="right")
-            want.update((int(k), 0) for k in extra[ea:ez])
-            bad += results[j] != sorted(want.items())
+    bad = _scan_mismatches(data, ins, lo, hi, done, results)
     if bad:
         raise AssertionError(f"{bad} scans differ from the oracle")
 
@@ -1077,8 +1135,8 @@ def phase_store(device, kernels, errs):
         "flat_filter_mib": flat_b / 2**20,
         "runs_probed_per_scan": stats.runs_probed_per_scan,
         "scan_fp_read_rate": stats.scan_fp_read_rate,
-        "load_puts_per_s": STORE_KEYS / (t1 - t0),
-        "host_scans_per_s": n_scans / (t2 - t1),
+        "load_puts_per_s": STORE_KEYS / load_s,
+        "host_scans_per_s": n_scans / mix_s,
         "device_plane_us_per_scan": (t4 - t3) / n_scans * 1e6,
         "device_runs_probed_per_scan": int(acc[0]) / n_scans,
         "device_fence_pass_per_scan": int(acc[1]) / n_scans,
@@ -1121,7 +1179,8 @@ def _truth_on_card(sorted_keys, pq, lo, hi, device):
 
 def _point_read_sectors(f, state, keys) -> int:
     """Distinct 32-byte sectors a point probe needs: each key's positions
-    in order up to its first clear bit (``point_one``'s early exit)."""
+    in order up to its first clear bit (``rangeplan::point_verdict``'s early
+    exit)."""
     import torch
 
     from repro_torch.core.bloomrf import lanes_u32
@@ -1396,8 +1455,10 @@ def phase_hbm(device, kernels, errs):
                                                                   plan), 10),
     }
     traces = {
-        "point_part_call": _device_busy(lambda: ppart(lay, state, tq)),
-        "range_part_call": _device_busy(lambda: rpart(lay, state, tlo, thi)),
+        "point_part_call": _device_busy(lambda: ppart(lay, state, tq),
+                                        launches=lambda: ppart.launches),
+        "range_part_call": _device_busy(lambda: rpart(lay, state, tlo, thi),
+                                        launches=lambda: rpart.launches),
         "facade_point_chunk": _device_busy(lambda: h.point(pq)),
         "facade_range_chunk": _device_busy(lambda: h.range(lo, hi)),
     }
@@ -1423,6 +1484,169 @@ def phase_hbm(device, kernels, errs):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 9: 64-bit key domains (the plain path on the card)
+# ---------------------------------------------------------------------------
+
+WIDE_KEYS = 2_000_000     # the u64 and f64 filters (phase 3's size)
+WIDE_STORE_KEYS = STORE_KEYS  # the d = 64 store's load, phase 7's
+SUBSAMPLE = 1 << 16       # queries answered again on the CPU
+MIX64_KEYS = 1_000_000
+
+
+def _mix64_np(x):
+    """The splitmix64 finalizer in numpy uint64 (multiplies wrap)."""
+    import numpy as np
+
+    with np.errstate(over="ignore"):
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return x ^ (x >> np.uint64(31))
+
+
+def _wide_filter(dtype, keys, pq, lo, hi, codes):
+    """One 64-bit single filter through the default ``open_filter`` (the
+    plain engine on the card): inserted in chunks, then probed; zero false
+    negatives against numpy truth on the codes; a subsample's verdicts
+    equal to the same code on the CPU holding the card's state; a filter of
+    the subsample's keys built on both devices to the same state."""
+    import numpy as np
+
+    import repro_torch
+
+    spec = repro_torch.FilterSpec(dtype=dtype, n=WIDE_KEYS, bits_per_key=16.0)
+    h = repro_torch.open_filter(spec)
+    if h.backend != "xla" or h.codec.d != 64:
+        raise AssertionError(f"{dtype}: backend {h.backend}, d {h.codec.d}")
+    t0 = time.perf_counter()
+    h.insert(keys)
+    t1 = time.perf_counter()
+    pres = h.point(pq)
+    t2 = time.perf_counter()
+    rres = h.range(lo, hi)
+    t3 = time.perf_counter()
+    rates = {"insert_keys_per_s": len(keys) / (t1 - t0),
+             "point_queries_per_s": len(pq) / (t2 - t1),
+             "range_queries_per_s": len(lo) / (t3 - t2)}
+    if h.state.device.type != "cuda":
+        raise AssertionError(f"{dtype}: state on {h.state.device}")
+    clo, chi = codes(lo), codes(hi)          # a swapped range is its swap
+    ptruth, rtruth = _truth(codes(keys), codes(pq), np.minimum(clo, chi),
+                            np.maximum(clo, chi))
+    fn_p, fn_r = int((ptruth & ~pres).sum()), int((rtruth & ~rres).sum())
+    if fn_p or fn_r:
+        raise AssertionError(f"{dtype}: false negatives: point {fn_p}, "
+                             f"range {fn_r}")
+    host = repro_torch.open_filter(spec, device="cpu")
+    host.load_state(h.state_numpy())
+    sub = slice(0, SUBSAMPLE // 2), slice(len(pq) - SUBSAMPLE // 2, None)
+    qs = np.concatenate([pq[sub[0]], pq[sub[1]]])
+    if not (np.array_equal(host.point(qs), h.point(qs))
+            and np.array_equal(host.range(lo[:SUBSAMPLE], hi[:SUBSAMPLE]),
+                               rres[:SUBSAMPLE])):
+        raise AssertionError(f"{dtype}: verdicts differ from the CPU")
+    small = [repro_torch.open_filter(spec, device=d) for d in (None, "cpu")]
+    for x in small:
+        x.insert(keys[:SUBSAMPLE])
+    if not np.array_equal(small[0].state_numpy(), small[1].state_numpy()):
+        raise AssertionError(f"{dtype}: state differs from the CPU's")
+    return {"lanes": h.layout.total_u32,
+            "layout": {"deltas": h.layout.deltas,
+                       "replicas": h.layout.replicas},
+            "point_fpr": float((pres & ~ptruth).sum()
+                               / max((~ptruth).sum(), 1)),
+            "range_fpr": float((rres & ~rtruth).sum()
+                               / max((~rtruth).sum(), 1)),
+            **rates}
+
+
+def phase_wide(device, kernels):
+    """Phase 9: 64-bit key domains, on the plain path on the card as in
+    the reference (no kernel takes a d > 32 layout): ``mix64`` on the card
+    against numpy; the default ``open_filter`` (u64) and an f64 filter of
+    2,000,000 keys; a d = 64 LSM store under phase 7's YCSB-E settings.
+    No kernel launches."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.core import codecs, hashing, uint64
+
+    for k in kernels.values():
+        k["fn"].launches = 0
+    rng = np.random.default_rng(SEED + 9)
+    top = (1 << 64) - 1
+    x = rng.integers(0, 1 << 63, MIX64_KEYS, dtype=np.uint64) \
+        | np.uint64(1 << 63)
+    got = hashing.mix64(uint64.carrier(x, device)).cpu().numpy()
+    if not np.array_equal(got.view(np.uint64), _mix64_np(x)):
+        raise AssertionError("mix64 on the card != numpy's")
+
+    out = {}
+    # (a) the default spec: u64 keys over the whole domain
+    keys = rng.integers(0, top, WIDE_KEYS, dtype=np.uint64, endpoint=True)
+    pq, lo, hi = _queries(rng, 1 << 20, keys, top)
+    edges = [(0, top), (0, 0), (top, top), (top - 9, top), (top, 0),
+             ((1 << 63) - 5, (1 << 63) + 5), (1 << 63, (1 << 63) - 1)]
+    lo[-len(edges):] = [a for a, _ in edges]
+    hi[-len(edges):] = [b for _, b in edges]
+    out["u64"] = _wide_filter("u64", keys, pq, lo, hi,
+                              lambda a: np.asarray(a, np.uint64))
+    # (b) f64 keys, with both zeros
+    fkeys = np.concatenate([[-0.0, 0.0], rng.normal(0, 1e6, WIDE_KEYS - 2)])
+    fq = np.concatenate([rng.choice(fkeys, 1 << 19),
+                         rng.normal(0, 1e6, 1 << 19)])
+    flo = rng.normal(0, 1e6, 1 << 20)
+    fhi = flo + np.exp2(rng.uniform(-10, 4, 1 << 20))
+    out["f64"] = _wide_filter("f64", fkeys, fq, flo, fhi,
+                              codecs.float64_to_u64)
+
+    # (c) the d = 64 store: phase 7's settings and mix, 64-bit keys
+    data = rng.integers(0, top, WIDE_STORE_KEYS, dtype=np.uint64,
+                        endpoint=True)
+    n_scans = max(int(STORE_OPS * 0.95) // SCAN_BATCH, 1) * SCAN_BATCH
+    n_ins = STORE_OPS - n_scans
+    slo = rng.integers(0, top - RSIZE, n_scans, dtype=np.uint64,
+                       endpoint=True)
+    # 30% start within a scan's width of a stored key: hits and near misses
+    near = rng.random(n_scans) < 0.3
+    anchor = np.clip(data[rng.integers(0, len(data), near.sum())],
+                     np.uint64(RSIZE), np.uint64(top - 3 * RSIZE))
+    slo[near] = anchor + rng.integers(0, 2 * RSIZE, near.sum(),
+                                      dtype=np.uint64) - np.uint64(RSIZE)
+    shi = slo + np.uint64(RSIZE - 1)
+    ins = rng.integers(0, top, n_ins, dtype=np.uint64, endpoint=True)
+    h = repro_torch.open_filter(repro_torch.FilterSpec(
+        dtype="u64", placement="store", memtable_limit=8192, level0_runs=8,
+        fanout=4, bits_per_key=14.0, delta=6))
+    results, done, load_s, mix_s = _ycsb_e(h, data, slo, shi, ins)
+    st = h.store
+    bad = _scan_mismatches(data, ins, slo, shi, done, results)
+    if bad:
+        raise AssertionError(f"d = 64 store: {bad} scans differ from the "
+                             f"oracle")
+    if st._scan_kernel_mode() != "xla" or any(
+            r.state.device.type != "cuda" for r in st.live_runs()):
+        raise AssertionError("d = 64 store: not the plain path on the card")
+    launches = {k: v["fn"].launches for k, v in kernels.items()}
+    if any(launches.values()):
+        raise AssertionError(f"64-bit phase launched kernels: {launches}")
+    torch.cuda.synchronize()
+    out["store"] = {
+        "keys": WIDE_STORE_KEYS, "scans": n_scans, "inserts": n_ins,
+        "runs": len(st.live_runs()), "filter_builds": st.filter_builds,
+        "rebuild_merges": st.stats.rebuild_merges,
+        "or_merges": st.stats.or_merges,
+        "nonempty_scans": sum(1 for r in results if r),
+        "runs_probed_per_scan": st.stats.runs_probed_per_scan,
+        "scan_fp_read_rate": st.stats.scan_fp_read_rate,
+        "load_puts_per_s": WIDE_STORE_KEYS / load_s,
+        "host_scans_per_s": n_scans / mix_s}
+    out["mix64_keys_checked"] = MIX64_KEYS
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1442,11 +1666,11 @@ def main() -> int:
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    print(f"[1/8] card: {smi} | torch: {name} | torch {torch.__version__} "
+    print(f"[1/9] card: {smi} | torch: {name} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
-    print(f"[1/8] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
+    print(f"[1/9] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
           flush=True)
-    print(f"[1/8] registers and spills (nvcc -Xptxas -v): "
+    print(f"[1/9] registers and spills (nvcc -Xptxas -v): "
           f"{json.dumps(_ptxas_usage())}", flush=True)
 
     src, rep = "src/repro_torch/csrc/", "src/repro/kernels/"
@@ -1487,7 +1711,7 @@ def main() -> int:
     errs = {k: 0 for k in kernels}
     t0 = time.perf_counter()
     n_lay = phase_kernels_vs_plain(device, kernels, errs, big)
-    print(f"[2/8] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
+    print(f"[2/9] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
           f"top==d, W=64+replicas, multi-segment, exact, full size; B7/B8 "
           f"also on odd batches and replicas 3 and 5, against plain "
           f"versions bucketed at blocks of 256, "
@@ -1498,22 +1722,22 @@ def main() -> int:
                                expect(insert=8, point=4, range=4), kernels)
     if main_run["layout"]["deltas"] != big.deltas:
         raise AssertionError(f"main-path layout {main_run['layout']}")
-    print(f"[3/8] main path {json.dumps(main_run)}", flush=True)
+    print(f"[3/9] main path {json.dumps(main_run)}", flush=True)
     large = phase_main_path(10_000_000, "resident", name,
                             expect(insert=39, point=4, range=4), kernels,
                             time_range=True)
-    print(f"[4/8] resident 10M {json.dumps(large)}", flush=True)
+    print(f"[4/9] resident 10M {json.dumps(large)}", flush=True)
 
     single = {k: kernels[k] for k in ("insert", "point", "range")}
     times = phase_times(device, big, single)
-    print(f"[5/8] times at {CHUNK} keys/queries, filter "
+    print(f"[5/9] times at {CHUNK} keys/queries, filter "
           f"{big.total_u32 * 4} B, on {smi}: {json.dumps(times)}", flush=True)
 
     t0 = time.perf_counter()
     stacked = phase_stacked_vs_plain(device, kernels, errs, big)
     stacked_times = stacked.pop("times")
     times.update(stacked_times)
-    print(f"[6/8] B4 == plain on {stacked['scan_cells_checked']} (scan, run) "
+    print(f"[6/9] B4 == plain on {stacked['scan_cells_checked']} (scan, run) "
           f"cells (mixed Δ, multi-segment, replicas, capacity ladder; padded "
           f"and flat stacks, rpb 0/2, quarantine, edge bounds); B5/B6 == "
           f"plain on {stacked['stacked_rows']} rows of the phase-3 layout: "
@@ -1535,7 +1759,7 @@ def main() -> int:
     store = phase_store(device, kernels, errs)
     times["store_scan"] = store.pop("times")
     b1_shapes.update(store.pop("b1_shapes"))
-    print(f"[7/8] store, {STORE_KEYS} keys loaded by put (the key count is "
+    print(f"[7/9] store, {STORE_KEYS} keys loaded by put (the key count is "
           f"set by the host's per-key Python load path, not by the card), "
           f"YCSB-E: every scan == numpy oracle, every batch's (fence, touch) "
           f"== plain touch_all, {store['launches']} B4 launches for "
@@ -1551,7 +1775,7 @@ def main() -> int:
     hbm = phase_hbm(device, kernels, errs)
     times.update(hbm.pop("times"))
     b1_shapes.update(hbm.pop("b1_shapes"))
-    print(f"[8/8] HBM-scale filter, {HBM_KEYS} keys under auto, grown x{GROW} "
+    print(f"[8/9] HBM-scale filter, {HBM_KEYS} keys under auto, grown x{GROW} "
           f"in place to {HBM_KEYS * GROW}: no false negatives over all keys "
           f"(truth sorted on the card), state and verdicts == xla twin, "
           f"launches {json.dumps(hbm['launches'])}; deletable and TTL "
@@ -1564,16 +1788,31 @@ def main() -> int:
     if errs["insert"]:
         raise AssertionError(f"B1 != plain on a traffic shape: {errs}")
     times["insert"]["shapes"] = b1_shapes
-    print(f"[8/8] B1 alone on its traffic shapes ((a) the phase-3 filter in "
+    print(f"[8/9] B1 alone on its traffic shapes ((a) the phase-3 filter in "
           f"the L2, (b) phase 8's states cold, each of {COLD_CHUNKS} chunks "
           f"captured once, (c) phase 7's flush and largest rebuild, sorted "
           f"keys) on {smi}: {json.dumps(b1_shapes)}", flush=True)
 
     call_ms = {k: t.pop("call_ms") for k, t in times.items()}
-    print(f"[8/8] kernel wrappers' ms per call by CUDA events over 200 "
+    print(f"[8/9] kernel wrappers' ms per call by CUDA events over 200 "
           f"back-to-back calls, host dispatch included (the kernels line's "
           f"ms is the kernel alone, from a CUDA graph): "
           f"{json.dumps(call_ms)}", flush=True)
+    t0 = time.perf_counter()
+    wide = phase_wide(device, kernels)
+    beside = {"phase3_u32": {k: main_run[k] for k in (
+        "insert_keys_per_s", "point_queries_per_s", "range_queries_per_s")},
+              "phase7_store": {k: store[k] for k in (
+                  "load_puts_per_s", "host_scans_per_s")}}
+    print(f"[9/9] 64-bit keys on the plain path on the card, no kernel "
+          f"launched: mix64 == numpy on {MIX64_KEYS} keys with the top bit "
+          f"set; the default open_filter (u64) and an f64 filter of "
+          f"{WIDE_KEYS} keys with no false negatives, {SUBSAMPLE} verdicts "
+          f"== the CPU's; a d = 64 store of {WIDE_STORE_KEYS} keys (phase "
+          f"7's load), "
+          f"YCSB-E scans == numpy oracle: {json.dumps(wide)}; beside "
+          f"{json.dumps(beside)}, on {smi} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     times["insert"]["launches_by_path"] = {
         "phase3_main": main_run["launches"]["insert"],
         "phase7_store_builds": store["b1_launches"],

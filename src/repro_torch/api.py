@@ -1,19 +1,20 @@
 """The typed filter façade: one ``FilterSpec -> open_filter()`` front door.
 
 Counterpart of ``repro/api.py`` for the single and store placements and
-key domains of ``d <= 32`` bits (dtypes ``u8``, ``u16``, ``u32`` and
-``f32``).  A :class:`FilterSpec` is validated exactly as in ``repro``, so
-the same spec describes the same filter in both packages.  For
-``placement="store"`` :func:`open_filter` returns a :class:`TypedStore`
-(the LSM store of ``store/`` behind the codecs); for ``"single"`` a
-:class:`SingleFilter` that
+every dtype: ``u8``, ``u16``, ``u32``, ``u64`` (the default), ``f32``,
+``f64``, ``str`` and ``multiattr``.  A :class:`FilterSpec` is validated
+exactly as in ``repro``, so the same spec describes the same filter in both
+packages.  For ``placement="store"`` :func:`open_filter` returns a
+:class:`TypedStore` (the LSM store of ``store/`` behind the codecs; integer
+and float keys only); for ``"single"`` a :class:`SingleFilter` that
 
 * routes every insert/point/range through the order-preserving codecs of
   ``core/codecs.py``;
 * chooses the layout through ``core/tuning.py`` (the paper's §7 advisor) or
   the tuning-free ``basic_layout``, as ``repro`` does;
 * dispatches to the CUDA kernels (``kernels/ops.py``: the resident or the
-  partitioned tier by size) or to the plain engine path;
+  partitioned tier by size) or to the plain engine path, which serves
+  every key domain above 32 bits, as the reference's XLA path does;
 * deletes keys, ages them out, and grows in place through
   ``core/dynamic.py`` (``mutability="deletable"`` / ``"ttl"``, ``grow``).
 
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from .core import codecs as _cd
+from .core import uint64 as _u64
 from .core.bloomrf import resolve_device
 from .core.layout import basic_layout
 
@@ -72,6 +74,9 @@ class _Codec:
     def encode_bounds(self, lo, hi) -> tuple:
         return self.encode_point(lo), self.encode_point(hi)
 
+    def decode(self, code):
+        raise NotImplementedError(f"{self.name} codes do not decode")
+
 
 class _UIntCodec(_Codec):
     def __init__(self, bits: int):
@@ -80,10 +85,28 @@ class _UIntCodec(_Codec):
 
     def encode_point(self, qs) -> np.ndarray:
         arr = np.atleast_1d(np.asarray(qs, np.uint64))
-        if (arr >> np.uint64(self.d)).any():
+        if self.d < 64 and (arr >> np.uint64(self.d)).any():
             raise ValueError(
                 f"{self.name} keys must fit the {self.d}-bit domain")
         return arr
+
+    def decode(self, code):
+        return np.asarray(code, np.uint64)
+
+
+class _Float64Codec(_Codec):
+    name = "f64"
+    d = 64
+
+    def encode_point(self, qs) -> np.ndarray:
+        arr = np.atleast_1d(np.asarray(qs, np.float64))
+        if np.isnan(arr).any():
+            raise ValueError("f64 keys must not be NaN (the order-preserving "
+                             "φ map has no total order for NaN)")
+        return _cd.float64_to_u64(arr)
+
+    def decode(self, code):
+        return _cd.u64_to_float64(np.asarray(code, np.uint64))
 
 
 class _Float32Codec(_Codec):
@@ -101,15 +124,80 @@ class _Float32Codec(_Codec):
         return _cd.u32_to_float32(np.asarray(code, np.uint32))
 
 
+class _StrCodec(_Codec):
+    """SuRF-Hash-style string codes (7-byte prefix + tail hash, paper §8).
+
+    Codes are *not* injective (two strings may share a code), so range
+    probes are FN-free supersets over the 7-byte prefix order."""
+
+    name = "str"
+    d = 64
+
+    def encode_point(self, qs) -> np.ndarray:
+        if isinstance(qs, (str, bytes)):
+            qs = [qs]
+        return np.asarray([_cd.string_point_code(s) for s in qs], np.uint64)
+
+    def encode_bounds(self, lo, hi) -> tuple:
+        if isinstance(lo, (str, bytes)):
+            lo, hi = [lo], [hi]
+        pairs = [_cd.string_range_bounds(a, b) for a, b in zip(lo, hi)]
+        return (np.asarray([p[0] for p in pairs], np.uint64),
+                np.asarray([p[1] for p in pairs], np.uint64))
+
+
+class _MultiAttrCodec(_Codec):
+    """Two reduced-precision 32-bit attributes, concatenated in both orders
+    (paper §8).  Keys and query bounds are ``(a, b)`` pairs; inserts set
+    both the <A,B> and <B,A> codes so conjunctive predicates on either
+    attribute map to one range probe."""
+
+    name = "multiattr"
+    d = 64
+    codes_per_key = 2
+
+    @staticmethod
+    def _pair(key) -> tuple:
+        """``(a, b)`` uint64 vectors from a scalar pair ``(a, b)``, the
+        column form ``(a_vector, b_vector)`` or ``(N, 2)`` rows; the
+        ambiguous 2x2 case reads as the column form."""
+        arr = np.asarray(key, np.uint64)
+        if arr.ndim == 1 and arr.shape[0] == 2:        # one (a, b) pair
+            a, b = arr[0:1], arr[1:2]
+        elif arr.ndim == 2 and arr.shape[0] == 2:      # (a_vec, b_vec)
+            a, b = arr[0], arr[1]
+        elif arr.ndim == 2 and arr.shape[1] == 2:      # rows of (a, b)
+            a, b = arr[:, 0], arr[:, 1]
+        else:
+            raise ValueError(
+                f"multiattr keys are (a, b) pairs, column vectors, or "
+                f"(N, 2) rows; got array of shape {arr.shape}")
+        if (a >> np.uint64(32)).any() or (b >> np.uint64(32)).any():
+            raise ValueError("multiattr attributes must fit 32 bits")
+        return a, b
+
+    def encode_insert(self, keys) -> np.ndarray:
+        ab, ba = _cd.multiattr_insert_codes(*self._pair(keys))
+        return np.concatenate([ab, ba])
+
+    def encode_point(self, qs) -> np.ndarray:
+        return _cd.pack2x32(*self._pair(qs))
+
+    def mirrored_bounds(self, b_const, a_lo, a_hi) -> tuple:
+        """<B,A> code bounds for ``B == b_const AND A in [a_lo, a_hi]``."""
+        return _cd.multiattr_range_for_a_eq_b_range(
+            np.atleast_1d(np.asarray(b_const, np.uint64)),
+            np.asarray(a_lo, np.uint64), np.asarray(a_hi, np.uint64))
+
+    def decode(self, code):
+        return _cd.unpack2x32(np.asarray(code, np.uint64))
+
+
 def _codec_for(dtype: str) -> _Codec:
-    if dtype in ("u8", "u16", "u32"):
+    if dtype in ("u8", "u16", "u32", "u64"):
         return _UIntCodec(int(dtype[1:]))
-    if dtype == "f32":
-        return _Float32Codec()
-    raise NotImplementedError(
-        f"dtype={dtype!r} needs a 64-bit key domain, which is not ported yet "
-        f"(ROADMAP A.1: mix64, unsigned modulo and the u64/f64/str/multiattr "
-        f"codecs)")
+    return {"f32": _Float32Codec, "f64": _Float64Codec,
+            "str": _StrCodec, "multiattr": _MultiAttrCodec}[dtype]()
 
 
 # ---------------------------------------------------------------------------
@@ -265,8 +353,8 @@ class FilterSpec:
 # ---------------------------------------------------------------------------
 
 def _codes_tensor(codes: np.ndarray, device) -> torch.Tensor:
-    """uint32 codes (held in uint64) -> an int64 carrier tensor on device."""
-    return torch.from_numpy(np.ascontiguousarray(codes, np.int64)).to(device)
+    """uint codes (held in uint64) -> an int64 carrier tensor on device."""
+    return _u64.carrier(codes, device)
 
 
 def chunked_probe(fn, state, arrays, device, chunk: int) -> np.ndarray:
@@ -303,7 +391,8 @@ class SingleFilter:
     """One bloomRF on one device: the CUDA kernels or the plain engine path.
 
     ``backend='auto'`` uses the kernels on a CUDA device wherever they
-    apply (hashed layout, d <= 32) and the engine path otherwise; the
+    apply (hashed layout, d <= 32) and the engine path otherwise (on the
+    filter's device, CUDA included); the
     kernels' tier (resident or partitioned) follows the filter's size, as
     in ``repro``.  ``resident`` and ``partitioned`` force a tier (exact
     layouts' range queries still take the engine path); ``xla`` forces the
@@ -325,6 +414,7 @@ class SingleFilter:
         backend = spec.backend
         if backend == "auto":
             backend = "kernels" if (self.device.type == "cuda"
+                                    and codec.d <= 32
                                     and not layout.has_exact) else "xla"
         self.backend = backend
         self._bind_layout(layout)
@@ -485,6 +575,17 @@ class SingleFilter:
         return chunked_probe(self._range, self.state, [clo, chi],
                              self.device, self.spec.chunk)
 
+    def range_where_b(self, b_const, a_lo, a_hi) -> np.ndarray:
+        """Multiattr: ``B == b_const AND A in [a_lo, a_hi]`` via <B,A>
+        codes."""
+        if self.codec.name != "multiattr":
+            raise TypeError(
+                f"conjunctive-predicate probes need dtype='multiattr', "
+                f"this filter holds {self.codec.name} keys")
+        clo, chi = self.codec.mirrored_bounds(b_const, a_lo, a_hi)
+        return chunked_probe(self._range, self.state, [clo, chi],
+                             self.device, self.spec.chunk)
+
     def size_bits(self) -> int:
         return self.layout.total_bits
 
@@ -493,23 +594,24 @@ class SingleFilter:
         raise NotImplementedError(
             "live FPR telemetry needs obs/ (ROADMAP A.7)")
 
-    def range_where_b(self, b_const, a_lo, a_hi) -> np.ndarray:
-        raise NotImplementedError(
-            "multiattr keys need a 64-bit key domain (ROADMAP A.1)")
-
 
 class TypedStore:
     """The LSM run-store behind the codec boundary: typed put/get/scan.
 
     Integer and float keys are bijective codes, so scans decode back to the
     caller's key type exactly.  The store runs its scans through the
-    store-scan kernel on a CUDA device (``scan_backend="auto"``), or through
-    the plain ``StackedProbe`` when ``spec.backend == "xla"``, as in
-    ``repro``."""
+    store-scan kernel on a CUDA device (``scan_backend="auto"``, d <= 32),
+    or through the plain ``StackedProbe`` at d > 32 or when ``spec.backend
+    == "xla"``, as in ``repro``.  The ``str`` and ``multiattr`` stores
+    (string buckets, pair bounds) are not ported yet."""
 
     def __init__(self, spec: FilterSpec, codec: _Codec, device):
         from .store.store import Store, StoreConfig
 
+        if codec.name in ("str", "multiattr"):
+            raise NotImplementedError(
+                f"the {codec.name} store (string buckets and pair bounds) "
+                f"is not ported yet (ROADMAP A.3c)")
         self.spec = spec
         self.codec = codec
         delta = spec.delta if spec.delta is not None else 6
@@ -568,7 +670,7 @@ class TypedStore:
         """Batched typed scans: one pruning step for the batch."""
         clo, chi = self.codec.encode_bounds(np.asarray(los), np.asarray(his))
         raw = self.store.scan_many(clo, chi)
-        if self.codec.name == "f32":
+        if self.codec.name in ("f32", "f64"):
             return [[(float(self.codec.decode(np.uint64(c))), v)
                      for c, v in rows] for rows in raw]
         return raw

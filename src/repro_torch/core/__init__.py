@@ -1,8 +1,9 @@
 """bloomRF core in PyTorch: layout, hashing, the filter and its probe engine.
 
-Counterpart of ``repro.core`` for key domains of ``d <= 32`` bits,
-with the dynamic-filter machinery of ``core/dynamic.py`` (deletion, aging,
-in-place growth).
+Counterpart of ``repro.core`` for key domains of up to 64 bits (int64
+carriers; ``core/uint64.py`` holds their unsigned arithmetic), with the
+dynamic-filter machinery of ``core/dynamic.py`` (deletion, aging, in-place
+growth).
 """
 from .bloomrf import BloomRF
 from .codecs import (float32_to_u32, float64_to_u64, multiattr_insert_codes,

@@ -1,16 +1,19 @@
 """bloomRF: point-range filter with prefix hashing and piecewise-monotone
 hash functions (PMHF), in plain PyTorch.
 
-Counterpart of ``repro/core/bloomrf.py`` for domains of ``d <= 32`` bits.
+Counterpart of ``repro/core/bloomrf.py``.
 
 * The filter state is a flat ``int32[total_u32]`` tensor ("lanes") holding
   the reference's uint32 bits unchanged.  A PMHF *word* of ``W = 2^{Δ-1}``
   bits is 1–2 lanes; words never straddle lanes.
-* Keys, bounds and every intermediate travel as ``int64`` tensors holding a
-  uint32 value.  Lanes read from the state are widened one gather at a time
-  with ``.to(torch.int64) & 0xFFFFFFFF``; the whole state is never widened.
-  Where the reference's uint32 add or subtract can wrap, the result is
-  masked back to 32 bits, so the values equal the reference's.
+* Keys, bounds and every intermediate travel as ``int64`` tensors: the
+  uint32 value for ``d <= 32``, where the reference's uint32 add or
+  subtract can wrap the result is masked back to 32 bits (``_wrap``); the
+  uint64 bits for ``d > 32``, where int64 arithmetic wraps as uint64 does
+  and compares, right shifts and the word-index modulo go through
+  ``core/uint64.py``.  Lanes read from the state are widened one gather at
+  a time with ``.to(torch.int64) & 0xFFFFFFFF``; the whole state is never
+  widened.
 * Everything is batched natively on ``(B,)`` vectors: the reference's
   ``vmap`` over a scalar function becomes a batch dimension written out.
 * ``point``/``range`` route through the plan->gather->combine engine
@@ -24,8 +27,10 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
+from . import uint64 as u64
 from .hashing import MASK32, key_dtype_for, mix
 from .layout import FilterLayout
 
@@ -86,8 +91,8 @@ def children_hit(delta: int, parent, qlo, qhi, nonempty, wa, wb):
     W = 1 << (delta - 1)
     base = parent << delta
     last = base | ((1 << delta) - 1)
-    qlo_c = torch.minimum(torch.maximum(qlo, base), last)
-    qhi_c = torch.minimum(torch.maximum(qhi, base), last)
+    qlo_c = u64.clamp(qlo, base, last)
+    qhi_c = u64.clamp(qhi, base, last)
     o_lo = qlo_c - base                                # 0..2W-1
     o_hi = qhi_c - base
     mAlo, mAhi = _mask_pair(o_lo, torch.clamp(o_hi, max=W - 1), W)
@@ -109,10 +114,13 @@ class BloomRF:
     def __init__(self, layout: FilterLayout, device=None):
         self.layout = layout
         self.kdtype = key_dtype_for(layout.d)
+        #: keys are uint64 bits (d > 32) rather than uint32 values
+        self.wide = layout.d > 32
         if layout.total_bits >= 1 << 31:
             raise ValueError(
-                f"bit positions are int32 for d <= 32 domains; a filter of "
-                f"{layout.total_bits} bits does not fit")
+                f"bit positions are int32 for d <= 32 domains, and word "
+                f"indices stay below 2^31; a filter of {layout.total_bits} "
+                f"bits does not fit")
         self.device = resolve_device(device)
         self._seeds = layout.seeds  # np.uint64 (k, rmax)
         self._engine = None
@@ -129,11 +137,23 @@ class BloomRF:
 
     # -- helpers ---------------------------------------------------------
     def _keys(self, v) -> torch.Tensor:
-        """Key codes as a 1-d int64 carrier (uint32 values)."""
-        return torch.atleast_1d(torch.as_tensor(v, dtype=self.kdtype)) & MASK32
+        """Key codes as a 1-d int64 carrier (a host uint64 array is taken
+        bit for bit)."""
+        if isinstance(v, np.ndarray) and v.dtype == np.uint64:
+            v = v.view(np.int64)
+        return self._wrap(torch.atleast_1d(torch.as_tensor(v,
+                                                           dtype=self.kdtype)))
+
+    def _wrap(self, v):
+        """A key-domain value after an add or subtract, as the reference's
+        uint32 (d <= 32) or uint64 arithmetic leaves it."""
+        return v if self.wide else v & MASK32
 
     def _shr(self, x, s: int):
-        """x >> s with the static s == d case (full shift-out) well-defined."""
+        """x >> s with the static s == d case (full shift-out) well-defined;
+        a logical shift of the uint64 bits for d > 32."""
+        if self.wide:
+            return u64.shr(x, s)
         if s >= self.layout.d and s >= 32:
             return torch.zeros_like(x)
         return x >> s
@@ -148,7 +168,8 @@ class BloomRF:
         lay = self.layout
         nw = lay.nwords(i)
         offbits = lay.seg_off_bits[lay.seg_of_layer[i]]
-        widx = mix(wordkey, self._seeds[i, rep], lay.d) % nw
+        h = mix(wordkey, self._seeds[i, rep], lay.d)
+        widx = u64.mod(h, nw) if self.wide else h % nw
         return (offbits + widx * lay.word_bits(i)) & MASK32
 
     # ------------------------------------------------------------------
@@ -163,13 +184,13 @@ class BloomRF:
         for i in range(lay.k):
             li = lay.levels[i]
             W = lay.word_bits(i)
-            off = (x >> li) & (W - 1)
-            wkey = x >> (li + lay.deltas[i] - 1)
+            off = self._shr(x, li) & (W - 1)
+            wkey = self._shr(x, li + lay.deltas[i] - 1)
             for rep in range(lay.replicas[i]):
                 out.append((self._word_bitoff(i, rep, wkey) + off) & MASK32)
         if lay.has_exact:
-            out.append((lay.exact_off_bits + self._shr(x, lay.top_level))
-                       & MASK32)
+            out.append(self._wrap(lay.exact_off_bits
+                                  + self._shr(x, lay.top_level)))
         return torch.stack(out, dim=1)
 
     # ------------------------------------------------------------------
@@ -277,8 +298,9 @@ class BloomRF:
         lay = self.layout
         li = lay.levels[i]
         W = lay.word_bits(i)
-        off = (x >> li) & (W - 1)
-        lo, hi = self._load_word(state, i, x >> (li + lay.deltas[i] - 1))
+        off = self._shr(x, li) & (W - 1)
+        lo, hi = self._load_word(state, i,
+                                 self._shr(x, li + lay.deltas[i] - 1))
         bit = (lo >> torch.clamp(off, max=31)) & 1
         if W == 64:
             bit_hi = (hi >> (torch.clamp(off, min=32) - 32)) & 1
@@ -298,7 +320,7 @@ class BloomRF:
     # exact-bitmap probes
     # ------------------------------------------------------------------
     def _exact_bit(self, state, prefix):
-        pos = (self.layout.exact_off_bits + prefix) & MASK32
+        pos = self._wrap(self.layout.exact_off_bits + prefix)
         return ((lanes_u32(state, pos >> 5) >> (pos & 31)) & 1) != 0
 
     def _exact_range_any(self, state, qlo, qhi, nonempty):
@@ -311,8 +333,8 @@ class BloomRF:
         of non-zero lanes over the exact segment."""
         lay = self.layout
         nbits = lay.exact_nbits
-        qlo_c = torch.clamp(qlo & MASK32, 0, nbits - 1)
-        qhi_c = torch.clamp(qhi & MASK32, 0, nbits - 1)
+        qlo_c = u64.clamp(self._wrap(qlo), 0, nbits - 1)
+        qhi_c = u64.clamp(self._wrap(qhi), 0, nbits - 1)
         p0 = lay.exact_off_bits + qlo_c
         p1 = lay.exact_off_bits + qhi_c
         lane0, lane1 = p0 >> 5, p1 >> 5
@@ -338,7 +360,7 @@ class BloomRF:
         """The reference's scalar range lookup, batched over ``(B,)`` bounds
         with the same clip and select order."""
         lay = self.layout
-        L, R = torch.minimum(L, R), torch.maximum(L, R)
+        L, R = u64.minimum(L, R), u64.maximum(L, R)
         top = lay.top_level
         true = torch.ones_like(L, dtype=torch.bool)
         false = torch.zeros_like(true)
@@ -355,14 +377,14 @@ class BloomRF:
                 covL = self._exact_bit(state, lt)
                 covR = self._exact_bit(state, rt)
                 result = self._exact_range_any(
-                    state, (lt + 1) & MASK32, (rt - 1) & MASK32,
-                    (rt - lt) >= 2)
+                    state, self._wrap(lt + 1), self._wrap(rt - 1),
+                    u64.ge(rt - lt, 2))
                 left_alive = covL
                 right_alive = covR & split
             else:
                 # saturated top levels omitted: a middle gap of >= 1 full
                 # top-level DI is untestable -> conservative positive
-                result = (rt - lt) >= 2
+                result = u64.ge(rt - lt, 2)
                 left_alive = true
                 right_alive = split
 
@@ -378,18 +400,19 @@ class BloomRF:
 
             # --- left path (doubles as the single pre-split path)
             l_end = (Lpar << delta) | ((1 << delta) - 1)
-            l_qlo = (Lp + edge) & MASK32
-            l_qhi = torch.where(split, l_end, (Rp - edge) & MASK32)
+            l_qlo = self._wrap(Lp + edge)
+            l_qhi = torch.where(split, l_end, self._wrap(Rp - edge))
             if bottom:
                 l_nonempty = true
             else:
-                l_nonempty = torch.where(split, Lp != l_end, (Rp - Lp) >= 2)
+                l_nonempty = torch.where(split, Lp != l_end,
+                                         u64.ge(Rp - Lp, 2))
             result = result | self._children_any(
                 state, i, Lpar, l_qlo, l_qhi, l_nonempty & left_alive)
 
             # --- right path (only live after the split)
             r_start = Rpar << delta
-            r_qhi = (Rp - edge) & MASK32
+            r_qhi = self._wrap(Rp - edge)
             r_nonempty = true if bottom else (Rp != r_start)
             result = result | self._children_any(
                 state, i, Rpar, r_start, r_qhi, r_nonempty & right_alive)

@@ -29,11 +29,11 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .bloomrf import _FULL, MASK32, BloomRF, children_hit, lanes_u32
-from .hashing import mix
+from . import uint64 as u64
+from .bloomrf import _FULL, BloomRF, children_hit, lanes_u32
 
 __all__ = ["ProbeEngine", "RangePlan", "PointPlan", "StackedProbe",
-           "stacked_probe"]
+           "stacked_probe", "fence_mask"]
 
 
 class _Slot(NamedTuple):
@@ -84,14 +84,11 @@ class ProbeEngine:
     # ------------------------------------------------------------------
     def _word_slots(self, i: int, wordkey, cols: list) -> Tuple[_Slot, ...]:
         """Plan the replica loads of the layer-``i`` word at ``wordkey``;
-        the address math mirrors ``BloomRF._load_word``."""
-        lay = self.lay
-        W = lay.word_bits(i)
-        offbits = lay.seg_off_bits[lay.seg_of_layer[i]]
+        the address math is ``BloomRF._load_word``'s."""
+        W = self.lay.word_bits(i)
         slots = []
-        for rep in range(lay.replicas[i]):
-            h = mix(wordkey, self._seeds[i, rep], lay.d)
-            bitoff = (offbits + (h % lay.nwords(i)) * W) & MASK32
+        for rep in range(self.lay.replicas[i]):
+            bitoff = self.filt._word_bitoff(i, rep, wordkey)
             lane = bitoff >> 5
             col = len(cols)
             cols.append(lane)
@@ -105,7 +102,7 @@ class ProbeEngine:
         return tuple(slots)
 
     def _exact_slot(self, prefix, cols: list):
-        pos = (self.lay.exact_off_bits + prefix) & MASK32
+        pos = self.filt._wrap(self.lay.exact_off_bits + prefix)
         col = len(cols)
         cols.append(pos >> 5)
         return col, pos & 31
@@ -114,8 +111,8 @@ class ProbeEngine:
         """Emit the per-query lane table for the two-path decomposition:
         per layer the child word pairs of the left and right parents."""
         f, lay = self.filt, self.lay
-        lo, hi = lo & MASK32, hi & MASK32
-        L, R = torch.minimum(lo, hi), torch.maximum(lo, hi)
+        lo, hi = f._wrap(lo), f._wrap(hi)
+        L, R = u64.minimum(lo, hi), u64.maximum(lo, hi)
         cols: list = []
         layers = []
         for i in range(lay.k):
@@ -167,11 +164,11 @@ class ProbeEngine:
         """Covering-bit probe served from the deduped child words: the word
         of ``x >> (l_i + Δ_i - 1)`` *is* child word A or B of ``x``'s parent,
         selected by the low parent-side bit — no extra load."""
-        lay = self.lay
+        f, lay = self.filt, self.lay
         li = lay.levels[i]
         W = lay.word_bits(i)
-        off = (x >> li) & (W - 1)
-        b = ((x >> (li + lay.deltas[i] - 1)) & 1) != 0
+        off = f._shr(x, li) & (W - 1)
+        b = (f._shr(x, li + lay.deltas[i] - 1) & 1) != 0
         lo = torch.where(b, wb[0], wa[0])
         bit = (lo >> torch.clamp(off, max=31)) & 1
         if W == 64:
@@ -208,12 +205,12 @@ class ProbeEngine:
                 covL = ((g[..., colL] >> shL) & 1) != 0
                 covR = ((g[..., colR] >> shR) & 1) != 0
                 result = f._exact_range_any(
-                    state, (lt + 1) & MASK32, (rt - 1) & MASK32,
-                    (rt - lt) >= 2)
+                    state, f._wrap(lt + 1), f._wrap(rt - 1),
+                    u64.ge(rt - lt, 2))
                 left_alive = covL
                 right_alive = covR & split
             else:
-                result = (rt - lt) >= 2
+                result = u64.ge(rt - lt, 2)
                 left_alive = true
                 right_alive = split
 
@@ -231,19 +228,20 @@ class ProbeEngine:
 
             # --- left path (doubles as the single pre-split path)
             l_end = (Lpar << delta) | ((1 << delta) - 1)
-            l_qlo = (Lp + edge) & MASK32
-            l_qhi = torch.where(split, l_end, (Rp - edge) & MASK32)
+            l_qlo = f._wrap(Lp + edge)
+            l_qhi = torch.where(split, l_end, f._wrap(Rp - edge))
             if bottom:
                 l_nonempty = true
             else:
-                l_nonempty = torch.where(split, Lp != l_end, (Rp - Lp) >= 2)
+                l_nonempty = torch.where(split, Lp != l_end,
+                                         u64.ge(Rp - Lp, 2))
             result = result | children_hit(
                 delta, Lpar, l_qlo, l_qhi, l_nonempty & left_alive,
                 words["LA"], words["LB"])
 
             # --- right path (only live after the split)
             r_start = Rpar << delta
-            r_qhi = (Rp - edge) & MASK32
+            r_qhi = f._wrap(Rp - edge)
             r_nonempty = true if bottom else (Rp != r_start)
             result = result | children_hit(
                 delta, Rpar, r_start, r_qhi, r_nonempty & right_alive,
@@ -313,8 +311,8 @@ class StackedProbe:
                 raise ValueError(
                     "exact-bitmap layouts cannot be stacked (their bounded "
                     "middle scan is dynamic); use per-row engine probes")
-            if e.lay.d > 32:
-                raise ValueError("stacked rows must be d <= 32 domains")
+            if e.filt.wide != engines[0].filt.wide:
+                raise ValueError("stacked rows must share one key dtype")
         self.engines = tuple(engines)
         self.bases = tuple(int(b) for b in bases)
         self.R = len(engines)
@@ -384,7 +382,8 @@ class StackedProbe:
                    quarantine: Optional[torch.Tensor] = None):
         """Fence-fused range probe: the store's scan-pruning plane.
 
-        ``kmin``/``kmax`` are per-row key fences (``(R,)`` int64 carriers).
+        ``kmin``/``kmax`` are per-row key fences (``(R,)`` int64 carriers,
+        compared in the unsigned order).
         Returns ``(fence, touch)``, both ``(B, R)`` bool: ``fence`` is the
         overlap of the query with the row's key range and ``touch = fence &
         (verdict | quarantine)``.  A quarantined row's filter block failed
@@ -393,7 +392,7 @@ class StackedProbe:
         already be clamped into the filters' key domain.  The plain version
         of the store-scan kernel."""
         lo, hi = torch.atleast_1d(lo), torch.atleast_1d(hi)
-        fence = (hi[:, None] >= kmin[None, :]) & (lo[:, None] <= kmax[None, :])
+        fence = fence_mask(kmin, kmax, lo, hi)
         filt = self._range_all(flat_state, lo, hi)
         if quarantine is not None:
             filt = filt | quarantine.to(torch.bool)[None, :]
@@ -403,6 +402,14 @@ class StackedProbe:
     range_all = _range_all
     point_all = _point_all
     touch_all = _touch_all
+
+
+def fence_mask(kmin: torch.Tensor, kmax: torch.Tensor, lo: torch.Tensor,
+               hi: torch.Tensor) -> torch.Tensor:
+    """``(B, R)`` bool: query ``[lo, hi]`` overlaps row ``[kmin, kmax]``,
+    in the unsigned order of the carriers."""
+    return u64.ge(hi[:, None], kmin[None, :]) & u64.le(lo[:, None],
+                                                       kmax[None, :])
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,21 +1,27 @@
 """Hash functions for bloomRF, on PyTorch int64 carriers.
 
-Counterpart of ``repro/core/hashing.py`` for domains of ``d <= 32`` bits.
-Key codes travel as ``int64`` tensors holding the uint32 value, because
-PyTorch's CPU build lacks ``>>``, ``%`` and compares on ``torch.uint32``.
-Every multiply is reduced to 32 bits without overflowing int64, so the
-results equal the reference's uint32 arithmetic bit for bit on any device.
-The CUDA kernels compute the same functions in ``csrc/bloomrf.cuh``.
+Counterpart of ``repro/core/hashing.py``.  Key codes travel as ``int64``
+tensors: a ``d <= 32`` domain's hold the uint32 value, a ``d <= 64``
+domain's the uint64 bits (``core/uint64.py``), because PyTorch's CPU build
+lacks ``>>``, ``%`` and compares on its unsigned dtypes.  ``mix32``
+reduces every multiply to 32 bits without overflowing int64; ``mix64``
+lets the int64 multiplies wrap modulo ``2**64`` and shifts logically.
+Both equal the reference's arithmetic bit for bit on any device.  The CUDA
+kernels compute ``mix32`` in ``csrc/bloomrf.cuh`` (they take ``d <= 32``
+only, as the reference's do).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import uint64 as u64
+
 __all__ = [
     "splitmix64_np",
     "derive_seeds",
     "dyadic_prefixes",
+    "mix64",
     "mix32",
     "mix",
     "key_dtype_for",
@@ -73,22 +79,31 @@ def mix32(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+_MIX64_C1 = u64.signed(0xBF58476D1CE4E5B9)
+_MIX64_C2 = u64.signed(0x94D049BB133111EB)
+
+
+def mix64(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64 finalizer on uint64 bits held in int64 (wrapping
+    multiplies, logical shifts)."""
+    x = (x ^ u64.shr(x, 30)) * _MIX64_C1
+    x = (x ^ u64.shr(x, 27)) * _MIX64_C2
+    return x ^ u64.shr(x, 31)
+
+
 def mix(x: torch.Tensor, seed, key_bits: int) -> torch.Tensor:
-    """Seeded finalizer; ``seed`` is a python/numpy uint64 cut to 32 bits."""
+    """Seeded finalizer in the key width: ``mix64`` of the key xor the
+    64-bit seed above 32 bits, else ``mix32`` with the seed cut to 32."""
     if key_bits > 32:
-        raise NotImplementedError(
-            "64-bit key domains (mix64 on int64 carriers) are not ported yet "
-            "(ROADMAP A.1)")
+        return mix64(x ^ u64.signed(seed))
     return mix32((x & MASK32) ^ (int(seed) & MASK32))
 
 
 def key_dtype_for(d: int) -> torch.dtype:
-    """Carrier dtype for a d-bit domain: int64 holding the uint32 value."""
-    if d <= 32:
-        return torch.int64
+    """Carrier dtype for a d-bit domain: int64, holding the uint32 value
+    (d <= 32) or the uint64 bits (d <= 64)."""
     if d <= 64:
-        raise NotImplementedError(
-            "64-bit key domains are not ported yet (ROADMAP A.1)")
+        return torch.int64
     raise ValueError(f"domain bits must be <= 64, got {d}")
 
 
@@ -101,4 +116,7 @@ def dyadic_prefixes(keys: torch.Tensor, level: int, d: int) -> torch.Tensor:
     if not (0 <= level < d):
         raise ValueError(f"need 0 <= level < d, got level={level}, d={d}")
     key_dtype_for(d)
-    return (torch.as_tensor(keys, dtype=torch.int64) & MASK32) >> level
+    keys = torch.as_tensor(keys, dtype=torch.int64)
+    if d <= 32:
+        return (keys & MASK32) >> level
+    return u64.shr(keys, level)

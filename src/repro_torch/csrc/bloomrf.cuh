@@ -1,8 +1,7 @@
 // Device code shared by the bloomRF kernels (insert.cu, probe.cu,
 // stacked.cu, and through rangeplan.cuh partitioned.cu and store_scan.cu):
 // the layout descriptor and its launch parameter, mix32, position and word
-// addressing, the uint32 mask algebra of repro/core/bloomrf.py, and the
-// per-key point verdict of the stacked point kernel.
+// addressing, and the uint32 mask algebra of repro/core/bloomrf.py.
 //
 // All state arithmetic is uint32, as in the reference.  Where the reference
 // relies on XLA defining a shift by >= 32 as 0, the code here guards the
@@ -18,10 +17,10 @@ namespace bloomrf {
 
 // ---------------------------------------------------------------------------
 // Layout descriptor: a flat uint32 table built once per layout on the host
-// (kernels/_build.py::layout_descriptor).  The insert, point (B2/B7) and
-// stacked range (B5) kernels read it from a launch parameter (DescParam);
-// the range kernel of partitioned.cu and the stacked point kernel (B6) copy
-// it into shared memory in every block (load_desc).  Header words, then one
+// (kernels/_build.py::layout_descriptor).  The insert (B1), point (B2/B7)
+// and stacked (B5, B6) kernels read it from a launch parameter (DescParam);
+// the range kernel of partitioned.cu (B3/B8) copies it into shared memory
+// in every block (load_desc).  Header words, then one
 // record per layer, then the seeds, then each layer's exact reciprocal of
 // its word count (two words, low first; read by rangeplan.cuh).
 // ---------------------------------------------------------------------------
@@ -180,19 +179,6 @@ __device__ __forceinline__ bool cov_bit(const Desc& D, int i, uint32_t x,
     bit = off < 32u ? bit : bit_hi;
   }
   return bit != 0u;
-}
-
-// Point verdict for key x against the filter at `state`: the AND of every
-// position's bit, stopping at the first clear one.  Used by stacked.cu (B6);
-// probe.cu (B2, B7) issues its positions' loads in groups.
-__device__ inline bool point_one(const uint32_t* __restrict__ state,
-                                 const Desc& D, uint32_t x) {
-  bool all = true;
-  for_each_position(D, x, [&](uint32_t pos) {
-    all = ((__ldg(state + (pos >> 5)) >> (pos & 31u)) & 1u) != 0u;
-    return all;
-  });
-  return all;
 }
 
 constexpr int kThreads = 256;

@@ -27,25 +27,6 @@
 
 namespace {
 
-// The AND of key x's bits in BloomRF._positions_one's order, stopping at
-// the first clear one.
-__device__ __forceinline__ bool point_verdict(
-    const uint32_t* __restrict__ state, const bloomrf::Desc& D, uint32_t x) {
-  for (int i = 0; i < D.k(); ++i) {
-    const uint32_t* L = D.layer(i);
-    const uint32_t li = L[bloomrf::L_LEVEL];
-    const uint32_t off = (x >> li) & (L[bloomrf::L_W] - 1u);
-    const uint32_t wkey = x >> (li + L[bloomrf::L_DELTA] - 1u);
-    for (uint32_t rep = 0; rep < L[bloomrf::L_REPS]; ++rep) {
-      const uint32_t pos = rangeplan::word_bitoff(D, i, rep, wkey) + off;
-      if (!((__ldg(state + (pos >> 5)) >> (pos & 31u)) & 1u)) return false;
-    }
-  }
-  if (!D.has_exact()) return true;
-  const uint32_t pos = D.exact_off() + bloomrf::shr(x, D.top());
-  return ((__ldg(state + (pos >> 5)) >> (pos & 31u)) & 1u) != 0u;
-}
-
 __global__ void __launch_bounds__(bloomrf::kThreads)
     point_probe_kernel(const int64_t* __restrict__ keys, int64_t n,
                        const uint32_t* __restrict__ state,
@@ -54,7 +35,8 @@ __global__ void __launch_bounds__(bloomrf::kThreads)
   const bloomrf::Desc D{p.w};
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= n) return;
-  out[t] = point_verdict(state, D, static_cast<uint32_t>(keys[t]));
+  out[t] = rangeplan::point_verdict(state, D,
+                                    static_cast<uint32_t>(keys[t]));
 }
 
 }  // namespace

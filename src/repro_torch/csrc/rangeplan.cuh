@@ -1,7 +1,8 @@
 // Range read plans of the kernels that read the filter words straight from
 // L2 or device memory: partitioned.cu (B8, whose kernel B3 launches too),
-// stacked.cu (B5) and store_scan.cu (B4); probe.cu (B2, B7) takes its word
-// addressing.  All give the verdict of ProbeEngine.plan_range +
+// stacked.cu (B5) and store_scan.cu (B4); the point kernels (probe.cu for
+// B2 and B7, stacked.cu for B6) take its word addressing and
+// point_verdict.  All range plans give the verdict of ProbeEngine.plan_range +
 // combine_range (repro/core/engine.py) in BloomRF._range_one's clip and
 // select order, skipping only words the reference masks out; they differ in
 // which words they read and when:
@@ -53,6 +54,26 @@ __device__ __forceinline__ uint32_t word_bitoff(const Desc& D, int i,
   const uint64_t M = (static_cast<uint64_t>(m[1]) << 32) | m[0];
   return L[bloomrf::L_OFFBITS] + fast_mod(h, M, L[bloomrf::L_NWORDS]) *
                                      L[bloomrf::L_W];
+}
+
+// The AND of key x's bits in BloomRF._positions_one's order, stopping at
+// the first clear one: the point verdict of probe.cu (B2, B7) and, one row
+// a thread, of stacked.cu (B6).
+__device__ __forceinline__ bool point_verdict(
+    const uint32_t* __restrict__ state, const Desc& D, uint32_t x) {
+  for (int i = 0; i < D.k(); ++i) {
+    const uint32_t* L = D.layer(i);
+    const uint32_t li = L[bloomrf::L_LEVEL];
+    const uint32_t off = (x >> li) & (L[bloomrf::L_W] - 1u);
+    const uint32_t wkey = x >> (li + L[bloomrf::L_DELTA] - 1u);
+    for (uint32_t rep = 0; rep < L[bloomrf::L_REPS]; ++rep) {
+      const uint32_t pos = rangeplan::word_bitoff(D, i, rep, wkey) + off;
+      if (!((__ldg(state + (pos >> 5)) >> (pos & 31u)) & 1u)) return false;
+    }
+  }
+  if (!D.has_exact()) return true;
+  const uint32_t pos = D.exact_off() + bloomrf::shr(x, D.top());
+  return ((__ldg(state + (pos >> 5)) >> (pos & 31u)) & 1u) != 0u;
 }
 
 // Which halves of a child pair a children_hit mask over [qlo, qhi] covers:

@@ -24,10 +24,18 @@
 // shared part.  The layout descriptor is a __grid_constant__ launch
 // parameter; a query's R verdicts are adjacent bytes.
 //
-// B6: grid (query tiles x rows), the descriptor in shared memory; a thread
-// answers one (query, row) cell with bloomrf::point_one, which stops at the
-// first clear bit.  Bound: scattered 4-byte reads of the stack through L2,
-// the queries (int64 carriers) and the bool[B, R] output.
+// B6, a thread per (key, row) cell: grid (key tiles x rows), so the blocks
+// in flight at a time mostly read one row.  The rows share the layout and
+// the seeds, so a key's positions are the same in every row; computing them
+// once per key (a thread a key over all rows, its loads of one position in
+// every live row issued together) was measured slower: the blocks in
+// flight then read all rows, and fewer of a batch's repeated sectors stay
+// in L1 (PERF.md, the stacked point kernel's findings).  The descriptor is
+// a __grid_constant__ launch parameter and words are addressed by each
+// layer's reciprocal (rangeplan::point_verdict, shared with probe.cu); a
+// cell stops at its first clear bit.  Bound: the sectors of the stack that
+// the verdicts read through L2, the keys (int64 carriers) and the bool[B, R]
+// output; the launch floor is the cell grid's.
 #include "rangeplan.cuh"
 
 namespace {
@@ -211,24 +219,19 @@ __global__ void __launch_bounds__(bloomrf::kThreads, 4)
   }
 }
 
-__global__ void point_stacked_kernel(const int64_t* __restrict__ keys,
-                                     int64_t n,
-                                     const uint32_t* __restrict__ stack,
-                                     int64_t row_lanes,
-                                     const uint32_t* __restrict__ gdesc,
-                                     int desc_len, int R,
-                                     bool* __restrict__ out) {
-  extern __shared__ uint32_t sdesc[];
-  const bloomrf::Desc D = bloomrf::load_desc(gdesc, sdesc, desc_len);
+// B6: grid (key tiles x rows), a thread per (key, row) cell.
+__global__ void __launch_bounds__(bloomrf::kThreads)
+    point_stacked_kernel(const int64_t* __restrict__ keys, int64_t n,
+                         const uint32_t* __restrict__ stack,
+                         int64_t row_lanes,
+                         const __grid_constant__ bloomrf::DescParam p,
+                         int rows, bool* __restrict__ out) {
+  const Desc D{p.w};
   const int r = blockIdx.y;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= n) return;
-  out[t * R + r] = bloomrf::point_one(stack + r * row_lanes, D,
-                                      static_cast<uint32_t>(keys[t]));
-}
-
-dim3 stacked_grid(int64_t n, int R) {
-  return dim3(bloomrf::grid_for(n), static_cast<unsigned>(R));
+  out[t * rows + r] = rangeplan::point_verdict(
+      stack + r * row_lanes, D, static_cast<uint32_t>(keys[t]));
 }
 
 }  // namespace
@@ -250,14 +253,19 @@ extern "C" int bloomrf_range_stacked(const int64_t* lo, const int64_t* hi,
   return static_cast<int>(cudaGetLastError());
 }
 
+// desc: the descriptor parameter in host memory, kParamDescWords words
+// (kernels/_build.py::param_descriptor), copied into the launch
 extern "C" int bloomrf_point_stacked(const int64_t* keys, int64_t n,
                                      const uint32_t* stack, int64_t row_lanes,
-                                     int R, const uint32_t* desc, int desc_len,
-                                     bool* out, void* stream) {
+                                     int R, const uint32_t* desc, bool* out,
+                                     void* stream) {
   if (n <= 0 || R <= 0) return 0;
-  point_stacked_kernel<<<stacked_grid(n, R), bloomrf::kThreads,
-                         desc_len * sizeof(uint32_t),
+  bloomrf::DescParam p;
+  if (!bloomrf::to_param(desc, p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  point_stacked_kernel<<<dim3(bloomrf::grid_for(n), static_cast<unsigned>(R)),
+                         bloomrf::kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      keys, n, stack, row_lanes, desc, desc_len, R, out);
+      keys, n, stack, row_lanes, p, R, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,7 @@ a stale build.
 
 Also here: the per-layout descriptor table the kernels read
 (``csrc/bloomrf.cuh``), cached per layout and device, or, for the kernels
-that take it as a launch parameter (insert, point probe, stacked range),
+that take it as a launch parameter (insert, point probe, stacked),
 per layout in host memory, padded to the parameter's fixed capacity; and
 the stack descriptor of a row stack (the store-scan kernel), cached per
 row stack and device.
@@ -51,7 +51,7 @@ _ENTRY = {
                                           _P, _P, _I, _P, _P, _I, _P)),
     "bloomrf_range_stacked": ("stacked", (_P, _P, _I64, _P, _I64, _I, _P, _P,
                                           _P)),
-    "bloomrf_point_stacked": ("stacked", (_P, _I64, _P, _I64, _I, _P, _I, _P,
+    "bloomrf_point_stacked": ("stacked", (_P, _I64, _P, _I64, _I, _P, _P,
                                           _P)),
     "bloomrf_range_partitioned": ("partitioned", (_P, _P, _I64, _P, _P, _I,
                                                   _P, _P)),

@@ -9,7 +9,8 @@ wrapper takes the plain version, the engine's ``point_batched``.
 
 ``point_probe_stacked_resident`` replaces
 ``repro/kernels/probe.py::point_probe_stacked_resident``: the same probe
-over ``R`` same-layout rows in one launch (``csrc/stacked.cu``); its plain
+over ``R`` same-layout rows in one launch (``csrc/stacked.cu``, a thread
+per (key, row) cell, the descriptor in the launch's parameters); its plain
 version is ``StackedProbe._point_all``.
 
 ``point_probe_partitioned`` replaces
@@ -99,10 +100,10 @@ def point_probe_stacked_resident(layout: FilterLayout, stack: torch.Tensor,
     out = torch.empty((keys.shape[0], R), dtype=torch.bool,
                       device=stack.device)
     if keys.numel():
-        desc = _build.device_descriptor(layout, stack.device)
+        desc = _build.param_descriptor(layout)
         _build.launch("bloomrf_point_stacked", stack.device, keys.data_ptr(),
-                      keys.numel(), stack.data_ptr(), u, R, desc.data_ptr(),
-                      desc.numel(), out.data_ptr())
+                      keys.numel(), stack.data_ptr(), u, R, desc.ctypes.data,
+                      out.data_ptr())
         point_probe_stacked_resident.launches += 1
     return out
 

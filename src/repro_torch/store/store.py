@@ -20,7 +20,9 @@ the store-scan kernel (``kernels/store_scan.py``, one launch per scan
 batch) or, with ``scan_backend="xla"`` or on the CPU, through the plain
 ``StackedProbe.touch_all``.  Only runs whose fences overlap *and* whose
 filter says "maybe" have their data read; :class:`StoreStats` counts what
-the filters saved.
+the filters saved.  A store of ``d > 32`` keys (int64 carriers of the
+uint64 bits) builds, gets and scans on the plain path, as the reference's
+does: no kernel takes its layouts.
 
 The store lives on ``device``, ``"cuda"`` unless the caller asks for
 another; without a card it raises.  With ``scan_backend="auto"`` a scan
@@ -30,7 +32,7 @@ seam; every other error of the kernel (a failed build or launch)
 propagates.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``d > 32`` (A.1), ``mutability="deletable"`` (A.2b), the
+item: ``mutability="deletable"`` (A.2b), the
 ``repro.filters`` baselines as ``filter_backend`` (A.3c),
 ``durability="wal"`` with snapshots, checkpoints and scrubs (A.3b),
 observability (A.7) and ``tuning="adaptive"`` (A.8).
@@ -43,8 +45,9 @@ from typing import ClassVar, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import uint64 as u64
 from ..core.bloomrf import resolve_device
-from ..core.engine import _filter_for_layout, stacked_probe
+from ..core.engine import _filter_for_layout, fence_mask, stacked_probe
 from ..core.layout import basic_layout
 from ..kernels.insert import insert_resident
 from ..kernels.store_scan import store_scan_probe_flat
@@ -138,9 +141,6 @@ class StoreConfig:
 
 def _check_ported(cfg: StoreConfig) -> None:
     """Refuse the valid configurations the port cannot run yet."""
-    if cfg.d > 32:
-        raise NotImplementedError(
-            f"d={cfg.d} needs a 64-bit key domain (ROADMAP A.1)")
     if cfg.mutability == "deletable":
         raise NotImplementedError(
             "mutability='deletable' needs promote merges and purges, "
@@ -267,9 +267,7 @@ class Store:
 
     def _codes(self, a: np.ndarray) -> torch.Tensor:
         """Host uint codes -> an int64 carrier tensor on the store's device."""
-        return torch.from_numpy(
-            np.ascontiguousarray(a, np.uint64).astype(np.int64)).to(
-                self.device)
+        return u64.carrier(a, self.device)
 
     # ------------------------------------------------------------------
     # capacity classes and filter construction
@@ -503,9 +501,11 @@ class Store:
     # ------------------------------------------------------------------
     def _scan_kernel_mode(self) -> str:
         """``cfg.scan_backend`` resolved for the current run stack: the
-        kernel serves bloomRF stacks, on a CUDA device under ``auto``."""
+        kernel serves bloomRF stacks of ``d <= 32`` keys, on a CUDA device
+        under ``auto``."""
         if (self.cfg.scan_backend == "xla"
-                or self.cfg.filter_backend != "bloomrf" or not self._runs):
+                or self.cfg.filter_backend != "bloomrf"
+                or self.cfg.d > 32 or not self._runs):
             return "xla"
         if self.cfg.scan_backend == "kernel":
             return "kernel"
@@ -578,7 +578,7 @@ class Store:
         kmin, kmax, quar = self._device_rows()
         if self.cfg.filter_backend == "bloomrf":
             return self._probe.touch_all(self._flat, kmin, kmax, lo, hi, quar)
-        fence = (hi[:, None] >= kmin[None, :]) & (lo[:, None] <= kmax[None, :])
+        fence = fence_mask(kmin, kmax, lo, hi)
         return fence, fence
 
     # ------------------------------------------------------------------

@@ -88,9 +88,9 @@ def test_default_device_without_card_raises(monkeypatch):
     (dict(dtype="u32", placement="store", store_backend="rosetta"), "A.3"),
     (dict(dtype="u32", placement="bank", shards=2), "A.9"),
     (dict(dtype="u32", placement="tenant", tenants=2), "A.9"),
-    (dict(dtype="u64"), "A.1"),
-    (dict(dtype="f64"), "A.1"),
-    (dict(dtype="str"), "A.1"),
+    (dict(dtype="str", placement="store"), "A.3c"),
+    (dict(dtype="multiattr", placement="store"), "A.3c"),
+    (dict(dtype="f64", placement="tenant", tenants=2), "A.9"),
     (dict(dtype="u32", placement="store", mutability="deletable"), "A.2"),
 ])
 def test_not_ported_raises(kw, match):
@@ -100,11 +100,14 @@ def test_not_ported_raises(kw, match):
 
 
 def test_not_ported_methods_raise():
+    """``observed_fpr`` waits for obs/ (A.7); ``range_where_b`` is ported
+    and, as in the reference, refuses keys that are not multiattr."""
     h = repro_torch.open_filter(repro_torch.FilterSpec(dtype="u32", n=100),
                                 device="cpu")
-    for call in (h.observed_fpr, lambda: h.range_where_b(1, 2, 3)):
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(NotImplementedError):
+        h.observed_fpr()
+    with pytest.raises(TypeError, match="multiattr"):
+        h.range_where_b(1, 2, 3)
 
 
 def test_partitioned_backend_opens_and_answers():

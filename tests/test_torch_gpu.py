@@ -556,7 +556,106 @@ def test_store_builds_launch_the_insert_kernel(cuda):
 
 
 # ---------------------------------------------------------------------------
-# the descriptor launch parameter (B1, B2/B7, B5)
+# 64-bit key domains: the plain path on the card, no kernel
+# ---------------------------------------------------------------------------
+
+_ALL_KERNELS = (insert_resident, point_probe_resident, range_probe_resident,
+                point_probe_partitioned, range_probe_partitioned,
+                point_probe_stacked_resident, range_probe_stacked_resident,
+                store_scan_probe)
+
+
+def test_mix64_wraps_on_the_card_as_on_the_cpu(cuda):
+    """int64 multiplies wrap modulo 2^64 on the card as on the CPU, so
+    ``mix64`` of keys with the top bit set agrees on both."""
+    from repro_torch.core import hashing, uint64
+
+    x = np.random.default_rng(64).integers(0, 1 << 63, 100_000,
+                                           dtype=np.uint64) | np.uint64(1 << 63)
+    t = uint64.carrier(x)
+    torch.testing.assert_close(hashing.mix64(t.to(cuda)).cpu(),
+                               hashing.mix64(t), rtol=0, atol=0)
+    torch.testing.assert_close(uint64.mod(t.to(cuda), 999_983).cpu(),
+                               uint64.mod(t, 999_983), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["u64", "f64", "multiattr"])
+def test_wide_filters_on_the_card_match_the_cpu(cuda, dtype):
+    """A d = 64 filter under ``auto`` takes the plain engine on the card
+    (state on CUDA, no kernel launched) and equals the same filter on the
+    CPU, state and verdicts."""
+    rng = np.random.default_rng(65)
+    n = 20_000
+    if dtype == "f64":
+        keys = np.concatenate([[-0.0, 0.0], rng.normal(0, 1e6, n - 2)])
+        lo = rng.normal(0, 1e6, 4096)
+        bounds = (lo, lo + 1e3)
+    elif dtype == "u64":
+        keys = rng.integers(0, (1 << 64) - 1, n, dtype=np.uint64,
+                            endpoint=True)
+        lo = rng.integers(0, (1 << 64) - 1, 4096, dtype=np.uint64,
+                         endpoint=True)
+        lo[:3] = [0, (1 << 63) - 5, (1 << 64) - 1]
+        hi = lo + np.uint64(1 << 20)
+        bounds = (lo, np.where(hi < lo, np.uint64((1 << 64) - 1), hi))
+    else:
+        keys = rng.integers(0, 1 << 32, (2, n), dtype=np.uint64)
+        q = rng.integers(0, 1 << 32, (2, 4096), dtype=np.uint64)
+        bounds = (q, q + np.asarray([[0], [1 << 12]], np.uint64))
+    spec = repro_torch.FilterSpec(dtype=dtype, n=n)
+    card = repro_torch.open_filter(spec)
+    host = repro_torch.open_filter(spec, device="cpu")
+    before = [k.launches for k in _ALL_KERNELS]
+    for h in (card, host):
+        h.insert(keys)
+    assert card.backend == "xla" and card.state.device.type == "cuda"
+    np.testing.assert_array_equal(card.state_numpy(), host.state_numpy())
+    qs = keys[:, :4096] if dtype == "multiattr" else keys[:4096]
+    assert card.point(qs).all()
+    np.testing.assert_array_equal(card.range(*bounds), host.range(*bounds))
+    if dtype == "multiattr":
+        args = (keys[1, :512], keys[0, :512], keys[0, :512] + np.uint64(3))
+        got = card.range_where_b(*args)
+        assert got.all()
+        np.testing.assert_array_equal(got, host.range_where_b(*args))
+    assert [k.launches for k in _ALL_KERNELS] == before
+    with pytest.raises(ValueError, match="32-bit sub-domains"):
+        repro_torch.open_filter(repro_torch.FilterSpec(
+            dtype=dtype, n=n, backend="resident"))
+
+
+def test_d64_store_on_the_card_matches_the_cpu(cuda):
+    """A d = 64 store on the card scans and gets as on the CPU, with its
+    runs' states on CUDA and no kernel launched (builds, gets and scans
+    take the plain path at d > 32)."""
+    rng = np.random.default_rng(66)
+    keys = rng.integers(0, (1 << 64) - 1, 5000, dtype=np.uint64,
+                        endpoint=True)
+    lo = rng.integers(0, (1 << 64) - 256, 512, dtype=np.uint64)
+    lo[:64] = keys[:64] - np.uint64(10)
+    hi = lo + np.uint64(255)
+    cfg = dict(d=64, memtable_limit=256, level0_runs=2, fanout=2,
+               bits_per_key=14.0)
+    card, host = Store(StoreConfig(**cfg)), Store(StoreConfig(**cfg),
+                                                  device="cpu")
+    before = [k.launches for k in _ALL_KERNELS]
+    for st in (card, host):
+        for i, k in enumerate(keys):
+            st.put(int(k), i)
+    assert card.stats.rebuild_merges > 0
+    got = card.scan_many(lo, hi)
+    assert got == host.scan_many(lo, hi) and all(got[:64])
+    assert card.get_many(keys[:500]) == host.get_many(keys[:500])
+    assert card.stats.as_dict() == host.stats.as_dict()
+    for a, b in zip(card.live_runs(), host.live_runs()):
+        assert a.state.device.type == "cuda"
+        np.testing.assert_array_equal(a.state_numpy(), b.state_numpy())
+    assert [k.launches for k in _ALL_KERNELS] == before
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the descriptor launch parameter (B1, B2/B7, B5, B6)
 # ---------------------------------------------------------------------------
 
 def _wide_layout(replicas: int):
@@ -568,7 +667,7 @@ def _wide_layout(replicas: int):
 
 
 @pytest.mark.parametrize("kernel", ["insert", "point", "point_part",
-                                    "range_stacked"])
+                                    "range_stacked", "point_stacked"])
 def test_descriptor_parameter_at_and_above_its_capacity(cuda, kernel):
     """A layout whose descriptor fills the parameter to its last word runs
     and equals the plain version; one word more raises before any launch
@@ -595,6 +694,10 @@ def test_descriptor_parameter_at_and_above_its_capacity(cuda, kernel):
             lambda lay, st: range_probe_stacked_resident(
                 lay, torch.stack([st, stack[1]]), lo, hi),
             probe.range_all(stack.reshape(-1), lo, hi)),
+        "point_stacked": (
+            lambda lay, st: point_probe_stacked_resident(
+                lay, torch.stack([st, stack[1]]), qs),
+            probe.point_all(stack.reshape(-1), qs)),
     }
     fn, want = run[kernel]
     torch.testing.assert_close(fn(full, plain), want, rtol=0, atol=0)

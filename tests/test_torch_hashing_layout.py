@@ -52,10 +52,14 @@ def test_dyadic_prefixes_match():
 
 
 def test_64bit_domains_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.1"):
-        thash.key_dtype_for(64)
-    with pytest.raises(NotImplementedError):
-        thash.mix(_i64([1]), 3, 64)
+    """Domains wider than 64 bits are refused, as in the reference; 64-bit
+    domains are ported (they raised ``NotImplementedError`` naming ROADMAP
+    A.1 before): int64 carriers, ``mix`` taking ``mix64`` above 32 bits."""
+    assert thash.key_dtype_for(64) == torch.int64
+    with pytest.raises(ValueError, match="<= 64"):
+        thash.key_dtype_for(65)
+    x = _i64([1, 7])
+    torch.testing.assert_close(thash.mix(x, 3, 64), thash.mix64(x ^ 3))
 
 
 _LAYOUTS = (

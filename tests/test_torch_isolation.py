@@ -37,8 +37,10 @@ def test_no_module_imports_jax_or_repro():
     names = {str(f.relative_to(_SRC / "repro_torch")) for f in files}
     assert {"store/store.py", "store/run.py", "store/compaction.py",
             "store/memtable.py", "store/faults.py", "store/integrity.py",
-            "kernels/store_scan.py", "core/dynamic.py"} <= names
+            "kernels/store_scan.py", "core/dynamic.py",
+            "core/uint64.py"} <= names
     files.append(_ROOT / "chip_smoke.py")
+    files += sorted((_ROOT / "benchmarks").glob("torch_*.py"))
     for f in files:
         roots = set(_imported_roots(ast.parse(f.read_text(), str(f))))
         assert not roots & {"jax", "jaxlib", "repro"}, f

@@ -298,7 +298,8 @@ def test_typed_store_scans_decode_as_reference(dtype):
 
 
 @pytest.mark.parametrize("make,match", [
-    (lambda: Store(StoreConfig(d=64), device="cpu"), "A.1"),
+    (lambda: Store(StoreConfig(d=64, mutability="deletable"), device="cpu"),
+     "A.2"),
     (lambda: Store(StoreConfig(mutability="deletable"), device="cpu"), "A.2"),
     (lambda: Store(StoreConfig(tuning="adaptive"), device="cpu"), "A.8"),
     (lambda: Store(StoreConfig(filter_backend="rosetta"), device="cpu"),
@@ -319,7 +320,7 @@ def test_typed_store_scans_decode_as_reference(dtype):
     (lambda: merge_filter_state([], None, None, None, allow_promote=True),
      "A.2"),
     (lambda: repro_torch.open_filter(repro_torch.FilterSpec(
-        dtype="u64", placement="store"), device="cpu"), "A.1"),
+        dtype="str", placement="store"), device="cpu"), "A.3c"),
     (lambda: repro_torch.open_filter(repro_torch.FilterSpec(
         dtype="u32", placement="store", mutability="deletable"),
         device="cpu"), "A.2"),
