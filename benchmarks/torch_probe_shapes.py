@@ -166,28 +166,17 @@ def kernels(device, cs, built) -> dict:
         lambda _: probe._range_all(flat, tlo, thi),
         cs.CHUNK * (16 + ROWS) + min(sectors * 32, stack_b), b5)
     out["B5_range_stacked"]["sectors"] = sectors
-    out["B6_point_stacked"] = b6_row(device, cs, built)
+    # B6's cell grid with the descriptor parameter, or, in a package from
+    # before the parameter reached B6 (its entry also takes the
+    # descriptor's length), with the descriptor in shared memory
+    old_b6 = len(_build._ENTRY["bloomrf_point_stacked"][1]) == 9
+    out["B6_point_stacked"] = _row(
+        cs, lambda _: point_probe_stacked_resident(lay, stack, tq),
+        lambda _: probe._point_all(flat, tq),
+        cs.CHUNK * (8 + ROWS) + stack_b,
+        _floor(cs, device, grid, ROWS, smem if old_b6 else 0,
+               param=not old_b6))
     return out
-
-
-def b6_row(device, cs, built) -> dict:
-    """B6's row on phase 6's stack.  Its launch floor is a (key tiles x
-    rows) grid's with the descriptor parameter, or, in a package from before
-    the parameter reached B6 (its entry takes the descriptor's length too),
-    with the descriptor in shared memory."""
-    from repro_torch.kernels import _build, point_probe_stacked_resident
-
-    lay, stack, probe, tq, _, _ = built["stack"]
-    grid = cs._grid(cs.CHUNK)
-    if len(_build._ENTRY["bloomrf_point_stacked"][1]) == 9:
-        smem = _build.device_descriptor(lay, device).numel() * 4
-        floor = _floor(cs, device, grid, ROWS, smem)
-    else:
-        floor = _floor(cs, device, grid, ROWS, param=True)
-    flat = stack.reshape(-1)
-    return _row(cs, lambda _: point_probe_stacked_resident(lay, stack, tq),
-                lambda _: probe._point_all(flat, tq),
-                cs.CHUNK * (8 + ROWS) + ROWS * lay.total_u32 * 4, floor)
 
 
 def main() -> int:

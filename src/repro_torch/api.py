@@ -74,9 +74,6 @@ class _Codec:
     def encode_bounds(self, lo, hi) -> tuple:
         return self.encode_point(lo), self.encode_point(hi)
 
-    def decode(self, code):
-        raise NotImplementedError(f"{self.name} codes do not decode")
-
 
 class _UIntCodec(_Codec):
     def __init__(self, bits: int):
@@ -89,9 +86,6 @@ class _UIntCodec(_Codec):
             raise ValueError(
                 f"{self.name} keys must fit the {self.d}-bit domain")
         return arr
-
-    def decode(self, code):
-        return np.asarray(code, np.uint64)
 
 
 class _Float64Codec(_Codec):
@@ -188,9 +182,6 @@ class _MultiAttrCodec(_Codec):
         return _cd.multiattr_range_for_a_eq_b_range(
             np.atleast_1d(np.asarray(b_const, np.uint64)),
             np.asarray(a_lo, np.uint64), np.asarray(a_hi, np.uint64))
-
-    def decode(self, code):
-        return _cd.unpack2x32(np.asarray(code, np.uint64))
 
 
 def _codec_for(dtype: str) -> _Codec:

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from . import uint64 as u64
@@ -137,10 +136,7 @@ class BloomRF:
 
     # -- helpers ---------------------------------------------------------
     def _keys(self, v) -> torch.Tensor:
-        """Key codes as a 1-d int64 carrier (a host uint64 array is taken
-        bit for bit)."""
-        if isinstance(v, np.ndarray) and v.dtype == np.uint64:
-            v = v.view(np.int64)
+        """Key codes as a 1-d int64 carrier."""
         return self._wrap(torch.atleast_1d(torch.as_tensor(v,
                                                            dtype=self.kdtype)))
 

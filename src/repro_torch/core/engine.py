@@ -64,7 +64,6 @@ class ProbeEngine:
     def __init__(self, filt: BloomRF):
         self.filt = filt
         self.lay = filt.layout
-        self._seeds = filt.layout.seeds
         loads = 0
         width = 0
         for i in range(self.lay.k):

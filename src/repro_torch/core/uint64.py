@@ -24,8 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["SIGN", "signed", "carrier", "lt", "le", "gt", "ge", "minimum",
-           "maximum", "clamp", "shr", "mod"]
+__all__ = ["SIGN", "signed", "carrier", "le", "ge", "minimum", "maximum",
+           "clamp", "shr", "mod"]
 
 #: the sign bit of an int64 carrier
 SIGN = -(1 << 63)
@@ -49,16 +49,8 @@ def _flip(x):
     return x ^ SIGN if isinstance(x, torch.Tensor) else signed(x) ^ SIGN
 
 
-def lt(a, b) -> torch.Tensor:
-    return _flip(a) < _flip(b)
-
-
 def le(a, b) -> torch.Tensor:
     return _flip(a) <= _flip(b)
-
-
-def gt(a, b) -> torch.Tensor:
-    return _flip(a) > _flip(b)
 
 
 def ge(a, b) -> torch.Tensor:
