@@ -10,9 +10,8 @@ verdicts do not matter here) at 262,144 queries, and for every trace
 records:
 
 * the wrapper's own launch count over the call;
-* the host-side launch records the trace holds (CUPTI's runtime and
-  driver API callbacks: names holding ``Launch``), with their correlation
-  ids;
+* the host-side launch records the trace holds (CUPTI's callbacks on
+  the CUDA API: names holding ``Launch``), with their correlation ids;
 * the device records (kernels, copies, sets) whose correlation id matches
   each launch, and the device records that match none.
 

@@ -226,7 +226,7 @@ def _grid(n: int, threads: int = 256) -> int:
 
 
 #: host-side records of the calls that put work on a device: kernel
-#: launches, copies and sets (CUDA runtime and driver API)
+#: launches, copies and sets (``cuda*`` and ``cu*`` API calls)
 _ENQUEUE = r"^cu(da)?(Launch|Memcpy|Memset)"
 
 

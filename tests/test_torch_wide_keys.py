@@ -6,7 +6,7 @@ shared ``d = 64`` store op stream, and the two float zeros (ROADMAP C.2).
 
 The reference runs each layout and handle once per module (its compiles are
 shared by the tests that read them); keys and queries come from seeded
-numpy generators, never from the session-scoped ``rng`` fixture."""
+numpy generators, never from the shared ``rng`` fixture of conftest.py."""
 import dataclasses
 import functools
 
