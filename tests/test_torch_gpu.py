@@ -579,7 +579,7 @@ def test_mix64_wraps_on_the_card_as_on_the_cpu(cuda):
                                uint64.mod(t, 999_983), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("dtype", ["u64", "f64", "multiattr"])
+@pytest.mark.parametrize("dtype", ["u64", "f64", "str", "multiattr"])
 def test_wide_filters_on_the_card_match_the_cpu(cuda, dtype):
     """A d = 64 filter under ``auto`` takes the plain engine on the card
     (state on CUDA, no kernel launched) and equals the same filter on the
@@ -590,6 +590,10 @@ def test_wide_filters_on_the_card_match_the_cpu(cuda, dtype):
         keys = np.concatenate([[-0.0, 0.0], rng.normal(0, 1e6, n - 2)])
         lo = rng.normal(0, 1e6, 4096)
         bounds = (lo, lo + 1e3)
+    elif dtype == "str":
+        keys = [f"k{int(k):015d}" for k in rng.integers(0, 10**12, n)]
+        lo = [f"k{int(k):015d}" for k in rng.integers(0, 10**12, 4096)]
+        bounds = (lo, [s[:-4] + "zzzz" for s in lo])
     elif dtype == "u64":
         keys = rng.integers(0, (1 << 64) - 1, n, dtype=np.uint64,
                             endpoint=True)
