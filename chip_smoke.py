@@ -76,7 +76,28 @@ Phases, one line of output each:
    false negatives, 65,536 verdicts equal to the same code on the CPU and
    a state built on both equal; a d = 64 store with phase 7's settings and
    mix (4,194,304 keys, 30% of the scans starting within a scan's width of
-   a stored key), every scan equal to a numpy oracle.
+   a stored key), every scan equal to a numpy oracle;
+10. the deletable, durable store: phase 7's ``open_filter`` settings with
+    ``mutability="deletable"`` and ``durability="wal"`` (a WAL in a
+    temporary directory, flushed per record): 4,194,304 puts through the
+    WAL, ``checkpoint()``, then 40% of the loaded keys deleted by
+    ``delete_many`` in batches of 8,192 (one WAL frame each) between phase
+    7's YCSB-E scan batches and inserts; every scan equal to a numpy oracle
+    of the deletes, 65,536 surviving keys read their values and 65,536
+    deleted keys nothing, the point FPR on 65,536 absent keys below 0.30,
+    promote merges or purge rebuilds taken, one B1 launch per filter build
+    and one B4 launch per scan batch and no other; then ``close()`` and
+    ``Store.open`` on the card (the checkpoint plus the WAL frames after
+    it) equal to the live store in durable stats, run CRCs and a scan
+    batch; and the checkpoint's snapshot with flipped filter bits in its
+    largest run restored on the card quarantined, its scans exact through
+    B4 and ``scrub()`` reporting it;
+11. obs on the main path: phase 3's filter and mix once with obs off and
+    once after ``obs.enable()`` with a JSONL trace sink: 8 / 4 / 4
+    launches both times and none of any other, equal verdicts and state,
+    ``kernel/dispatch/resident`` equal to the calls, ``Counter.add`` of
+    device tensors under ``torch.cuda.set_sync_debug_mode("error")``, and
+    ``observed_fpr()`` beside the measured FPR.
 
 It prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -86,8 +107,10 @@ device is present.  It imports neither ``jax`` nor the ``repro`` package.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1647,6 +1670,471 @@ def phase_wide(device, kernels):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the deletable, durable store (phase 7's settings, WAL, deletes)
+# ---------------------------------------------------------------------------
+
+DEL_FRAC = 0.4            # share of the loaded keys deleted
+DEL_BATCH = 8192          # keys per delete_many (one WAL frame each)
+GET_SAMPLE = 1 << 16      # surviving, deleted and absent keys looked up
+
+
+class _Oracle:
+    """The phase-10 store's contents as numpy: the loaded keys (sorted,
+    each with the index of its last put as value) with an alive mask, and
+    the keys put after the load (value 0), applied in the store's order."""
+
+    def __init__(self, data):
+        import numpy as np
+
+        rev = data[::-1]
+        self.keys, first = np.unique(rev, return_index=True)
+        self.vals = len(data) - 1 - first
+        self.alive = np.ones(len(self.keys), bool)
+        self.extra = {}
+
+    def delete(self, keys):
+        import numpy as np
+
+        self.alive[np.searchsorted(self.keys, keys)] = False
+        for k in keys.tolist():
+            self.extra.pop(k, None)
+
+    def put(self, keys):
+        self.extra.update((int(k), 0) for k in keys)
+
+    def scans(self, lo, hi) -> list:
+        import numpy as np
+
+        ek = np.asarray(sorted(self.extra), np.uint64)
+        out = []
+        for a_, b_ in zip(lo, hi):
+            a = np.searchsorted(self.keys, a_, side="left")
+            z = np.searchsorted(self.keys, b_, side="right")
+            live = self.alive[a:z]
+            want = dict(zip(self.keys[a:z][live].tolist(),
+                            self.vals[a:z][live].tolist()))
+            ea = np.searchsorted(ek, a_, side="left")
+            ez = np.searchsorted(ek, b_, side="right")
+            want.update((int(k), 0) for k in ek[ea:ez])
+            out.append(sorted(want.items()))
+        return out
+
+
+CHURN_OPS = 20_000        # the churn store's ops (40% deletes)
+
+
+def _churn(kernels) -> dict:
+    """Phase 10's churn: the mix of the reference's churn contract
+    (tests/test_store_churn.py: 40% of the ops delete the oldest live key)
+    on a small deletable u32 store (memtable 128, level0_runs 2, fanout 4)
+    with a flush every 20 ops, so compaction meets sparse and dead-heavy
+    runs: promote merges and purge rebuilds both run on the card.  Every
+    live key reads its value, the point FPR on absent keys stays below
+    0.30, one B1 launch per build, one B4 launch per scan batch."""
+    import numpy as np
+
+    import repro_torch
+
+    for k in kernels.values():
+        k["fn"].launches = 0
+    h = repro_torch.open_filter(repro_torch.FilterSpec(
+        dtype="u32", placement="store", memtable_limit=128, level0_runs=2,
+        fanout=4, bits_per_key=14.0, delta=6, mutability="deletable"))
+    rng = np.random.default_rng(SEED + 100)
+    model = {}
+    for i in range(CHURN_OPS):
+        if model and rng.random() < 0.4:
+            k = next(iter(model))
+            h.delete(k)
+            del model[k]
+        else:
+            k = int(rng.integers(0, 1 << 32))
+            h.put(k, i)
+            model.pop(k, None)
+            model[k] = i
+        if i % 20 == 19:
+            h.flush()
+    live = np.fromiter(model, np.uint64, len(model))
+    if h.get_many(live) != [model[int(k)] for k in live]:
+        raise AssertionError("churn: a live key lost its value")
+    srt = np.sort(live)
+    lo = np.concatenate([live[:SCAN_BATCH // 2] - np.uint64(3),
+                         rng.integers(0, 1 << 32, SCAN_BATCH // 2,
+                                      dtype=np.uint64)])
+    hi = np.minimum(lo + np.uint64(1 << 16), np.uint64((1 << 32) - 1))
+    want = [[(int(k), model[int(k)]) for k in
+             srt[np.searchsorted(srt, a):np.searchsorted(srt, b, "right")]]
+            for a, b in zip(lo, hi)]
+    if h.scan_many(lo, hi) != want:
+        raise AssertionError("churn: scans differ from the model")
+    absent = rng.integers(0, 1 << 32, GET_SAMPLE, dtype=np.uint64)
+    absent = absent[~np.isin(absent, live)]
+    fence, filt = h.store.probe_runs(absent, absent, point=True)
+    fpr = float((fence & filt).any(axis=1).mean())
+    st, stats = h.store, h.stats
+    launches = {name: k["fn"].launches for name, k in kernels.items()}
+    want_l = {k: 0 for k in kernels}
+    want_l.update(insert=st.filter_builds, store_scan=1)
+    if stats.promote_merges == 0 or stats.purge_rebuilds == 0 \
+            or launches != want_l or not fpr < 0.30:
+        raise AssertionError(f"churn: launches {launches}, "
+                             f"{st.filter_builds} builds, stats "
+                             f"{stats.as_dict()}, point FPR {fpr}")
+    return {"ops": CHURN_OPS, "live_keys": len(live),
+            "promote_merges": stats.promote_merges,
+            "purge_rebuilds": stats.purge_rebuilds,
+            "or_merges": stats.or_merges,
+            "rebuild_merges": stats.rebuild_merges,
+            "b1_launches": launches["insert"],
+            "filter_builds": st.filter_builds,
+            "b4_launches": launches["store_scan"], "point_fpr_absent": fpr}
+
+
+def phase_durable(device, kernels, wal_dir):
+    """Phase 10: ``open_filter`` of phase 7's store with
+    ``mutability="deletable"`` and ``durability="wal"``: 4,194,304 puts
+    through the WAL, a checkpoint, 40% of the loaded keys deleted in
+    ``delete_many`` batches of 8,192 between the YCSB-E scan batches and
+    inserts; every scan against a numpy oracle of the deletes, gets of
+    surviving and deleted keys, the point FPR on absent keys, B1 launches
+    == filter builds and B4 launches == scan batches; then recovery by
+    ``Store.open`` on the card against the live store, and a snapshot with
+    flipped filter bits restored quarantined, scanned exactly through
+    B4 and found by ``scrub``.  At these settings no merge's dead fraction
+    passes ``purge_dead_frac`` and no promote passes the density guard
+    (tombstones meet their targets only in the bottom merge, and the
+    level-0 merges' sources are full), so the promote and purge branches
+    run in :func:`_churn`, where they are asserted."""
+    import os
+    import pickle
+
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.store import FaultPlan, Store
+    from repro_torch.store.faults import flip_filter_bits
+
+    rng = np.random.default_rng(SEED + 10)
+    data = rng.integers(0, 1 << 32, STORE_KEYS, dtype=np.uint64)
+    n_scans = max(int(STORE_OPS * 0.95) // SCAN_BATCH, 1) * SCAN_BATCH
+    n_ins = STORE_OPS - n_scans
+    lo = _scan_starts(n_scans, data, rng)
+    hi = _scan_ends(lo)
+    ins = rng.integers(0, 1 << 32, n_ins, dtype=np.uint64)
+    uniq = np.unique(data)
+    dels = rng.permutation(uniq)[: int(len(uniq) * DEL_FRAC)]
+    n_del_batches = -(-len(dels) // DEL_BATCH)
+    n_batches = n_scans // SCAN_BATCH
+
+    for k in kernels.values():                       # counts of this run only
+        k["fn"].launches = 0
+    h = repro_torch.open_filter(repro_torch.FilterSpec(
+        dtype="u32", placement="store", memtable_limit=8192, level0_runs=8,
+        fanout=4, bits_per_key=14.0, delta=6, mutability="deletable",
+        durability="wal", wal_dir=wal_dir))
+    st = h.store
+    t0 = time.perf_counter()
+    for i, k in enumerate(data):
+        h.put(int(k), i)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ckpt = h.checkpoint()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ckpt_bytes = os.path.getsize(ckpt)
+    frames0 = st.stats.wal_appends
+
+    # the mix: each scan batch after its share of the delete batches, the
+    # inserts after each batch; the events replay on the oracle below
+    events, results = [], []
+    del_s = scan_s = 0.0
+    done_del = done_ins = 0
+    for b in range(n_batches + 1):
+        owed = round(n_del_batches * b / n_batches)
+        if done_del < owed:
+            t = time.perf_counter()
+            for j in range(done_del, owed):
+                batch = dels[j * DEL_BATCH:(j + 1) * DEL_BATCH]
+                h.delete_many(batch)
+                events.append(("del", batch))
+            del_s += time.perf_counter() - t
+            done_del = owed
+        if b == n_batches:
+            break
+        s = b * SCAN_BATCH
+        t = time.perf_counter()
+        results.append(h.scan_many(lo[s:s + SCAN_BATCH], hi[s:s + SCAN_BATCH]))
+        scan_s += time.perf_counter() - t
+        events.append(("scan", b))
+        owed = round(n_ins * (b + 1) / n_batches)
+        for k in ins[done_ins:owed]:
+            h.put(int(k), 0)
+        events.append(("put", ins[done_ins:owed]))
+        done_ins = owed
+    torch.cuda.synchronize()
+    frames = st.stats.wal_appends - frames0
+
+    oracle = _Oracle(data)
+    bad = 0
+    for ev in events:
+        if ev[0] == "del":
+            oracle.delete(ev[1])
+        elif ev[0] == "put":
+            oracle.put(ev[1])
+        else:
+            s = ev[1] * SCAN_BATCH
+            bad += sum(a != b for a, b in zip(
+                results[ev[1]], oracle.scans(lo[s:s + SCAN_BATCH],
+                                             hi[s:s + SCAN_BATCH])))
+    if bad:
+        raise AssertionError(f"{bad} scans differ from the oracle after "
+                             f"the deletes")
+
+    # gets: surviving keys read their values, deleted keys read nothing
+    put_late = np.asarray(sorted(oracle.extra), np.uint64)
+    surv = np.flatnonzero(oracle.alive & ~np.isin(oracle.keys, put_late))
+    pick = rng.choice(surv, GET_SAMPLE, replace=False)
+    gone = np.setdiff1d(dels, put_late)
+    gone = rng.choice(gone, GET_SAMPLE, replace=False)
+    t = time.perf_counter()
+    got = h.get_many(oracle.keys[pick])
+    get_s = time.perf_counter() - t
+    if got != oracle.vals[pick].tolist():
+        raise AssertionError("a surviving key lost its value")
+    if any(v is not None for v in h.get_many(gone)):
+        raise AssertionError("a deleted key still reads a value")
+    # point FPR on keys never put, and on the deleted keys
+    absent = rng.integers(0, 1 << 32, 2 * GET_SAMPLE, dtype=np.uint64)
+    absent = absent[~np.isin(absent, uniq) & ~np.isin(absent, ins)]
+    absent = absent[:GET_SAMPLE]
+    fpr = {}
+    for name, keys in (("absent", absent), ("deleted", gone)):
+        fence, filt = st.probe_runs(keys, keys, point=True)
+        fpr[name] = float((fence & filt).any(axis=1).mean())
+    if not fpr["absent"] < 0.30:
+        raise AssertionError(f"point FPR after deletes {fpr}")
+    stats = st.stats
+
+    launches = {name: k["fn"].launches for name, k in kernels.items()}
+    want = {k: 0 for k in kernels}
+    want.update(insert=st.filter_builds, store_scan=n_batches)
+    if launches != want or st.filter_builds != stats.flushes \
+            + stats.rebuild_merges + stats.purge_rebuilds:
+        raise AssertionError(f"durable store launches {launches}, "
+                             f"{st.filter_builds} filter builds, "
+                             f"{n_batches} scan batches")
+    if stats.kernel_fallbacks:
+        raise AssertionError(f"{stats.kernel_fallbacks} kernel fallbacks")
+
+    # recovery: the checkpoint plus the WAL frames written after it
+    h.close()
+    t = time.perf_counter()
+    rec = Store.open(wal_dir, device="cuda")
+    torch.cuda.synchronize()
+    open_s = time.perf_counter() - t
+    if rec.stats.wal_replayed != frames:
+        raise AssertionError(f"replayed {rec.stats.wal_replayed} frames of "
+                             f"{frames}")
+    if rec.stats.durable_snapshot() != stats.durable_snapshot():
+        raise AssertionError(f"durable stats {rec.stats.durable_snapshot()} "
+                             f"!= {stats.durable_snapshot()}")
+    if [r.checksums() for r in rec.live_runs()] != \
+            [r.checksums() for r in st.live_runs()] \
+            or any(r.state.device.type != device.type
+                   for r in rec.live_runs()):
+        raise AssertionError("recovered runs differ from the live store's")
+    fixed = slice(0, SCAN_BATCH)
+    if rec.scan_many(lo[fixed], hi[fixed]) != st.scan_many(lo[fixed],
+                                                           hi[fixed]):
+        raise AssertionError("recovered store scans differ from the live")
+
+    # quarantine: the checkpoint's snapshot with flipped filter bits in its
+    # largest run, restored on the card; scans stay exact through B4
+    with open(ckpt, "rb") as f:
+        snap = pickle.loads(f.read())
+    lvl, idx = max(((i, j) for i, lv in enumerate(snap["levels"])
+                    for j in range(len(lv))),
+                   key=lambda ij: snap["levels"][ij[0]][ij[1]]["n"])
+    snap["levels"][lvl][idx] = flip_filter_bits(
+        snap["levels"][lvl][idx], FaultPlan(seed=SEED).rng, nbits=3)
+    q = Store.restore(snap, device="cuda")
+    if len(q.quarantined_runs()) != 1:
+        raise AssertionError(f"{len(q.quarantined_runs())} runs quarantined")
+    at_ckpt = _Oracle(data)
+    n0 = kernels["store_scan"]["fn"].launches
+    qbad = 0
+    for s in range(0, 4 * SCAN_BATCH, SCAN_BATCH):
+        qbad += sum(a != b for a, b in zip(
+            q.scan_many(lo[s:s + SCAN_BATCH], hi[s:s + SCAN_BATCH]),
+            at_ckpt.scans(lo[s:s + SCAN_BATCH], hi[s:s + SCAN_BATCH])))
+    qi = [i for i, r in enumerate(q.live_runs()) if r.quarantined][0]
+    fence, touch = q.scan_probe_device(_i64(lo[fixed], device),
+                                       _i64(hi[fixed], device))
+    q_launches = kernels["store_scan"]["fn"].launches - n0
+    if qbad or q_launches != 5 or q.stats.kernel_fallbacks \
+            or not bool((touch[:, qi] == fence[:, qi]).all()) \
+            or q.stats.degraded_probes == 0:
+        raise AssertionError(f"quarantined store: {qbad} scans differ, "
+                             f"{q_launches} B4 launches")
+    scrub = q.scrub()
+    if scrub["quarantined"] != 1:
+        raise AssertionError(f"scrub {scrub}")
+    rec.close()
+    churn = _churn(kernels)
+    return {
+        "churn": churn,
+        "keys": STORE_KEYS, "deleted": int(len(dels)),
+        "delete_batches": n_del_batches, "scans": n_scans,
+        "inserts": n_ins, "runs": len(st.live_runs()),
+        "run_keys": [len(r) for r in st.live_runs()],
+        "launches": launches["store_scan"], "batches": n_batches,
+        "b1_launches": launches["insert"], "filter_builds": st.filter_builds,
+        "flushes": stats.flushes, "or_merges": stats.or_merges,
+        "rebuild_merges": stats.rebuild_merges,
+        "promote_merges": stats.promote_merges,
+        "purge_rebuilds": stats.purge_rebuilds,
+        "kernel_fallbacks": stats.kernel_fallbacks,
+        "point_fpr_absent": fpr["absent"], "point_fpr_deleted": fpr["deleted"],
+        "runs_probed_per_scan": stats.runs_probed_per_scan,
+        "wal_frames_after_checkpoint": frames,
+        "wal_replayed": rec.stats.wal_replayed,
+        "load_puts_per_s_wal": STORE_KEYS / (t1 - t0),
+        "deletes_per_s": len(dels) / del_s,
+        "host_scans_per_s": n_scans / scan_s,
+        "gets_per_s": GET_SAMPLE / get_s,
+        "checkpoint_s": t2 - t1, "checkpoint_bytes": ckpt_bytes,
+        "open_replay_s": open_s,
+        "quarantine": {"run_keys": len(q.quarantined_runs()[0]),
+                       "scans_checked": 4 * SCAN_BATCH,
+                       "b4_launches": q_launches,
+                       "degraded_probes": q.stats.degraded_probes,
+                       "scrub": scrub},
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 11: obs on the main path
+# ---------------------------------------------------------------------------
+
+def _main_mix(h, keys, pq, lo, hi, kernels) -> dict:
+    """Phase 3's inserts, points and ranges through ``h``: verdicts, the
+    state, launches and rates."""
+    import torch
+
+    for k in kernels.values():
+        k["fn"].launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h.insert(keys)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pres = h.point(pq)
+    t2 = time.perf_counter()
+    rres = h.range(lo, hi)
+    t3 = time.perf_counter()
+    return {"launches": {n: k["fn"].launches for n, k in kernels.items()},
+            "verdicts": (pres, rres), "state": h.state_numpy(),
+            "insert_keys_per_s": len(keys) / (t1 - t0),
+            "point_queries_per_s": len(pq) / (t2 - t1),
+            "range_queries_per_s": len(lo) / (t3 - t2)}
+
+
+OBS_KEYS = 2_000_000       # phase 3's filter
+OBS_QUERIES = 1 << 20      # phase 3's points and ranges
+
+
+def phase_obs(device, kernels, expect_launches, trace_path):
+    """Phase 11: phase 3's filter and query mix once with obs off and once
+    after ``obs.enable()`` with a JSONL trace sink: the same launches (8 /
+    4 / 4), verdicts and state; ``kernel/dispatch/resident`` counts equal
+    the calls; ``Counter.add`` of device tensors under
+    ``torch.cuda.set_sync_debug_mode("error")``; ``observed_fpr()`` beside
+    the measured FPR."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch import obs
+
+    n = OBS_KEYS
+    kw = dict(dtype="u32", n=n, bits_per_key=16.0)
+    rng = np.random.default_rng(SEED + n)            # phase 3's inputs
+    top = (1 << 32) - 1
+    keys = rng.integers(0, top + 1, n, dtype=np.uint64)
+    pq, lo, hi = _queries(rng, OBS_QUERIES, keys, top)
+    ptruth, rtruth = _truth(keys, pq, lo, hi)
+
+    # warm-up: the first span of a process starts the profiler's
+    # record_function machinery and NVTX; it is timed here, not below
+    t0 = time.perf_counter()
+    obs.enable()
+    warm = repro_torch.open_filter(repro_torch.FilterSpec(
+        dtype="u32", n=4096, bits_per_key=16.0))
+    warm.insert(keys[:4096])
+    warm.point(pq[:4096])
+    warm.range(lo[:4096], hi[:4096])
+    torch.cuda.synchronize()
+    obs.disable()
+    first_span_s = time.perf_counter() - t0
+    off = _main_mix(repro_torch.open_filter(repro_torch.FilterSpec(**kw)),
+                    keys, pq, lo, hi, kernels)
+    obs.registry().reset()
+    obs.enable()
+    obs.set_trace_sink(trace_path)
+    try:
+        h = repro_torch.open_filter(repro_torch.FilterSpec(**kw))
+        on = _main_mix(h, keys, pq, lo, hi, kernels)
+        counter = obs.registry().counter("smoke/nonzero_lanes")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:                      # stashes on the card: no synchronisation
+            for _ in range(8):
+                counter.add(torch.count_nonzero(h.state))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        snap = obs.export_snapshot()["metrics"]
+        obs.set_trace_sink(None)
+        ofpr = h.observed_fpr()       # re-probes launch: after the counts
+    finally:
+        obs.set_trace_sink(None)
+        obs.disable()
+    for name, run in (("off", off), ("on", on)):
+        if run["launches"] != expect_launches:
+            raise AssertionError(f"obs {name}: launches {run['launches']}")
+    if not (np.array_equal(off["state"], on["state"])
+            and all(np.array_equal(a, b) for a, b in zip(off["verdicts"],
+                                                         on["verdicts"]))):
+        raise AssertionError("verdicts or state differ with obs on")
+    calls = sum(expect_launches.values())
+    if snap.get("kernel/dispatch/resident") != calls:
+        raise AssertionError(f"dispatch counter {snap} != {calls} calls")
+    if snap["smoke/nonzero_lanes"] != 8 * np.count_nonzero(on["state"]):
+        raise AssertionError("device counter settled wrong")
+    with open(trace_path) as f:
+        spans = [json.loads(line)["span"] for line in f]
+    pres, rres = on["verdicts"]
+    rate = ("insert_keys_per_s", "point_queries_per_s",
+            "range_queries_per_s")
+    return {
+        "launches_on": on["launches"],
+        "dispatch_resident": snap["kernel/dispatch/resident"],
+        "spans": {s: spans.count(s) for s in sorted(set(spans))},
+        "latency_p50_us": {k[len("obs/latency/"):]: v["p50"]
+                           for k, v in snap.items()
+                           if k.startswith("obs/latency/")},
+        "warm_up_first_spans_s": first_span_s,
+        "rates_obs_off": {k: off[k] for k in rate},
+        "rates_obs_on": {k: on[k] for k in rate},
+        "measured_point_fpr": float((pres & ~ptruth).sum()
+                                    / max((~ptruth).sum(), 1)),
+        "measured_range_fpr": float((rres & ~rtruth).sum()
+                                    / max((~rtruth).sum(), 1)),
+        "observed_fpr": ofpr,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1666,11 +2154,11 @@ def main() -> int:
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    print(f"[1/9] card: {smi} | torch: {name} | torch {torch.__version__} "
+    print(f"[1/11] card: {smi} | torch: {name} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
-    print(f"[1/9] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
+    print(f"[1/11] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
           flush=True)
-    print(f"[1/9] registers and spills (nvcc -Xptxas -v): "
+    print(f"[1/11] registers and spills (nvcc -Xptxas -v): "
           f"{json.dumps(_ptxas_usage())}", flush=True)
 
     src, rep = "src/repro_torch/csrc/", "src/repro/kernels/"
@@ -1711,7 +2199,7 @@ def main() -> int:
     errs = {k: 0 for k in kernels}
     t0 = time.perf_counter()
     n_lay = phase_kernels_vs_plain(device, kernels, errs, big)
-    print(f"[2/9] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
+    print(f"[2/11] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
           f"top==d, W=64+replicas, multi-segment, exact, full size; B7/B8 "
           f"also on odd batches and replicas 3 and 5, against plain "
           f"versions bucketed at blocks of 256, "
@@ -1722,22 +2210,22 @@ def main() -> int:
                                expect(insert=8, point=4, range=4), kernels)
     if main_run["layout"]["deltas"] != big.deltas:
         raise AssertionError(f"main-path layout {main_run['layout']}")
-    print(f"[3/9] main path {json.dumps(main_run)}", flush=True)
+    print(f"[3/11] main path {json.dumps(main_run)}", flush=True)
     large = phase_main_path(10_000_000, "resident", name,
                             expect(insert=39, point=4, range=4), kernels,
                             time_range=True)
-    print(f"[4/9] resident 10M {json.dumps(large)}", flush=True)
+    print(f"[4/11] resident 10M {json.dumps(large)}", flush=True)
 
     single = {k: kernels[k] for k in ("insert", "point", "range")}
     times = phase_times(device, big, single)
-    print(f"[5/9] times at {CHUNK} keys/queries, filter "
+    print(f"[5/11] times at {CHUNK} keys/queries, filter "
           f"{big.total_u32 * 4} B, on {smi}: {json.dumps(times)}", flush=True)
 
     t0 = time.perf_counter()
     stacked = phase_stacked_vs_plain(device, kernels, errs, big)
     stacked_times = stacked.pop("times")
     times.update(stacked_times)
-    print(f"[6/9] B4 == plain on {stacked['scan_cells_checked']} (scan, run) "
+    print(f"[6/11] B4 == plain on {stacked['scan_cells_checked']} (scan, run) "
           f"cells (mixed Δ, multi-segment, replicas, capacity ladder; padded "
           f"and flat stacks, rpb 0/2, quarantine, edge bounds); B5/B6 == "
           f"plain on {stacked['stacked_rows']} rows of the phase-3 layout: "
@@ -1759,7 +2247,7 @@ def main() -> int:
     store = phase_store(device, kernels, errs)
     times["store_scan"] = store.pop("times")
     b1_shapes.update(store.pop("b1_shapes"))
-    print(f"[7/9] store, {STORE_KEYS} keys loaded by put (the key count is "
+    print(f"[7/11] store, {STORE_KEYS} keys loaded by put (the key count is "
           f"set by the host's per-key Python load path, not by the card), "
           f"YCSB-E: every scan == numpy oracle, every batch's (fence, touch) "
           f"== plain touch_all, {store['launches']} B4 launches for "
@@ -1775,7 +2263,7 @@ def main() -> int:
     hbm = phase_hbm(device, kernels, errs)
     times.update(hbm.pop("times"))
     b1_shapes.update(hbm.pop("b1_shapes"))
-    print(f"[8/9] HBM-scale filter, {HBM_KEYS} keys under auto, grown x{GROW} "
+    print(f"[8/11] HBM-scale filter, {HBM_KEYS} keys under auto, grown x{GROW} "
           f"in place to {HBM_KEYS * GROW}: no false negatives over all keys "
           f"(truth sorted on the card), state and verdicts == xla twin, "
           f"launches {json.dumps(hbm['launches'])}; deletable and TTL "
@@ -1788,13 +2276,13 @@ def main() -> int:
     if errs["insert"]:
         raise AssertionError(f"B1 != plain on a traffic shape: {errs}")
     times["insert"]["shapes"] = b1_shapes
-    print(f"[8/9] B1 alone on its traffic shapes ((a) the phase-3 filter in "
+    print(f"[8/11] B1 alone on its traffic shapes ((a) the phase-3 filter in "
           f"the L2, (b) phase 8's states cold, each of {COLD_CHUNKS} chunks "
           f"captured once, (c) phase 7's flush and largest rebuild, sorted "
           f"keys) on {smi}: {json.dumps(b1_shapes)}", flush=True)
 
     call_ms = {k: t.pop("call_ms") for k, t in times.items()}
-    print(f"[8/9] kernel wrappers' ms per call by CUDA events over 200 "
+    print(f"[8/11] kernel wrappers' ms per call by CUDA events over 200 "
           f"back-to-back calls, host dispatch included (the kernels line's "
           f"ms is the kernel alone, from a CUDA graph): "
           f"{json.dumps(call_ms)}", flush=True)
@@ -1804,7 +2292,7 @@ def main() -> int:
         "insert_keys_per_s", "point_queries_per_s", "range_queries_per_s")},
               "phase7_store": {k: store[k] for k in (
                   "load_puts_per_s", "host_scans_per_s")}}
-    print(f"[9/9] 64-bit keys on the plain path on the card, no kernel "
+    print(f"[9/11] 64-bit keys on the plain path on the card, no kernel "
           f"launched: mix64 == numpy on {MIX64_KEYS} keys with the top bit "
           f"set; the default open_filter (u64) and an f64 filter of "
           f"{WIDE_KEYS} keys with no false negatives, {SUBSAMPLE} verdicts "
@@ -1813,10 +2301,49 @@ def main() -> int:
           f"YCSB-E scans == numpy oracle: {json.dumps(wide)}; beside "
           f"{json.dumps(beside)}, on {smi} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    wal_root = tempfile.mkdtemp(prefix="bloomrf-smoke-")
+    try:
+        t0 = time.perf_counter()
+        durable = phase_durable(device, kernels,
+                                str(Path(wal_root) / "wal"))
+        print(f"[10/11] deletable, durable store (phase 7's settings, "
+              f"mutability='deletable', durability='wal'): {STORE_KEYS} "
+              f"puts through the WAL, a checkpoint, {durable['deleted']} "
+              f"keys deleted in {durable['delete_batches']} delete_many "
+              f"batches between the YCSB-E scan batches: every scan == "
+              f"numpy oracle of the deletes, {GET_SAMPLE} surviving keys "
+              f"read their values and {GET_SAMPLE} deleted keys nothing, "
+              f"{durable['launches']} B4 launches for {durable['batches']} "
+              f"scan batches, {durable['b1_launches']} B1 launches for "
+              f"{durable['filter_builds']} filter builds, no other launch; "
+              f"Store.open == the live store (stats, run CRCs, scans), "
+              f"{durable['wal_replayed']} WAL frames replayed; a flipped "
+              f"filter block restored quarantined, scans exact through B4, "
+              f"found by scrub: {json.dumps(durable)} on {smi} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        t0 = time.perf_counter()
+        obs_run = phase_obs(device, kernels,
+                            expect(insert=8, point=4, range=4),
+                            str(Path(wal_root) / "trace.jsonl"))
+        print(f"[11/11] obs on the main path (phase 3's filter and mix, "
+              f"obs.enable() and a JSONL trace sink): launches "
+              f"{json.dumps(obs_run['launches_on'])} as with obs off, the "
+              f"same verdicts and state, kernel/dispatch/resident == calls, "
+              f"Counter.add of device tensors under "
+              f"set_sync_debug_mode('error'): {json.dumps(obs_run)} on "
+              f"{smi} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    finally:
+        shutil.rmtree(wal_root, ignore_errors=True)
     times["insert"]["launches_by_path"] = {
         "phase3_main": main_run["launches"]["insert"],
         "phase7_store_builds": store["b1_launches"],
-        "phase8_hbm": hbm["launches"]["insert"]}
+        "phase8_hbm": hbm["launches"]["insert"],
+        "phase10_durable_builds": durable["b1_launches"],
+        "phase11_obs_on": obs_run["launches_on"]["insert"]}
+    times["store_scan"]["launches_by_path"] = {
+        "phase7_store": store["launches"],
+        "phase10_durable": durable["launches"]}
     launches = dict(main_run["launches"])
     launches.update(stacked["launches"])
     launches["store_scan"] = store["launches"]

@@ -18,6 +18,13 @@ and float keys only); for ``"single"`` a :class:`SingleFilter` that
 * deletes keys, ages them out, and grows in place through
   ``core/dynamic.py`` (``mutability="deletable"`` / ``"ttl"``, ``grow``).
 
+Both handles report through ``obs`` as the reference's do: ``facade/*``
+spans, the workload sample of their range queries, and
+``observed_fpr()``, the live false-positive rate of a known-absent
+reservoir (``obs/fpr.py``).  A :class:`TypedStore` passes the store's
+``mutability="deletable"`` and ``durability="wal"`` through unchanged and
+checkpoints and scrubs the store.
+
 The filter or store lives on ``device``, which is ``"cuda"`` unless the
 caller asks for another; without a card :func:`open_filter` raises rather
 than quietly picking the CPU.  What is not ported yet raises
@@ -35,6 +42,8 @@ from .core import codecs as _cd
 from .core import uint64 as _u64
 from .core.bloomrf import resolve_device
 from .core.layout import basic_layout
+from .obs import metrics as _obs_metrics
+from .obs import trace as _obs_trace
 
 __all__ = ["FilterSpec", "open_filter", "chunked_probe", "SingleFilter",
            "TypedStore"]
@@ -378,7 +387,41 @@ def _plan_layout(spec: FilterSpec, codec: _Codec):
                   seed=spec.seed).layout, "advised"
 
 
-class SingleFilter:
+class _Observed:
+    """The observability surface every handle shares: a lazy known-absent
+    reservoir over the codec's domain, the range workload sample, and the
+    ``obs/fpr/*`` gauges."""
+
+    _fpr = None                 # lazy known-absent reservoir (obs/fpr.py)
+
+    def _fpr_sampler(self, **kw):
+        """This handle's known-absent reservoir, built on first use."""
+        if self._fpr is None:
+            from .obs.fpr import FprSampler
+
+            self._fpr = FprSampler(self.codec.d,
+                                   seed=self.spec.seed ^ 0xB10F, **kw)
+        return self._fpr
+
+    def _observe_ranges(self, clo, chi) -> None:
+        """Feed the workload sampler (range-length distribution) when the
+        obs plane is on; one boolean check otherwise."""
+        if _obs_metrics.enabled():
+            self._fpr_sampler().observe_ranges(clo, chi)
+
+    def _record_fpr(self, out: dict) -> dict:
+        """Publish an ``observed_fpr()`` result to the registry gauges."""
+        reg = _obs_metrics.registry()
+        if "range_fpr" in out:
+            reg.gauge("obs/fpr/observed").set(out["range_fpr"])
+        if "point_fpr" in out:
+            reg.gauge("obs/fpr/point").set(out["point_fpr"])
+        reg.gauge("obs/fpr/range_candidates").set(
+            out.get("range_candidates", 0))
+        return out
+
+
+class SingleFilter(_Observed):
     """One bloomRF on one device: the CUDA kernels or the plain engine path.
 
     ``backend='auto'`` uses the kernels on a CUDA device wherever they
@@ -501,13 +544,18 @@ class SingleFilter:
         return self.filter.positions(cj).cpu().numpy()
 
     def insert(self, keys) -> None:
-        for cj in self._chunks(keys):
-            if self.gens is not None:
-                self.gens.insert(self._insert, cj)
-            else:
-                self._state = self._insert(self._state, cj)
-            if self.counts is not None:
-                self.counts.add(self._positions(cj))
+        codes = self.codec.encode_insert(keys)
+        if _obs_metrics.enabled():
+            self._fpr_sampler().observe_insert(codes)
+        with _obs_trace.span("facade/insert", n=len(codes)):
+            for s in range(0, len(codes), self.spec.chunk):
+                cj = _codes_tensor(codes[s:s + self.spec.chunk], self.device)
+                if self.gens is not None:
+                    self.gens.insert(self._insert, cj)
+                else:
+                    self._state = self._insert(self._state, cj)
+                if self.counts is not None:
+                    self.counts.add(self._positions(cj))
 
     def delete(self, keys) -> None:
         """Remove previously inserted keys (``mutability='deletable'``).
@@ -558,13 +606,30 @@ class SingleFilter:
     # -- probes -------------------------------------------------------------
     def point(self, qs) -> np.ndarray:
         codes = self.codec.encode_point(qs)
-        return chunked_probe(self._point, self.state, [codes], self.device,
-                             self.spec.chunk)
+        with _obs_trace.span("facade/point", n=len(codes)):
+            return chunked_probe(self._point, self.state, [codes],
+                                 self.device, self.spec.chunk)
 
     def range(self, lo, hi) -> np.ndarray:
         clo, chi = self.codec.encode_bounds(lo, hi)
-        return chunked_probe(self._range, self.state, [clo, chi],
-                             self.device, self.spec.chunk)
+        self._observe_ranges(clo, chi)
+        with _obs_trace.span("facade/range", n=len(clo)):
+            return chunked_probe(self._range, self.state, [clo, chi],
+                                 self.device, self.spec.chunk)
+
+    def observed_fpr(self) -> dict:
+        """Re-probe the known-absent reservoir -> live observed FPR.
+
+        Candidates are invalidated from the insert stream observed while
+        observability was enabled, so enable obs before the first insert
+        for an exact reservoir.  Publishes the ``obs/fpr/*`` gauges."""
+        s = self._fpr_sampler()
+        return self._record_fpr(s.sample(
+            point_probe=lambda ks: chunked_probe(
+                self._point, self.state, [ks], self.device, self.spec.chunk),
+            range_probe=lambda lo, hi: chunked_probe(
+                self._range, self.state, [lo, hi], self.device,
+                self.spec.chunk)))
 
     def range_where_b(self, b_const, a_lo, a_hi) -> np.ndarray:
         """Multiattr: ``B == b_const AND A in [a_lo, a_hi]`` via <B,A>
@@ -580,13 +645,8 @@ class SingleFilter:
     def size_bits(self) -> int:
         return self.layout.total_bits
 
-    # -- not ported yet -------------------------------------------------------
-    def observed_fpr(self) -> dict:
-        raise NotImplementedError(
-            "live FPR telemetry needs obs/ (ROADMAP A.7)")
 
-
-class TypedStore:
+class TypedStore(_Observed):
     """The LSM run-store behind the codec boundary: typed put/get/scan.
 
     Integer and float keys are bijective codes, so scans decode back to the
@@ -632,7 +692,9 @@ class TypedStore:
         return int(self.codec.encode_point(key)[0])
 
     def put(self, key, value) -> None:
-        self.store.put(self._code1(key), value)
+        code = self._code1(key)
+        with _obs_trace.span("facade/put"):
+            self.store.put(code, value)
 
     def delete(self, key) -> None:
         self.store.delete(self._code1(key))
@@ -644,15 +706,30 @@ class TypedStore:
     def flush(self) -> None:
         self.store.flush()
 
+    # -- durability (FilterSpec(durability='wal', wal_dir=...)) -----------
+    def checkpoint(self) -> str:
+        """Publish a durable checkpoint (snapshot + manifest, WAL reset);
+        see ``Store.checkpoint``.  Returns the snapshot path."""
+        return self.store.checkpoint()
+
+    def scrub(self, sample_keys: int = 64, seed: int = 0) -> dict:
+        """Integrity pass over every live run (``Store.scrub``)."""
+        return self.store.scrub(sample_keys=sample_keys, seed=seed)
+
     def close(self) -> None:
+        """Release the WAL file handle (the store stays readable)."""
         self.store.close()
 
     # -- read path --------------------------------------------------------
     def get(self, key):
-        return self.store.get(self._code1(key))
+        code = self._code1(key)
+        with _obs_trace.span("facade/get"):
+            return self.store.get(code)
 
     def get_many(self, keys) -> list:
-        return self.store.get_many(self.codec.encode_point(keys))
+        codes = self.codec.encode_point(keys)
+        with _obs_trace.span("facade/get", batch=len(codes)):
+            return self.store.get_many(codes)
 
     def scan(self, lo, hi) -> list:
         return self.scan_many([lo], [hi])[0]
@@ -660,7 +737,9 @@ class TypedStore:
     def scan_many(self, los, his) -> list:
         """Batched typed scans: one pruning step for the batch."""
         clo, chi = self.codec.encode_bounds(np.asarray(los), np.asarray(his))
-        raw = self.store.scan_many(clo, chi)
+        self._observe_ranges(clo, chi)
+        with _obs_trace.span("facade/scan", batch=len(clo)):
+            raw = self.store.scan_many(clo, chi)
         if self.codec.name in ("f32", "f64"):
             return [[(float(self.codec.decode(np.uint64(c))), v)
                      for c, v in rows] for rows in raw]
@@ -691,16 +770,41 @@ class TypedStore:
     def size_bits(self) -> int:
         return self.store.filter_bits()
 
-    # -- not ported yet -------------------------------------------------------
-    def checkpoint(self) -> str:
-        return self.store.checkpoint()
-
-    def scrub(self, sample_keys: int = 64, seed: int = 0) -> dict:
-        return self.store.scrub(sample_keys=sample_keys, seed=seed)
+    # -- observability ----------------------------------------------------
+    def register_obs(self, family: str = "store") -> str:
+        """Register the store's :class:`StoreStats` as a metric family."""
+        return self.store.register_obs(family)
 
     def observed_fpr(self) -> dict:
-        raise NotImplementedError(
-            "live FPR telemetry needs obs/ (ROADMAP A.7)")
+        """Live observed FPR from ground truth.
+
+        Reservoir candidates still present in the store are eliminated at
+        sample time against the live key set, and the survivors re-probe
+        through the run filters; any ``fence & filter`` positive is a
+        certain false positive.  Returns aggregate point/range FPR plus
+        per-run range rates, and publishes the ``obs/fpr/*`` gauges."""
+        from .store.memtable import TOMBSTONE
+
+        store = self.store
+        s = self._fpr_sampler()
+        present = [np.asarray([k for k, v in store.mem.items()
+                               if v is not TOMBSTONE], np.uint64)]
+        present += [r.keys[~r.tombs] for r in store.live_runs()]
+        s.mark_present(np.concatenate(present))
+        klive = s.live_points()
+        rlo, rhi = s.live_ranges()
+        out = {"point_candidates": int(klive.size),
+               "range_candidates": int(rlo.size),
+               "workload_seen": s.workload_seen}
+        if klive.size:
+            fence, filt = store.probe_runs(klive, klive, point=True)
+            out["point_fpr"] = float((fence & filt).any(axis=1).mean())
+        if rlo.size:
+            fence, filt = store.probe_runs(rlo, rhi)
+            pos = fence & filt
+            out["range_fpr"] = float(pos.any(axis=1).mean())
+            out["range_fpr_per_run"] = [float(x) for x in pos.mean(axis=0)]
+        return self._record_fpr(out)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,12 @@ for bit the same either way.
 Stacked probes over ``R`` same-layout rows dispatch as in ``repro``: the
 stacked kernels while ``R * total_u32`` fits the budget, the plain
 ``StackedProbe`` above it, and per-row plain probes for exact layouts.
+
+With ``obs`` on, each call counts one ``kernel/dispatch/<tier>`` (the
+tier it took: ``resident``, ``partitioned`` or ``xla`` for the plain path)
+and runs in a ``kernel/insert|point|range`` span, as in ``repro``; an
+insert counts the tier of its filter's size, where the reference counts
+its XLA insert above the budget as ``xla``.  Neither adds a launch.
 """
 from __future__ import annotations
 
@@ -29,12 +35,21 @@ import torch
 
 from ..core import FilterLayout
 from ..core.engine import stacked_probe
+from ..obs import metrics as _obs_metrics
+from ..obs import trace as _obs_trace
 from . import insert as _insert
 from . import probe as _probe
 from . import rangeprobe as _rangeprobe
 from .ref import check_kernel_layout, filter_for_layout
 
 __all__ = ["FilterOps", "DEFAULT_VMEM_BUDGET_U32", "read_vmem_budget_u32"]
+
+
+def _tick(tier: str) -> None:
+    """Count one dispatch on its tier (a host int: never a sync)."""
+    if _obs_metrics.enabled():
+        _obs_metrics.registry().counter(f"kernel/dispatch/{tier}").add(1)
+
 
 #: fallback resident/partitioned threshold in uint32 lanes
 DEFAULT_VMEM_BUDGET_U32 = 1 << 22
@@ -85,22 +100,34 @@ class FilterOps:
                                 if vmem_budget_u32 is None else vmem_budget_u32)
         self.resident = layout.total_u32 <= self.vmem_budget_u32
 
+    def _tier(self) -> str:
+        return "resident" if self.resident else "partitioned"
+
     def insert(self, state: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
-        return _insert.insert_resident(self.layout, state, keys)
+        with _obs_trace.span("kernel/insert"):
+            _tick(self._tier())
+            return _insert.insert_resident(self.layout, state, keys)
 
     def point(self, state: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
-        if self.resident:
-            return _probe.point_probe_resident(self.layout, state, keys)
-        return _probe.point_probe_partitioned(self.layout, state, keys)
+        with _obs_trace.span("kernel/point"):
+            _tick(self._tier())
+            if self.resident:
+                return _probe.point_probe_resident(self.layout, state, keys)
+            return _probe.point_probe_partitioned(self.layout, state, keys)
 
     def range(self, state: torch.Tensor, lo: torch.Tensor,
               hi: torch.Tensor) -> torch.Tensor:
-        if self.layout.has_exact:  # middle scan: the plain engine path
-            return filter_for_layout(self.layout, state.device).range(
-                state, lo, hi)
-        if self.resident:
-            return _rangeprobe.range_probe_resident(self.layout, state, lo, hi)
-        return _rangeprobe.range_probe_partitioned(self.layout, state, lo, hi)
+        with _obs_trace.span("kernel/range"):
+            if self.layout.has_exact:  # middle scan: the plain engine path
+                _tick("xla")
+                return filter_for_layout(self.layout, state.device).range(
+                    state, lo, hi)
+            _tick(self._tier())
+            if self.resident:
+                return _rangeprobe.range_probe_resident(self.layout, state,
+                                                        lo, hi)
+            return _rangeprobe.range_probe_partitioned(self.layout, state,
+                                                       lo, hi)
 
     # -- stacked-run probes (R same-layout rows, one launch) --------------
     def _stacked(self, stack: torch.Tensor):
@@ -116,8 +143,10 @@ class FilterOps:
             return torch.stack([plain.range(row, lo, hi) for row in stack],
                                dim=1)
         if stack.shape[0] * self.layout.total_u32 <= self.vmem_budget_u32:
+            _tick("resident")
             return _rangeprobe.range_probe_stacked_resident(
                 self.layout, stack, lo, hi)
+        _tick("xla")
         return self._stacked(stack).range_all(stack.reshape(-1), lo, hi)
 
     def point_stacked(self, stack: torch.Tensor,
@@ -128,6 +157,8 @@ class FilterOps:
             return torch.stack([plain.point(row, keys) for row in stack],
                                dim=1)
         if stack.shape[0] * self.layout.total_u32 <= self.vmem_budget_u32:
+            _tick("resident")
             return _probe.point_probe_stacked_resident(self.layout, stack,
                                                        keys)
+        _tick("xla")
         return self._stacked(stack).point_all(stack.reshape(-1), keys)

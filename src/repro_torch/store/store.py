@@ -24,22 +24,49 @@ the filters saved.  A store of ``d > 32`` keys (int64 carriers of the
 uint64 bits) builds, gets and scans on the plain path, as the reference's
 does: no kernel takes its layouts.
 
+Filters are insert-only at write time: a delete writes a tombstone entry
+whose key is inserted like any other, so newer tombstones mask older runs
+at read time.  With ``mutability="deletable"`` compaction fights the
+resulting FPR drift: class-graduating merges *promote* source filters in
+place (segment tiling, no kernel launch) instead of replaying keys, and a
+merge whose dead-entry fraction exceeds ``purge_dead_frac`` rebuilds the
+filter from the surviving keys (one insert-kernel launch), purging every
+deleted key's bits.
+
+Durability: with ``durability="wal"`` every ``put``/``delete``/
+``delete_many`` appends a CRC-framed record to a write-ahead log
+(``store/wal.py``) *before* the memtable acks it, and
+:meth:`Store.checkpoint` publishes a checksummed snapshot + manifest via
+atomic renames (``store/integrity.py``) before resetting the log;
+:meth:`Store.open` recovers the acknowledged state after a crash at any
+point, onto the device the caller names.  Snapshots hold host data only
+(numpy arrays, Python objects), the reference's dict field for field, so
+either package restores the other's.  Runs whose filter block fails its
+checksum are *quarantined*: the probe plane (the store-scan kernel and the
+plain path alike) degrades them to fence-only pruning, so scans stay exact
+(``StoreStats.degraded_probes``).
+
 The store lives on ``device``, ``"cuda"`` unless the caller asks for
 another; without a card it raises.  With ``scan_backend="auto"`` a scan
 batch is retried on the plain path only after an
 :class:`~repro_torch.store.faults.InjectedDispatchFault` from the fault
 seam; every other error of the kernel (a failed build or launch)
-propagates.
+propagates.  Flushes, compactions, gets, scans, checkpoints, scrubs and
+WAL replays report through ``obs`` (spans, and the store's
+:class:`StoreStats` as a registered metric family).
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``mutability="deletable"`` (A.2b), the
-``repro.filters`` baselines as ``filter_backend`` (A.3c),
-``durability="wal"`` with snapshots, checkpoints and scrubs (A.3b),
-observability (A.7) and ``tuning="adaptive"`` (A.8).
+item: the ``repro.filters`` baselines as ``filter_backend`` (A.3c) and
+``tuning="adaptive"``, with the workload model a snapshot of such a store
+carries (A.8).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import pickle
+import warnings
+import weakref
 from typing import ClassVar, List, Optional, Tuple
 
 import numpy as np
@@ -51,10 +78,15 @@ from ..core.engine import _filter_for_layout, fence_mask, stacked_probe
 from ..core.layout import basic_layout
 from ..kernels.insert import insert_resident
 from ..kernels.store_scan import store_scan_probe_flat
+from ..obs import metrics as _obs_metrics
+from ..obs import trace as _obs_trace
 from .compaction import merge_filter_state, merge_sorted_runs
 from .faults import FaultPlan, InjectedDispatchFault
+from .integrity import (MANIFEST_FILENAME, atomic_write_bytes, crc32_bytes,
+                        read_manifest, write_manifest)
 from .memtable import TOMBSTONE, Memtable
 from .run import Run
+from .wal import WAL_FILENAME, Wal
 
 __all__ = ["Store", "StoreConfig", "StoreStats"]
 
@@ -141,10 +173,6 @@ class StoreConfig:
 
 def _check_ported(cfg: StoreConfig) -> None:
     """Refuse the valid configurations the port cannot run yet."""
-    if cfg.mutability == "deletable":
-        raise NotImplementedError(
-            "mutability='deletable' needs promote merges and purges, "
-            "which are not ported yet (ROADMAP A.2b)")
     if cfg.tuning == "adaptive":
         raise NotImplementedError(
             "tuning='adaptive' needs the tune/ package (ROADMAP A.8)")
@@ -152,10 +180,6 @@ def _check_ported(cfg: StoreConfig) -> None:
         raise NotImplementedError(
             f"filter_backend={cfg.filter_backend!r} needs the repro.filters "
             f"baselines (ROADMAP A.3c)")
-    if cfg.durability == "wal":
-        raise NotImplementedError(
-            "durability='wal' needs the WAL, snapshots and the manifest "
-            "(ROADMAP A.3b)")
 
 
 @dataclasses.dataclass
@@ -164,7 +188,8 @@ class StoreStats:
 
     The reference's fields, in the reference's order, so ``as_dict()`` of
     the same op stream is equal in both packages.  :data:`DURABLE` names
-    the counters a snapshot carries (snapshots: ROADMAP A.3b)."""
+    the counters a snapshot carries: they survive restore, checkpoint and
+    recovery; the read-path counters describe this process's traffic."""
 
     puts: int = 0
     deletes: int = 0
@@ -242,7 +267,8 @@ class Store:
     (default ``"cuda"``)."""
 
     def __init__(self, config: Optional[StoreConfig] = None, device=None, *,
-                 faults: Optional[FaultPlan] = None, **kw):
+                 faults: Optional[FaultPlan] = None, _open_wal: bool = True,
+                 **kw):
         self.cfg = config if config is not None else StoreConfig(**kw)
         _check_ported(self.cfg)
         self.device = resolve_device(device)
@@ -259,11 +285,39 @@ class Store:
         self._dev = None                      # lazy device fences + mask
         self._dirty = True
         self.filter_builds = 0                # flush and rebuild filter builds
+        self._wal: Optional[Wal] = None
+        self._seq = 0                         # checkpoint sequence number
+        if _obs_metrics.enabled():            # late joiners: register_obs()
+            self.register_obs()
+        if self.cfg.durability == "wal" and _open_wal:
+            os.makedirs(self.cfg.wal_dir, exist_ok=True)
+            wal_path = os.path.join(self.cfg.wal_dir, WAL_FILENAME)
+            has_state = (
+                os.path.exists(os.path.join(self.cfg.wal_dir,
+                                            MANIFEST_FILENAME))
+                or (os.path.exists(wal_path)
+                    and os.path.getsize(wal_path) > 0))
+            if has_state:
+                raise ValueError(
+                    f"{self.cfg.wal_dir!r} already holds store state; "
+                    f"use Store.open({self.cfg.wal_dir!r}) to recover it")
+            self._wal = Wal(wal_path, sync=self.cfg.wal_sync).open_for_append()
 
     def _fault(self, point: str) -> None:
         """Pass through a named fault-injection seam (no-op without a plan)."""
         if self.faults is not None:
             self.faults.hit(point)
+
+    def register_obs(self, family: str = "store") -> str:
+        """Join the obs registry as a metric family: the registry holds a
+        weak reference, so a collected store drops out of the next
+        ``snapshot()``.  Returns the assigned family name (auto-suffixed
+        when taken).  Called at construction when obs is already on."""
+        sref = weakref.ref(self)
+        return _obs_metrics.registry().register_family(
+            family,
+            lambda: (lambda s: None if s is None
+                     else s.stats.snapshot())(sref()))
 
     def _codes(self, a: np.ndarray) -> torch.Tensor:
         """Host uint codes -> an int64 carrier tensor on the store's device."""
@@ -314,8 +368,17 @@ class Store:
             raise ValueError(f"key {key} outside the {self.cfg.d}-bit domain")
         return key
 
+    def _wal_append(self, op: str, key, value=None) -> None:
+        """Frame a record before the memtable acks (durable stores only)."""
+        if self._wal is None:
+            return
+        self._fault("wal.append")
+        self._wal.append(op, key, value)
+        self.stats.wal_appends += 1
+
     def put(self, key: int, value) -> None:
         key = self._check_key(key)
+        self._wal_append("put", key, value)
         self.mem.put(key, value)
         self.stats.puts += 1
         if len(self.mem) >= self.cfg.memtable_limit:
@@ -323,6 +386,7 @@ class Store:
 
     def delete(self, key: int) -> None:
         key = self._check_key(key)
+        self._wal_append("del", key)
         self.mem.delete(key)
         self.stats.deletes += 1
         if len(self.mem) >= self.cfg.memtable_limit:
@@ -331,8 +395,10 @@ class Store:
     def delete_many(self, keys) -> None:
         """Batched deletes: every tombstone lands in the memtable before the
         single flush decision, so a large sweep triggers at most one flush
-        (plus its compaction cascade)."""
+        (plus its compaction cascade).  One ``"delm"`` WAL frame covers the
+        batch, so replay applies the whole sweep or none of it."""
         keys = [self._check_key(k) for k in keys]
+        self._wal_append("delm", keys)
         for key in keys:
             self.mem.delete(key)
         self.stats.deletes += len(keys)
@@ -343,14 +409,15 @@ class Store:
         """Freeze the memtable into a new level-0 run."""
         if len(self.mem) == 0:
             return
-        keys, vals, tombs = self.mem.sorted_entries()
-        run = self._make_run(keys, vals, tombs, 0)
-        run.checksums()             # cache the build-time reference
-        self._fault("flush.after_run")
-        self.levels[0].insert(0, run)
-        self.mem.clear()
-        self.stats.flushes += 1
-        self._dirty = True
+        with _obs_trace.span("store/flush", entries=len(self.mem)):
+            keys, vals, tombs = self.mem.sorted_entries()
+            run = self._make_run(keys, vals, tombs, 0)
+            run.checksums()             # cache the build-time reference
+            self._fault("flush.after_run")
+            self.levels[0].insert(0, run)
+            self.mem.clear()
+            self.stats.flushes += 1
+            self._dirty = True
         self._maybe_compact()
 
     # ------------------------------------------------------------------
@@ -374,6 +441,10 @@ class Store:
         ``compact.before_swap`` seam leaves every source run live."""
         if level >= len(self.levels) or not self.levels[level]:
             return
+        with _obs_trace.span("store/compact", level=level):
+            self._compact_inner(level)
+
+    def _compact_inner(self, level: int) -> None:
         if level + 1 >= len(self.levels):
             self.levels.append([])
         sources = self.levels[level] + self.levels[level + 1]
@@ -390,17 +461,32 @@ class Store:
             return
         target_layout = self.class_layout(len(keys))
         state = None
+        promotions = 0
         if self.cfg.filter_backend == "bloomrf":
             # fraction of merged entries that did not survive (shadowed
-            # duplicates + dropped tombstones)
+            # duplicates + dropped tombstones): the bits those entries set
+            # are dead weight in an OR- or promote-merged filter
             n_in = sum(len(r) for r in sources)
+            deletable = self.cfg.mutability == "deletable"
+            # cap promotion depth: a promoted filter still answers at its
+            # source class's resolution, so hop-on-hop promotion compounds
+            # FPR; once any source has used its hops, rebuild fresh
+            hops = max((r.promotions for r in sources), default=0)
             state, how = merge_filter_state(
                 sources, target_layout, keys, self._build_filter,
-                dead_frac=1.0 - len(keys) / n_in)
-            counter = {"or": "or_merges", "rebuild": "rebuild_merges",
+                dead_frac=1.0 - len(keys) / n_in,
+                purge_dead_frac=(self.cfg.purge_dead_frac if deletable
+                                 else None),
+                allow_promote=deletable
+                and hops < self.cfg.promote_max_hops,
+                promote_density_slack=self.cfg.promote_density_slack)
+            counter = {"or": "or_merges", "promote": "promote_merges",
+                       "rebuild": "rebuild_merges",
                        "purge": "purge_rebuilds"}[how]
             setattr(self.stats, counter, getattr(self.stats, counter) + 1)
-        new_run = Run(keys, vals, tombs, level + 1, target_layout, state)
+            promotions = {"or": hops, "promote": hops + 1}.get(how, 0)
+        new_run = Run(keys, vals, tombs, level + 1, target_layout, state,
+                      promotions=promotions)
         new_run.checksums()             # checksummed before it goes live
         self._fault("compact.before_swap")
         self.levels[level] = []
@@ -566,6 +652,10 @@ class Store:
         ``StackedProbe.touch_all`` in ``xla`` mode; fence-only verdicts for
         ``filter_backend="none"``."""
         self._refresh()
+        if _obs_metrics.enabled():
+            # host-side batch odometer only: the launch stays async
+            _obs_metrics.registry().counter(
+                "store/scan_probe_batches").add(1)
         lo, hi = torch.atleast_1d(lo), torch.atleast_1d(hi)
         if not self._runs:
             z = torch.zeros((lo.shape[0], 0), dtype=torch.bool,
@@ -591,6 +681,10 @@ class Store:
     def get_many(self, keys) -> list:
         """Batched point lookups: one gather over the flat state."""
         keys = np.atleast_1d(np.asarray(keys, np.uint64))
+        with _obs_trace.span("store/get", batch=len(keys)):
+            return self._get_many_inner(keys)
+
+    def _get_many_inner(self, keys: np.ndarray) -> list:
         st = self.stats
         st.gets += len(keys)
         fence, filt = self.probe_runs(keys, keys, point=True)
@@ -628,9 +722,10 @@ class Store:
         device step for the batch."""
         los = np.atleast_1d(np.asarray(los, np.uint64))
         his = np.atleast_1d(np.asarray(his, np.uint64))
-        fence, touch = self._touch_masks(los, his)
-        return [self._scan_one(int(lo), int(hi), fence[b], touch[b])
-                for b, (lo, hi) in enumerate(zip(los, his))]
+        with _obs_trace.span("store/scan", batch=len(los)):
+            fence, touch = self._touch_masks(los, his)
+            return [self._scan_one(int(lo), int(hi), fence[b], touch[b])
+                    for b, (lo, hi) in enumerate(zip(los, his))]
 
     def _scan_one(self, lo: int, hi: int, fence: np.ndarray,
                   touch: np.ndarray) -> list:
@@ -665,8 +760,9 @@ class Store:
                     out[k] = v
         return sorted(out.items())
 
+
     # ------------------------------------------------------------------
-    # introspection
+    # introspection / snapshots
     # ------------------------------------------------------------------
     @property
     def n_runs(self) -> int:
@@ -676,35 +772,244 @@ class Store:
         return sum(r.layout.total_bits for r in self.live_runs()
                    if r.state is not None)
 
-    def close(self) -> None:
-        """Nothing to release: the port's stores keep no WAL yet."""
+    def quarantined_runs(self) -> List[Run]:
+        """Live runs whose filter block failed its checksum."""
+        return [r for r in self.live_runs() if r.quarantined]
 
-    # ------------------------------------------------------------------
-    # not ported yet
-    # ------------------------------------------------------------------
     def snapshot(self, flush_first: bool = True) -> dict:
-        raise NotImplementedError(
-            "store snapshots need Run.pack (ROADMAP A.3b)")
+        """Compressed snapshot of the store's full state: host data only
+        (numpy arrays and Python objects), the reference's dict field for
+        field.
+
+        By default the memtable is flushed into a level-0 run first; with
+        ``flush_first=False`` only the frozen runs are snapshot, which
+        warns when no WAL holds the unflushed entries."""
+        if flush_first:
+            self.flush()
+        elif len(self.mem) and self._wal is None:
+            warnings.warn(
+                f"snapshot(flush_first=False) with {len(self.mem)} unflushed "
+                f"memtable entries and no WAL: those writes are not in the "
+                f"snapshot and will not survive a restore",
+                RuntimeWarning, stacklevel=2)
+        return {"schema": "bloomrf-store/v3",
+                "config": dataclasses.asdict(self.cfg),
+                "stats": self.stats.durable_snapshot(),
+                "levels": [[r.pack() for r in lvl] for lvl in self.levels]}
 
     @classmethod
-    def restore(cls, snap: dict) -> "Store":
-        raise NotImplementedError(
-            "store snapshots need Run.unpack (ROADMAP A.3b)")
+    def restore(cls, snap: dict, device=None) -> "Store":
+        """Validated inverse of :meth:`snapshot`, the run states placed on
+        ``device`` (default ``"cuda"``).  In memory only: a durable
+        config's WAL is not attached here (recover through
+        :meth:`Store.open` instead).
 
+        Malformed or corrupted input raises a ``ValueError``; a run whose
+        *filter block* alone is corrupt restores quarantined."""
+        if not isinstance(snap, dict):
+            raise ValueError(f"store snapshot must be a dict, "
+                             f"got {type(snap).__name__}")
+        if snap.get("schema") not in ("bloomrf-store/v1", "bloomrf-store/v2",
+                                      "bloomrf-store/v3"):
+            raise ValueError(f"not a store snapshot: {snap.get('schema')!r}")
+        if snap.get("workload") is not None:
+            raise NotImplementedError(
+                "the snapshot carries a workload model of tuning='adaptive', "
+                "which needs the tune/ package (ROADMAP A.8)")
+        cfg_enc = snap.get("config")
+        if not isinstance(cfg_enc, dict):
+            raise ValueError("store snapshot: 'config' must be a dict")
+        try:
+            cfg = StoreConfig(**cfg_enc)
+        except (TypeError, ValueError) as e:
+            raise ValueError(f"store snapshot: bad config: {e}") from e
+        store = cls(cfg, device, _open_wal=False)
+        levels_enc = snap.get("levels")
+        if (not isinstance(levels_enc, list)
+                or not all(isinstance(lvl, list) for lvl in levels_enc)):
+            raise ValueError("store snapshot: 'levels' must be a list of "
+                             "run lists")
+        store.levels = [[Run.unpack(enc, store.device) for enc in lvl]
+                        for lvl in levels_enc]
+        if not store.levels:
+            store.levels = [[]]
+        stats_enc = snap.get("stats")    # optional: absent in v1/v2
+        if stats_enc is not None:
+            if (not isinstance(stats_enc, dict)
+                    or not set(stats_enc) <= set(StoreStats.DURABLE)
+                    or not all(isinstance(v, int) and not isinstance(v, bool)
+                               and v >= 0 for v in stats_enc.values())):
+                raise ValueError(
+                    "store snapshot: 'stats' must map durable counter "
+                    "names to non-negative ints")
+            for k, v in stats_enc.items():
+                setattr(store.stats, k, v)
+        store._dirty = True
+        return store
+
+    # ------------------------------------------------------------------
+    # durability: checkpoint / recovery / scrub
+    # ------------------------------------------------------------------
     def checkpoint(self) -> str:
-        raise NotImplementedError(
-            "checkpoints need the WAL and the manifest (ROADMAP A.3b)")
+        """Make the current state durable; returns the snapshot path.
+
+        Flush the memtable, write ``snapshot-<seq>.bin`` atomically (temp
+        file + rename), publish the self-checksummed manifest naming it
+        (also atomic), and only then reset the WAL and drop older
+        snapshots.  A crash at any point leaves a recoverable directory:
+        before the manifest rename the old checkpoint and the full WAL
+        recover everything; after it, WAL replay is idempotent."""
+        if self._wal is None:
+            raise ValueError("checkpoint() requires durability='wal' "
+                             "(open the store with a durable StoreConfig "
+                             "or Store.open)")
+        with _obs_trace.span("store/checkpoint"):
+            self.flush()
+            snap = self.snapshot(flush_first=False)
+            blob = pickle.dumps(snap, protocol=pickle.HIGHEST_PROTOCOL)
+            self._seq += 1
+            name = f"snapshot-{self._seq:08d}.bin"
+            path = os.path.join(self.cfg.wal_dir, name)
+            atomic_write_bytes(path, blob, fault=self.faults,
+                               fault_point="snapshot.before_rename")
+            write_manifest(self.cfg.wal_dir,
+                           {"snapshot": name, "crc32": crc32_bytes(blob),
+                            "seq": self._seq},
+                           fault=self.faults)
+            self._wal.reset()
+            self._gc_snapshots(keep=name)
+            return path
+
+    def _gc_snapshots(self, keep: str) -> None:
+        """Drop superseded or orphaned snapshot files (best effort)."""
+        for fn in os.listdir(self.cfg.wal_dir):
+            if (fn.startswith("snapshot-") and fn.endswith(".bin")
+                    and fn != keep):
+                try:
+                    os.unlink(os.path.join(self.cfg.wal_dir, fn))
+                except OSError:
+                    pass
 
     @classmethod
     def open(cls, wal_dir: str, config: Optional[StoreConfig] = None,
-             **kw) -> "Store":
-        raise NotImplementedError(
-            "recovery needs the WAL and the manifest (ROADMAP A.3b)")
+             device=None, *, faults: Optional[FaultPlan] = None) -> "Store":
+        """Open (or crash-recover) the durable store rooted at ``wal_dir``
+        on ``device`` (default ``"cuda"``).
+
+        Recovery trusts nothing unverified: the manifest's own CRC, then
+        the snapshot file's CRC against the manifest's record, then every
+        run's component CRCs (``Run.unpack``).  After the snapshot loads,
+        the WAL is healed of any torn tail and its records replay into the
+        memtable.  ``config`` seeds a fresh store when no checkpoint exists
+        yet (its ``durability``/``wal_dir`` are forced to this directory
+        either way)."""
+        manifest = read_manifest(wal_dir)    # ValueError on corruption
+        if manifest is not None:
+            name = manifest.get("snapshot")
+            path = os.path.join(wal_dir, str(name))
+            try:
+                with open(path, "rb") as f:
+                    blob = f.read()
+            except OSError as e:
+                raise ValueError(f"manifest names snapshot {name!r} but it "
+                                 f"cannot be read: {e}") from e
+            if crc32_bytes(blob) != int(manifest.get("crc32", -1)):
+                raise ValueError(
+                    f"snapshot {name!r} fails its manifest CRC — torn write "
+                    f"or bit rot; restore from a previous checkpoint")
+            try:
+                snap = pickle.loads(blob)
+            except Exception as e:
+                raise ValueError(f"snapshot {name!r} passed its CRC but "
+                                 f"does not unpickle: {e}") from e
+            store = cls.restore(snap, device)
+            store.cfg = dataclasses.replace(store.cfg, durability="wal",
+                                            wal_dir=wal_dir)
+            store._seq = int(manifest.get("seq", 0))
+        else:
+            cfg = config if config is not None else StoreConfig(
+                durability="wal", wal_dir=wal_dir)
+            cfg = dataclasses.replace(cfg, durability="wal", wal_dir=wal_dir)
+            store = cls(cfg, device, _open_wal=False)
+        store.faults = faults
+        os.makedirs(wal_dir, exist_ok=True)
+        store._wal = Wal(os.path.join(wal_dir, WAL_FILENAME),
+                         sync=store.cfg.wal_sync).open_for_append()
+        store._replay_wal()
+        return store
+
+    def _replay_wal(self) -> None:
+        """Re-apply every intact WAL record through the memtable, with the
+        normal flush trigger (so replaying more than ``memtable_limit``
+        records rebuilds runs as the live path did).  Replayed records
+        re-enter the durable ``puts``/``deletes`` counters."""
+        n = 0
+        with _obs_trace.span("wal/replay"):
+            for op, key, value in self._wal.replay():
+                if op == "put":
+                    self.mem.put(int(key), value)
+                    self.stats.puts += 1
+                elif op == "del":
+                    self.mem.delete(int(key))
+                    self.stats.deletes += 1
+                else:                   # "delm": one frame, many tombstones
+                    for k in key:
+                        self.mem.delete(int(k))
+                    self.stats.deletes += len(key)
+                n += 1
+                if len(self.mem) >= self.cfg.memtable_limit:
+                    self.flush()
+        self.stats.wal_replayed = n
+
+    def close(self) -> None:
+        """Release the WAL file handle (the store stays readable)."""
+        if self._wal is not None:
+            self._wal.close()
 
     def scrub(self, sample_keys: int = 64, seed: int = 0) -> dict:
-        raise NotImplementedError(
-            "scrubs come with the durability item (ROADMAP A.3b)")
+        """Full integrity pass over every live run.
 
-    def register_obs(self, family: str = "store") -> str:
-        raise NotImplementedError(
-            "the metrics registry needs obs/ (ROADMAP A.7)")
+        Re-checks each run's component CRCs against its build-time
+        reference: a keys/fences/values mismatch raises, a filter-block
+        mismatch quarantines the run in place.  Then re-asserts the
+        no-false-negative contract on up to ``sample_keys`` sampled live
+        keys per run (a quarantined row trivially passes).  Returns a
+        report dict."""
+        with _obs_trace.span("store/scrub"):
+            return self._scrub_inner(sample_keys, seed)
+
+    def _scrub_inner(self, sample_keys: int, seed: int) -> dict:
+        self._refresh()
+        rng = np.random.default_rng(seed)
+        newly = 0
+        for r in self._runs:
+            res = r.verify()
+            bad = [c for c in ("keys", "fences", "vals", "tombs")
+                   if not res.get(c, True)]
+            if bad:
+                raise ValueError(
+                    f"scrub: level-{r.level} run failed {bad} checksum(s) — "
+                    f"data corruption; restore from a checkpoint")
+            if not res.get("filter", True) and not r.quarantined:
+                r.quarantined = True
+                newly += 1
+                self._dirty = True
+        if newly:
+            self._refresh()
+        report = {"runs": len(self._runs),
+                  "quarantined": int(sum(r.quarantined for r in self._runs)),
+                  "newly_quarantined": newly,
+                  "fn_checked": 0}
+        for idx, r in enumerate(self._runs):
+            live = r.keys[~r.tombs]
+            if len(live) == 0:
+                continue
+            pick = (live if len(live) <= sample_keys
+                    else rng.choice(live, sample_keys, replace=False))
+            fence, filt = self.probe_runs(pick, pick, point=True)
+            report["fn_checked"] += len(pick)
+            if not (fence[:, idx] & filt[:, idx]).all():
+                raise ValueError(
+                    f"scrub: filter false negative on level-{r.level} run "
+                    f"{idx} — filter block corrupt beyond its checksum")
+        return report

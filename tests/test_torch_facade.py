@@ -91,7 +91,6 @@ def test_default_device_without_card_raises(monkeypatch):
     (dict(dtype="str", placement="store"), "A.3c"),
     (dict(dtype="multiattr", placement="store"), "A.3c"),
     (dict(dtype="f64", placement="tenant", tenants=2), "A.9"),
-    (dict(dtype="u32", placement="store", mutability="deletable"), "A.2"),
 ])
 def test_not_ported_raises(kw, match):
     spec = repro_torch.FilterSpec(n=1000, **kw)
@@ -100,12 +99,13 @@ def test_not_ported_raises(kw, match):
 
 
 def test_not_ported_methods_raise():
-    """``observed_fpr`` waits for obs/ (A.7); ``range_where_b`` is ported
-    and, as in the reference, refuses keys that are not multiattr."""
+    """``observed_fpr`` is ported (it raised naming A.7 before) and answers
+    on an empty filter; ``range_where_b`` is ported and, as in the
+    reference, refuses keys that are not multiattr."""
     h = repro_torch.open_filter(repro_torch.FilterSpec(dtype="u32", n=100),
                                 device="cpu")
-    with pytest.raises(NotImplementedError):
-        h.observed_fpr()
+    out = h.observed_fpr()
+    assert out["point_fpr"] == 0.0 and out["point_candidates"] == 512
     with pytest.raises(TypeError, match="multiattr"):
         h.range_where_b(1, 2, 3)
 

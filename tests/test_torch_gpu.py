@@ -709,3 +709,133 @@ def test_descriptor_parameter_at_and_above_its_capacity(cuda, kernel):
     with pytest.raises(ValueError, match="descriptor parameter"):
         fn(over, state)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the deletable, durable store and the obs plane on the card
+# ---------------------------------------------------------------------------
+
+def _churned_store(cfg, seed=21, n_ops=6000, flush_every=50):
+    """A store driven by a 40%-delete churn with a flush every
+    ``flush_every`` ops (none for 0) and a delete sweep; returns the live
+    model."""
+    rng = np.random.default_rng(seed)
+    st = Store(cfg) if isinstance(cfg, StoreConfig) else cfg
+    model = {}
+    for i in range(n_ops):
+        if model and rng.random() < 0.4:
+            k = next(iter(model))
+            st.delete(k)
+            del model[k]
+        else:
+            k = int(rng.integers(0, 1 << 32))
+            st.put(k, i)
+            model.pop(k, None)
+            model[k] = i
+        if flush_every and i % flush_every == flush_every - 1:
+            st.flush()
+        if i == n_ops // 2:
+            sweep = list(model)[:300]
+            st.delete_many(sweep)
+            for k in sweep:
+                del model[k]
+    return st, model
+
+
+def _scan_bounds(model, seed=3, n=1024):
+    rng = np.random.default_rng(seed)
+    live = np.fromiter(model, np.uint64, len(model))
+    lo = np.concatenate([rng.choice(live, n // 2),
+                         rng.integers(0, 1 << 32, n // 2, dtype=np.uint64)])
+    return lo, np.minimum(lo + np.uint64(1 << 20), np.uint64((1 << 32) - 1))
+
+
+def test_deletable_store_launches_b1_per_build_and_b4_per_batch(cuda):
+    """Promote merges launch nothing, every flush, rebuild and purge one B1,
+    every scan batch one B4, and no other kernel runs; scans equal the same
+    store's on the CPU."""
+    cfg = StoreConfig(memtable_limit=256, level0_runs=2, fanout=4,
+                      mutability="deletable")
+    before = [k.launches for k in _ALL_KERNELS]
+    st, model = _churned_store(cfg)
+    lo, hi = _scan_bounds(model)
+    got = [st.scan_many(lo[s:s + 256], hi[s:s + 256])
+           for s in range(0, len(lo), 256)]
+    torch.cuda.synchronize()
+    delta = [k.launches - b for k, b in zip(_ALL_KERNELS, before)]
+    assert st.stats.purge_rebuilds > 0
+    assert st.filter_builds == st.stats.flushes + st.stats.rebuild_merges \
+        + st.stats.purge_rebuilds
+    assert delta == [st.filter_builds, 0, 0, 0, 0, 0, 0, 4]
+    host = Store(cfg, device="cpu")
+    _churned_store(host)
+    assert got == [host.scan_many(lo[s:s + 256], hi[s:s + 256])
+                   for s in range(0, len(lo), 256)]
+    assert st.stats.as_dict() == host.stats.as_dict()
+    live = np.fromiter(model, np.uint64, len(model))
+    assert st.get_many(live[:2000]) == [model[int(k)] for k in live[:2000]]
+
+
+def test_store_open_restores_run_states_on_the_card(cuda, tmp_path):
+    cfg = StoreConfig(memtable_limit=256, level0_runs=2, fanout=4,
+                      mutability="deletable", durability="wal",
+                      wal_dir=str(tmp_path))
+    st, model = _churned_store(cfg, n_ops=3000)
+    st.checkpoint()
+    # a WAL tail after it, with no explicit flush (a flush is not logged:
+    # the replay flushes where the memtable fills, as the live path did)
+    _churned_store(st, seed=22, n_ops=700, flush_every=0)
+    st.close()
+    rec = Store.open(str(tmp_path), device="cuda")
+    assert rec.stats.wal_replayed > 0
+    assert rec.stats.durable_snapshot() == st.stats.durable_snapshot()
+    assert len(rec.live_runs()) == len(st.live_runs())
+    for a, b in zip(rec.live_runs(), st.live_runs()):
+        assert a.state.device.type == cuda.type
+        torch.testing.assert_close(a.state, b.state, rtol=0, atol=0)
+        assert a.checksums() == b.checksums()
+    lo, hi = _scan_bounds(model)
+    assert rec.scan_many(lo, hi) == st.scan_many(lo, hi)
+    rec.close()
+
+
+def test_quarantined_row_through_the_scan_kernel(cuda):
+    from repro_torch.store.faults import FaultPlan, flip_filter_bits
+
+    st, model = _churned_store(StoreConfig(memtable_limit=256, level0_runs=2,
+                                           fanout=4), n_ops=3000)
+    snap = st.snapshot()
+    lvl = max(i for i, lv in enumerate(snap["levels"]) if lv)
+    ctrl = Store.restore(snap)
+    snap["levels"][lvl][0] = flip_filter_bits(snap["levels"][lvl][0],
+                                              FaultPlan(seed=4).rng, nbits=5)
+    bad = Store.restore(snap)
+    assert len(bad.quarantined_runs()) == 1
+    lo, hi = _scan_bounds(model)
+    n0 = store_scan_probe.launches
+    assert bad.scan_many(lo, hi) == ctrl.scan_many(lo, hi)
+    assert store_scan_probe.launches - n0 == 2
+    assert bad.stats.degraded_probes > 0 and bad.stats.kernel_fallbacks == 0
+    q = [i for i, r in enumerate(bad.live_runs()) if r.quarantined][0]
+    fence, touch = bad.scan_probe_device(*(torch.from_numpy(
+        a.astype(np.int64)).to(cuda) for a in (lo, hi)))
+    assert bool((touch[:, q] == fence[:, q]).all())
+    assert bad.scrub()["quarantined"] == 1
+
+
+def test_counter_add_of_a_device_tensor_never_syncs(cuda, monkeypatch):
+    from repro_torch.obs import metrics
+
+    monkeypatch.setattr(metrics, "_REGISTRY", metrics.MetricsRegistry())
+    c = metrics.registry().counter("unit/dev")
+    t = torch.arange(1000, device=cuda).sum()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(10):
+            c.add(t)
+            c.add(t * 2)
+        metrics.registry().gauge("unit/g").set(t)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert metrics.registry().snapshot()["unit/dev"] == 30 * 499_500

@@ -13,7 +13,8 @@ _SRC = _ROOT / "src"
 def test_import_pulls_in_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.kernels\n"
             "import repro_torch.store, repro_torch.kernels.store_scan\n"
-            "import repro_torch.core.dynamic\n"
+            "import repro_torch.core.dynamic, repro_torch.obs\n"
+            "import repro_torch.dist.compression, repro_torch.store.wal\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -38,7 +39,9 @@ def test_no_module_imports_jax_or_repro():
     assert {"store/store.py", "store/run.py", "store/compaction.py",
             "store/memtable.py", "store/faults.py", "store/integrity.py",
             "kernels/store_scan.py", "core/dynamic.py",
-            "core/uint64.py"} <= names
+            "core/uint64.py", "obs/__init__.py", "obs/metrics.py",
+            "obs/trace.py", "obs/fpr.py", "dist/compression.py",
+            "store/wal.py"} <= names
     files.append(_ROOT / "chip_smoke.py")
     files += sorted((_ROOT / "benchmarks").glob("torch_*.py"))
     for f in files:

@@ -18,6 +18,7 @@ import torch
 
 import repro
 import repro_torch
+from repro.store import Run as RRun
 from repro.store import Store as RStore
 from repro.store import StoreConfig as RConfig
 from repro_torch.core.layout import FilterLayout
@@ -160,12 +161,18 @@ def test_default_config_builds_through_the_insert_kernel(monkeypatch):
         np.testing.assert_array_equal(got[5], want[5])
 
 
-def test_run_from_numpy_roundtrip():
+def test_runs_unpack_across_packages():
+    """A ``repro`` run's snapshot unpacks in the port (state on the CPU as
+    int32 lanes, the quarantine flag and checksums carried) and the port's
+    snapshot of it unpacks in ``repro``, equal field for field."""
     *_, ref = _reference()
     rr = ref.live_runs()[-1]
-    run = Run.from_numpy(rr.keys, rr.vals, rr.tombs, rr.level,
-                         dataclasses.asdict(rr.layout), np.asarray(rr.state),
-                         quarantined=True, device="cpu")
+    rr.quarantined = True
+    try:
+        enc = rr.pack()
+    finally:
+        rr.quarantined = False
+    run = Run.unpack(enc, device="cpu")
     assert run.layout == FilterLayout.from_dict(dataclasses.asdict(rr.layout))
     assert run.quarantined and run.state.dtype == torch.int32
     np.testing.assert_array_equal(run.state_numpy(), np.asarray(rr.state))
@@ -173,10 +180,11 @@ def test_run_from_numpy_roundtrip():
     assert run.checksums() == rr.checksums()
     assert all(run.verify().values())
     assert run.lookup(int(rr.keys[3]))[0]
-    with pytest.raises(ValueError, match="uint32"):
-        Run.from_numpy(rr.keys, rr.vals, rr.tombs, rr.level,
-                       dataclasses.asdict(rr.layout),
-                       np.asarray(rr.state)[:-1], device="cpu")
+    back = RRun.unpack(run.pack())
+    assert back.quarantined and back.checksums() == rr.checksums()
+    np.testing.assert_array_equal(np.asarray(back.state), np.asarray(rr.state))
+    with pytest.raises(ValueError, match="layout"):
+        Run.unpack(dict(enc, layout={"d": 32}), device="cpu")
 
 
 def _small_store(**kw) -> Store:
@@ -298,34 +306,16 @@ def test_typed_store_scans_decode_as_reference(dtype):
 
 
 @pytest.mark.parametrize("make,match", [
-    (lambda: Store(StoreConfig(d=64, mutability="deletable"), device="cpu"),
-     "A.2"),
-    (lambda: Store(StoreConfig(mutability="deletable"), device="cpu"), "A.2"),
     (lambda: Store(StoreConfig(tuning="adaptive"), device="cpu"), "A.8"),
     (lambda: Store(StoreConfig(filter_backend="rosetta"), device="cpu"),
      "A.3c"),
-    (lambda: Store(StoreConfig(durability="wal", wal_dir="w"), device="cpu"),
-     "A.3b"),
-    (lambda: Store(device="cpu").snapshot(), "A.3b"),
-    (lambda: Store.restore({}), "A.3b"),
-    (lambda: Store(device="cpu").checkpoint(), "A.3b"),
-    (lambda: Store.open("w"), "A.3b"),
-    (lambda: Store(device="cpu").scrub(), "A.3b"),
-    (lambda: Store(device="cpu").register_obs(), "A.7"),
-    (lambda: Run(np.asarray([1], np.uint64), [0], [False], 0,
-                 FilterLayout(d=32, deltas=(6,), replicas=(1,),
-                              seg_of_layer=(0,), seg_bits=(256,)),
-                 None).pack(), "A.3b"),
-    (lambda: Run.unpack({}), "A.3b"),
-    (lambda: merge_filter_state([], None, None, None, allow_promote=True),
-     "A.2"),
+    (lambda: Store.restore({"schema": "bloomrf-store/v3",
+                            "workload": {"d": 32}}, device="cpu"), "A.8"),
     (lambda: repro_torch.open_filter(repro_torch.FilterSpec(
         dtype="str", placement="store"), device="cpu"), "A.3c"),
     (lambda: repro_torch.open_filter(repro_torch.FilterSpec(
-        dtype="u32", placement="store", mutability="deletable"),
-        device="cpu"), "A.2"),
-    (lambda: repro_torch.open_filter(repro_torch.FilterSpec(
-        dtype="u32", placement="store"), device="cpu").observed_fpr(), "A.7"),
+        dtype="u32", placement="store", tuning="adaptive"), device="cpu"),
+     "A.8"),
 ])
 def test_deferred_features_raise_naming_their_item(make, match):
     with pytest.raises(NotImplementedError, match=match):
