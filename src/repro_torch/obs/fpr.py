@@ -1,7 +1,12 @@
 """Live FPR telemetry: known-absent reservoirs re-probed on demand.
 
 A copy of ``repro/obs/fpr.py`` (numpy only), reporting through the
-port's metrics registry.
+port's metrics registry, with one change that keeps every output equal:
+the insert stream's dedup and membership tests sort once and search
+(:func:`_sorted_unique`, :func:`_member`) instead of calling
+``np.unique`` / ``np.isin``, whose hash-based unique (numpy 2.3 and
+later) made inserts with obs on 200 times slower than with it off on the
+card's host (``chip_smoke.py`` phase 11).
 
 A :class:`FprSampler` holds a fixed reservoir of *candidate* absent
 point keys and ranges drawn uniformly over the filter's ``2^d`` code
@@ -39,6 +44,21 @@ SAMPLE_FIELDS = ("point_candidates", "range_candidates", "workload_seen",
                  "point_fpr", "range_fpr")
 
 _SETTLE_AT = 1 << 16        # pending inserted codes before a lazy settle
+
+
+def _sorted_unique(a: np.ndarray) -> np.ndarray:
+    """``np.unique(a)`` of a 1-d array, by one sort."""
+    a = np.sort(a)
+    if a.size:
+        a = a[np.concatenate(([True], a[1:] != a[:-1]))]
+    return a
+
+
+def _member(x: np.ndarray, sorted_set: np.ndarray) -> np.ndarray:
+    """``np.isin(x, sorted_set)`` for a sorted, non-empty ``sorted_set``."""
+    idx = np.searchsorted(sorted_set, x)
+    at = np.minimum(idx, sorted_set.size - 1)
+    return (idx < sorted_set.size) & (sorted_set[at] == x)
 
 
 class FprSampler:
@@ -87,9 +107,9 @@ class FprSampler:
     def _settle(self) -> None:
         if not self._pending:
             return
-        ins = np.unique(np.concatenate(self._pending))
+        ins = _sorted_unique(np.concatenate(self._pending))
         self._pending, self._pending_n = [], 0
-        self.key_live &= ~np.isin(self.keys, ins)
+        self.key_live &= ~_member(self.keys, ins)
         idx = np.searchsorted(ins, self.lo)
         at = np.minimum(idx, max(ins.size - 1, 0))
         nonempty = (idx < ins.size) & (ins[at] <= self.hi)
@@ -98,13 +118,13 @@ class FprSampler:
     def mark_present(self, present) -> None:
         """Recompute liveness from the FULL present-key set (ground
         truth); replaces — not merges with — insert-stream state."""
-        present = np.unique(np.asarray(present, dtype=np.uint64))
+        present = _sorted_unique(np.asarray(present, dtype=np.uint64))
         self._pending, self._pending_n = [], 0
         if present.size == 0:
             self.key_live[:] = True
             self.range_live[:] = True
             return
-        self.key_live = ~np.isin(self.keys, present)
+        self.key_live = ~_member(self.keys, present)
         idx = np.searchsorted(present, self.lo)
         at = np.minimum(idx, present.size - 1)
         self.range_live = ~((idx < present.size) & (present[at] <= self.hi))

@@ -159,8 +159,10 @@ class Histogram:
         if arr.size == 0:
             return
         idx = np.searchsorted(np.asarray(self.buckets), arr, side="left")
-        for i, c in zip(*np.unique(idx, return_counts=True)):
-            self.counts[int(i)] += int(c)
+        # a bincount, not np.unique(return_counts=True): the same counts
+        # without numpy's hash-based unique (see obs/fpr.py)
+        for i, c in enumerate(np.bincount(idx, minlength=len(self.counts))):
+            self.counts[i] += int(c)
         self.total += float(arr.sum())
         self.count += int(arr.size)
 
