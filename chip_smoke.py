@@ -99,6 +99,9 @@ Phases, one line of output each:
     device tensors under ``torch.cuda.set_sync_debug_mode("error")``, and
     ``observed_fpr()`` beside the measured FPR.
 
+``python3 chip_smoke.py --store-phases`` builds the kernels and runs
+phases 10 and 11 alone.
+
 It prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 on any mismatch, on a kernel the main path did not launch, or when no CUDA
@@ -2135,6 +2138,44 @@ def phase_obs(device, kernels, expect_launches, trace_path):
     }
 
 
+def _durable_and_obs(device, kernels, expect, smi):
+    """Phases 10 and 11, each printing its line; returns their results."""
+    wal_root = tempfile.mkdtemp(prefix="bloomrf-smoke-")
+    try:
+        t0 = time.perf_counter()
+        durable = phase_durable(device, kernels,
+                                str(Path(wal_root) / "wal"))
+        print(f"[10/11] deletable, durable store (phase 7's settings, "
+              f"mutability='deletable', durability='wal'): {STORE_KEYS} "
+              f"puts through the WAL, a checkpoint, {durable['deleted']} "
+              f"keys deleted in {durable['delete_batches']} delete_many "
+              f"batches between the YCSB-E scan batches: every scan == "
+              f"numpy oracle of the deletes, {GET_SAMPLE} surviving keys "
+              f"read their values and {GET_SAMPLE} deleted keys nothing, "
+              f"{durable['launches']} B4 launches for {durable['batches']} "
+              f"scan batches, {durable['b1_launches']} B1 launches for "
+              f"{durable['filter_builds']} filter builds, no other launch; "
+              f"Store.open == the live store (stats, run CRCs, scans), "
+              f"{durable['wal_replayed']} WAL frames replayed; a flipped "
+              f"filter block restored quarantined, scans exact through B4, "
+              f"found by scrub: {json.dumps(durable)} on {smi} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        t0 = time.perf_counter()
+        obs_run = phase_obs(device, kernels,
+                            expect(insert=8, point=4, range=4),
+                            str(Path(wal_root) / "trace.jsonl"))
+        print(f"[11/11] obs on the main path (phase 3's filter and mix, "
+              f"obs.enable() and a JSONL trace sink): launches "
+              f"{json.dumps(obs_run['launches_on'])} as with obs off, the "
+              f"same verdicts and state, kernel/dispatch/resident == calls, "
+              f"Counter.add of device tensors under "
+              f"set_sync_debug_mode('error'): {json.dumps(obs_run)} on "
+              f"{smi} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    finally:
+        shutil.rmtree(wal_root, ignore_errors=True)
+    return durable, obs_run
+
+
 def main() -> int:
     import torch
 
@@ -2194,6 +2235,10 @@ def main() -> int:
 
     def expect(**nonzero):
         return {k: nonzero.get(k, 0) for k in kernels}
+
+    if sys.argv[1:] == ["--store-phases"]:   # phases 10-11 alone
+        _durable_and_obs(device, kernels, expect, smi)
+        return 0
 
     big = basic_layout(32, 2_000_000, 16.0, delta=7)
     errs = {k: 0 for k in kernels}
@@ -2302,39 +2347,7 @@ def main() -> int:
           f"{json.dumps(beside)}, on {smi} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    wal_root = tempfile.mkdtemp(prefix="bloomrf-smoke-")
-    try:
-        t0 = time.perf_counter()
-        durable = phase_durable(device, kernels,
-                                str(Path(wal_root) / "wal"))
-        print(f"[10/11] deletable, durable store (phase 7's settings, "
-              f"mutability='deletable', durability='wal'): {STORE_KEYS} "
-              f"puts through the WAL, a checkpoint, {durable['deleted']} "
-              f"keys deleted in {durable['delete_batches']} delete_many "
-              f"batches between the YCSB-E scan batches: every scan == "
-              f"numpy oracle of the deletes, {GET_SAMPLE} surviving keys "
-              f"read their values and {GET_SAMPLE} deleted keys nothing, "
-              f"{durable['launches']} B4 launches for {durable['batches']} "
-              f"scan batches, {durable['b1_launches']} B1 launches for "
-              f"{durable['filter_builds']} filter builds, no other launch; "
-              f"Store.open == the live store (stats, run CRCs, scans), "
-              f"{durable['wal_replayed']} WAL frames replayed; a flipped "
-              f"filter block restored quarantined, scans exact through B4, "
-              f"found by scrub: {json.dumps(durable)} on {smi} "
-              f"({time.perf_counter() - t0:.1f} s)", flush=True)
-        t0 = time.perf_counter()
-        obs_run = phase_obs(device, kernels,
-                            expect(insert=8, point=4, range=4),
-                            str(Path(wal_root) / "trace.jsonl"))
-        print(f"[11/11] obs on the main path (phase 3's filter and mix, "
-              f"obs.enable() and a JSONL trace sink): launches "
-              f"{json.dumps(obs_run['launches_on'])} as with obs off, the "
-              f"same verdicts and state, kernel/dispatch/resident == calls, "
-              f"Counter.add of device tensors under "
-              f"set_sync_debug_mode('error'): {json.dumps(obs_run)} on "
-              f"{smi} ({time.perf_counter() - t0:.1f} s)", flush=True)
-    finally:
-        shutil.rmtree(wal_root, ignore_errors=True)
+    durable, obs_run = _durable_and_obs(device, kernels, expect, smi)
     times["insert"]["launches_by_path"] = {
         "phase3_main": main_run["launches"]["insert"],
         "phase7_store_builds": store["b1_launches"],
