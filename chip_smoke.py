@@ -99,9 +99,6 @@ Phases, one line of output each:
     device tensors under ``torch.cuda.set_sync_debug_mode("error")``, and
     ``observed_fpr()`` beside the measured FPR.
 
-``python3 chip_smoke.py --store-phases`` builds the kernels and runs
-phases 10 and 11 alone.
-
 It prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 on any mismatch, on a kernel the main path did not launch, or when no CUDA
@@ -2235,10 +2232,6 @@ def main() -> int:
 
     def expect(**nonzero):
         return {k: nonzero.get(k, 0) for k in kernels}
-
-    if sys.argv[1:] == ["--store-phases"]:   # phases 10-11 alone
-        _durable_and_obs(device, kernels, expect, smi)
-        return 0
 
     big = basic_layout(32, 2_000_000, 16.0, delta=7)
     errs = {k: 0 for k in kernels}

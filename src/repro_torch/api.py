@@ -535,8 +535,7 @@ class SingleFilter(_Observed):
         return self.state.cpu().numpy().view(np.uint32).copy()
 
     # -- mutation -----------------------------------------------------------
-    def _chunks(self, keys):
-        codes = self.codec.encode_insert(keys)
+    def _chunks(self, codes):
         for s in range(0, len(codes), self.spec.chunk):
             yield _codes_tensor(codes[s:s + self.spec.chunk], self.device)
 
@@ -548,8 +547,7 @@ class SingleFilter(_Observed):
         if _obs_metrics.enabled():
             self._fpr_sampler().observe_insert(codes)
         with _obs_trace.span("facade/insert", n=len(codes)):
-            for s in range(0, len(codes), self.spec.chunk):
-                cj = _codes_tensor(codes[s:s + self.spec.chunk], self.device)
+            for cj in self._chunks(codes):
                 if self.gens is not None:
                     self.gens.insert(self._insert, cj)
                 else:
@@ -569,7 +567,7 @@ class SingleFilter(_Observed):
         if self.counts is None:
             raise ValueError(
                 "delete() needs FilterSpec(mutability='deletable')")
-        for cj in self._chunks(keys):
+        for cj in self._chunks(self.codec.encode_insert(keys)):
             zeroed = self.counts.remove(self._positions(cj))
             self._state = clear_bits(self._state, zeroed)
 

@@ -244,13 +244,15 @@ class Run:
                 if not verify_component(crcs, "filter",
                                         state_crc32(state_np)):
                     quarantined = True
-                state = torch.from_numpy(state_np.view(np.int32)).to(device)
             except Exception:
                 # undecodable filter payload: keep the run alive without a
                 # usable filter block (the store stacks zeros in its place
                 # and the quarantine mask keeps the row always-touch)
-                state = None
+                state_np = None
                 quarantined = True
+            if state_np is not None:
+                # outside the try: a failed copy to the device raises
+                state = torch.from_numpy(state_np.view(np.int32)).to(device)
         # the tombstone mask is authoritative: restoring the sentinel from
         # it also heals v1 snapshots whose vals hold stale sentinels
         vals = [TOMBSTONE if t else v for v, t in zip(enc_vals, tombs)]

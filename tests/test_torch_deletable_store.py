@@ -6,8 +6,9 @@ takes all four merge branches (OR, promote, rebuild, purge).  Everything
 must be equal: ``StoreStats``, every run's layout, level, promotions and
 state bit for bit, and every ``get_many`` / ``scan_many`` answer.
 
-One reference store runs the stream once per module (its builds are JAX
-compiles); the port runs it once per ``scan_backend``."""
+The stream runs over 24-bit and over 64-bit keys.  One reference store
+runs each once per module (its builds are JAX compiles); the port runs
+each once per ``scan_backend``."""
 import dataclasses
 import functools
 
@@ -24,50 +25,56 @@ from repro_torch.core.layout import FilterLayout
 from repro_torch.store import Store, StoreConfig
 from repro_torch.store import compaction
 
-D = 24
-SPACE = 1 << D
-_CFG = dict(d=D, memtable_limit=128, level0_runs=2, fanout=4,
-            bits_per_key=14.0, mutability="deletable",
-            use_insert_kernels=True)
+# key width -> stream length: a 32-bit and a 64-bit carrier; the 64-bit
+# reference builds are slower, so its stream is shorter and starts with
+# puts alone, which its early merges need to promote
+STREAMS = {24: dict(n_ops=3000), 64: dict(n_ops=500, warm=350)}
+DS = list(STREAMS)
+_CFG = dict(memtable_limit=128, level0_runs=2, fanout=4, bits_per_key=14.0,
+            mutability="deletable", use_insert_kernels=True)
 
 
-def _stream(seed: int = 0xC4021, n_ops: int = 3000):
-    """The churn mix: puts of random keys (value: the op index) and deletes
-    of the oldest live key, 40% deletes, a flush every 20 ops; one
-    ``delete_many`` sweep of 60 live keys, and a ``get_many`` (live keys
-    and misses) plus a ``scan_many`` (near and random bounds) after every
-    1000 ops.  Returns the ops and the live model."""
+def _stream(d: int, seed: int = 0xC4021, n_ops: int = 3000,
+            warm: int = 0):
+    """The churn mix over ``d``-bit keys: puts of random keys (value: the
+    op index) and, after the first ``warm`` ops, deletes of the oldest
+    live key, 40% deletes, a flush every 20 ops; one ``delete_many`` sweep of 60 live keys, and a
+    ``get_many`` (live keys and misses) plus a ``scan_many`` (near and
+    random bounds, clipped to the domain) after every 1000 ops.  Returns
+    the ops and the live model."""
     rng = np.random.default_rng(seed)
+    space, top = 1 << d, np.uint64((1 << 64) - 1)
     model, ops = {}, []
 
     def reads():
         live = np.fromiter(model, np.uint64, len(model))
         keys = np.concatenate([rng.choice(live, 200),
-                               rng.integers(0, SPACE, 56, dtype=np.uint64)])
+                               rng.integers(0, space, 56, dtype=np.uint64)])
         lo = np.concatenate([np.maximum(rng.choice(live, 64), np.uint64(8))
                              - np.uint64(8),
-                             rng.integers(0, SPACE, 64, dtype=np.uint64)])
-        hi = lo + rng.integers(0, 1 << 14, 128, dtype=np.uint64)
+                             rng.integers(0, space, 64, dtype=np.uint64)])
+        hi = lo + np.minimum(rng.integers(0, 1 << 14, 128, dtype=np.uint64),
+                             top - lo)
         return [("get", keys), ("scan", lo, hi)]
 
     for i in range(n_ops):
-        if model and rng.random() < 0.4:
+        if i >= warm and model and rng.random() < 0.4:
             k = next(iter(model))
             ops.append(("del", k))
             del model[k]
         else:
-            k = int(rng.integers(0, SPACE))
+            k = int(rng.integers(0, space, dtype=np.uint64))
             ops.append(("put", k, i))
             model.pop(k, None)
             model[k] = i
         if i % 20 == 19:
             ops.append(("flush",))
-        if i == 1500:
+        if i == n_ops // 2:
             sweep = list(model)[100:160]
             ops.append(("delm", np.asarray(sweep, np.uint64)))
             for k in sweep:
                 del model[k]
-        if i % 1000 == 999:
+        if i % (n_ops // 3) == n_ops // 3 - 1:
             ops += reads()
     ops.append(("flush",))
     return ops, model
@@ -100,31 +107,34 @@ def _runs(store) -> list:
 
 
 @functools.lru_cache(maxsize=None)
-def _reference():
-    ops, model = _stream()
-    st = RStore(RConfig(scan_backend="xla", **_CFG), _warn=False)
+def _reference(d: int):
+    ops, model = _stream(d, **STREAMS[d])
+    st = RStore(RConfig(d=d, scan_backend="xla", **_CFG), _warn=False)
     out = _drive(st, ops)
     return ops, model, out, st.stats.as_dict(), _runs(st), st
 
 
 @functools.lru_cache(maxsize=None)
-def _port(scan_backend: str):
-    ops, *_ = _reference()
-    st = Store(StoreConfig(scan_backend=scan_backend, **_CFG), device="cpu")
+def _port(d: int, scan_backend: str):
+    ops, *_ = _reference(d)
+    st = Store(StoreConfig(d=d, scan_backend=scan_backend, **_CFG),
+               device="cpu")
     out = _drive(st, ops)
     return out, st
 
 
-def test_stream_reaches_every_merge_branch():
-    *_, stats, _, _ = _reference()
+@pytest.mark.parametrize("d", DS)
+def test_stream_reaches_every_merge_branch(d):
+    *_, stats, _, _ = _reference(d)
     assert stats["promote_merges"] >= 1 and stats["purge_rebuilds"] >= 1
     assert stats["or_merges"] >= 1 and stats["rebuild_merges"] >= 1
 
 
+@pytest.mark.parametrize("d", DS)
 @pytest.mark.parametrize("scan_backend", ["auto", "kernel", "xla"])
-def test_churn_stream_matches_reference(scan_backend):
-    _, model, want, want_stats, want_runs, _ = _reference()
-    got, st = _port(scan_backend)
+def test_churn_stream_matches_reference(scan_backend, d):
+    _, model, want, want_stats, want_runs, _ = _reference(d)
+    got, st = _port(d, scan_backend)
     assert got == want
     assert st.stats.as_dict() == want_stats
     assert st.filter_builds == st.stats.flushes + st.stats.rebuild_merges \
@@ -140,26 +150,28 @@ def test_churn_stream_matches_reference(scan_backend):
         == any(w[2] for w in want_runs)
 
 
-def test_no_false_negatives_and_bounded_fpr():
+@pytest.mark.parametrize("d", DS)
+def test_no_false_negatives_and_bounded_fpr(d):
     """The churn contract of the reference's test: every live key reads its
     last value, and the filters' positive rate on absent keys stays below
     0.30 after 40% deletes."""
-    _, model, *_ = _reference()
-    _, st = _port("xla")
+    _, model, *_ = _reference(d)
+    _, st = _port(d, "xla")
     live = np.fromiter(model, np.uint64, len(model))
     assert st.get_many(live) == [model[int(k)] for k in live]
     rng = np.random.default_rng(5)
-    absent = rng.integers(0, SPACE, 20_000, dtype=np.uint64)
+    absent = rng.integers(0, 1 << d, 20_000, dtype=np.uint64)
     absent = absent[~np.isin(absent, live)]
     fence, filt = st.probe_runs(absent, absent, point=True)
     assert float((fence & filt).any(axis=1).mean()) < 0.30
 
 
-def test_promote_decisions_are_the_references():
+@pytest.mark.parametrize("d", DS)
+def test_promote_decisions_are_the_references(d):
     """The density guard's floats, the tiling factors and the promoted
     states of the store's class layouts equal the reference's exactly."""
-    *_, ref = _reference()
-    _, st = _port("xla")
+    *_, ref = _reference(d)
+    _, st = _port(d, "xla")
     for rr, pr in zip(ref.live_runs(), st.live_runs()):
         assert compaction._state_density(pr) == \
             rcompaction._state_density(rr)

@@ -367,6 +367,23 @@ def test_older_run_schemas_unpack(schema):
             Run.unpack(junk, device="cpu")
 
 
+def test_failed_device_copy_raises_not_quarantines(monkeypatch):
+    """Only an undecodable or mismatched filter block quarantines; a copy
+    to the device that fails raises out of ``unpack`` and ``restore``."""
+    st = _filtered_store(7)
+    snap = st.snapshot()
+    enc = st.live_runs()[0].pack()
+
+    def fail(self, *a, **k):
+        raise RuntimeError("CUDA error: out of memory")
+
+    monkeypatch.setattr(torch.Tensor, "to", fail)
+    with pytest.raises(RuntimeError, match="out of memory"):
+        Run.unpack(copy.deepcopy(enc), device="cpu")
+    with pytest.raises(RuntimeError, match="out of memory"):
+        Store.restore(copy.deepcopy(snap), device="cpu")
+
+
 def test_corrupt_snapshots_raise_or_degrade_as_the_reference():
     st = _filtered_store(13)
     snap = st.snapshot()
