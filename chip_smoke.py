@@ -97,7 +97,31 @@ Phases, one line of output each:
     launches both times and none of any other, equal verdicts and state,
     ``kernel/dispatch/resident`` equal to the calls, ``Counter.add`` of
     device tensors under ``torch.cuda.set_sync_debug_mode("error")``, and
-    ``observed_fpr()`` beside the measured FPR.
+    ``observed_fpr()`` beside the measured FPR;
+12. tuner-chosen run stacks, the host baselines and the typed stores:
+    (a) phase 7's store twice, ``tuning="auto"`` and ``"adaptive"``, on
+    2,097,152 clustered keys (tests/test_tune.py's ``(u^4) 2^31 +
+    U[0, 2^22)``): half loaded, 8 batches of 512 near-miss scans (a stored
+    key + 1, 256 codes), the other half loaded, the scans again; retunes
+    >= 1, a live run off the capacity ladder, scans equal between the
+    twins and to a numpy oracle, one B1 launch per filter build and one B4
+    launch per scan batch, B4 == plain ``touch_all`` on the final tuned
+    stack over 4,096 scans with the edges, and the adaptive store's
+    absent-range FPR below the static one's; (b) phase 7's store with each
+    host baseline (``bloom``, ``prefix_bloom``, ``rosetta``, ``surf``) as
+    ``store_backend`` at 262,144 keys (cut from phase 7's 4,194,304 by the
+    numpy builds at every flush and compaction), 2,048 of phase 7's scans
+    equal to the oracle (the Bloom filter answers no ranges: 2,048 gets),
+    no kernel launched, beside a bloomRF store on the same stream; (c) the
+    paper's standalone comparison: ``BloomRFAdapter(d=32,
+    bits_per_key=16)`` on phase 3's 2,000,000 keys (8 / 1 / 1 launches,
+    equal to its ``xla`` twin) against Rosetta, prefix Bloom, SuRF-lite
+    and Bloom at 16 bits/key on 65,536 points and ranges, no false
+    negatives, every FPR; (d) a ``str`` store of 16,384 YCSB keys
+    (``user%012d``; cut from 200,000 by its read-modify-write put, a
+    plain d = 64 probe on the card each) and a ``multiattr`` store of
+    200,000 pairs, 1,000 scans each equal to a sorted oracle, no kernel
+    launched.
 
 It prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -2142,7 +2166,7 @@ def _durable_and_obs(device, kernels, expect, smi):
         t0 = time.perf_counter()
         durable = phase_durable(device, kernels,
                                 str(Path(wal_root) / "wal"))
-        print(f"[10/11] deletable, durable store (phase 7's settings, "
+        print(f"[10/12] deletable, durable store (phase 7's settings, "
               f"mutability='deletable', durability='wal'): {STORE_KEYS} "
               f"puts through the WAL, a checkpoint, {durable['deleted']} "
               f"keys deleted in {durable['delete_batches']} delete_many "
@@ -2161,7 +2185,7 @@ def _durable_and_obs(device, kernels, expect, smi):
         obs_run = phase_obs(device, kernels,
                             expect(insert=8, point=4, range=4),
                             str(Path(wal_root) / "trace.jsonl"))
-        print(f"[11/11] obs on the main path (phase 3's filter and mix, "
+        print(f"[11/12] obs on the main path (phase 3's filter and mix, "
               f"obs.enable() and a JSONL trace sink): launches "
               f"{json.dumps(obs_run['launches_on'])} as with obs off, the "
               f"same verdicts and state, kernel/dispatch/resident == calls, "
@@ -2171,6 +2195,445 @@ def _durable_and_obs(device, kernels, expect, smi):
     finally:
         shutil.rmtree(wal_root, ignore_errors=True)
     return durable, obs_run
+
+
+# ---------------------------------------------------------------------------
+# phase 12: tuner-chosen run stacks, the host baselines, the typed stores
+# ---------------------------------------------------------------------------
+
+TUNE_KEYS = 1 << 21       # the adaptive twin's clustered keys (two halves)
+TUNE_BATCHES = 8          # near-miss scan batches between the halves
+BASE_KEYS = 1 << 18       # keys per host-baseline store (numpy builds)
+BASE_SCANS = 2048         # phase 7's scans per host-baseline store
+CMP_KEYS = 2_000_000      # the standalone comparison's keys (phase 3's)
+CMP_QUERIES = 1 << 16     # its points and ranges
+STR_KEYS = 16_384         # the str store's keys (a read-modify-write put)
+TYPED_KEYS = 200_000      # the multiattr store's keys
+TYPED_SCANS = 1000        # the scans of each
+_STORE7 = dict(memtable_limit=8192, level0_runs=8, fanout=4,
+               bits_per_key=14.0, delta=6)
+
+
+def _counted(kernels):
+    """Zero every launch count; returns a reader of the counts since."""
+    for k in kernels.values():
+        k["fn"].launches = 0
+    return lambda: {name: k["fn"].launches for name, k in kernels.items()}
+
+
+def _clustered(rng, n):
+    """tests/test_tune.py::_skewed_ops's keys: (u^4) 2^31 + U[0, 2^22)."""
+    import numpy as np
+
+    keys = ((rng.random(n) ** 4) * (1 << 31)).astype(np.uint64)
+    keys += rng.integers(0, 1 << 22, n, dtype=np.uint64)
+    return np.minimum(keys, np.uint64((1 << 32) - 1))
+
+
+def _absent_range_fpr(st, keys, rng, n=1 << 16, length=256):
+    """The reference's acceptance metric: the share of absent ranges of
+    ``length`` codes in [2^30, 2^31) that some run's fence and filter pass
+    (the store's host plane: the plain ``StackedProbe`` on the card)."""
+    import numpy as np
+
+    lo = rng.integers(1 << 30, 1 << 31, n, dtype=np.uint64)
+    hi = lo + np.uint64(length - 1)
+    ks = np.sort(keys)
+    idx = np.searchsorted(ks, lo)
+    empty = ~((idx < len(ks)) & (ks[np.minimum(idx, len(ks) - 1)] <= hi))
+    fence, filt = st.probe_runs(lo[empty], hi[empty])
+    return float((fence & filt).any(axis=1).mean()), int(empty.sum())
+
+
+def _adaptive_twin(device, kernels, errs):
+    """Phase 12 (a): phase 7's store, ``tuning="auto"`` and ``"adaptive"``,
+    on the clustered keys: half loaded, TUNE_BATCHES batches of near-miss
+    scans (a stored key + 1, 256 codes), the other half loaded, the same
+    scans again on the final stacks."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels.store_scan import store_scan_probe_flat
+
+    rng = np.random.default_rng(SEED + 12)
+    keys = _clustered(rng, TUNE_KEYS)
+    half = TUNE_KEYS // 2
+    n_scans = TUNE_BATCHES * SCAN_BATCH
+    lo = np.minimum(keys[rng.integers(0, half, n_scans)] + np.uint64(1),
+                    np.uint64((1 << 32) - RSIZE))
+    hi = lo + np.uint64(RSIZE - 1)
+    out, stores = {}, {}
+    for tuning in ("auto", "adaptive"):
+        read = _counted(kernels)
+        h = repro_torch.open_filter(repro_torch.FilterSpec(
+            dtype="u32", placement="store", tuning=tuning, **_STORE7))
+        t0 = time.perf_counter()
+        for i, k in enumerate(keys[:half]):
+            h.put(int(k), i)
+        h.flush()
+        mid = []
+        for s in range(0, n_scans, SCAN_BATCH):
+            mid += h.scan_many(lo[s:s + SCAN_BATCH], hi[s:s + SCAN_BATCH])
+        for i, k in enumerate(keys[half:]):
+            h.put(int(k), half + i)
+        h.flush()
+        end = []
+        for s in range(0, n_scans, SCAN_BATCH):
+            end += h.scan_many(lo[s:s + SCAN_BATCH], hi[s:s + SCAN_BATCH])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, st = read(), h.store
+        want = {k: 0 for k in kernels}
+        want.update(insert=st.filter_builds, store_scan=2 * TUNE_BATCHES)
+        if launches != want or st.stats.kernel_fallbacks:
+            raise AssertionError(f"{tuning} store: launches {launches}, "
+                                 f"{st.filter_builds} builds, "
+                                 f"{st.stats.kernel_fallbacks} fallbacks")
+        nobatch = [0] * TUNE_BATCHES
+        bad = (_scan_mismatches(keys[:half], keys[:0], lo, hi, nobatch, mid)
+               + _scan_mismatches(keys, keys[:0], lo, hi, nobatch, end))
+        if bad:
+            raise AssertionError(f"{tuning} store: {bad} scans differ from "
+                                 f"the oracle")
+        fpr, n_empty = _absent_range_fpr(st, keys,
+                                         np.random.default_rng(SEED ^ 0xF00))
+        runs = st.live_runs()
+        out[tuning] = {
+            "seconds": secs, "puts_per_s": TUNE_KEYS / secs,
+            "runs": len(runs), "filter_builds": st.filter_builds,
+            "b1_launches": launches["insert"],
+            "b4_launches": launches["store_scan"],
+            "scan_batches": 2 * TUNE_BATCHES,
+            "retunes": st.stats.retunes,
+            "rebuild_merges": st.stats.rebuild_merges,
+            "or_merges": st.stats.or_merges,
+            "runs_probed_per_scan": st.stats.runs_probed_per_scan,
+            "scan_fp_read_rate": st.stats.scan_fp_read_rate,
+            "absent_range_fpr": fpr, "absent_ranges": n_empty,
+            "live_layouts": [[list(r.layout.deltas),
+                              list(r.layout.replicas), r.layout.k, len(r)]
+                             for r in runs]}
+        stores[tuning] = (h, mid, end)
+    (hs, mid_s, end_s), (ha, mid_a, end_a) = stores["auto"], \
+        stores["adaptive"]
+    if mid_s != mid_a or end_s != end_a:
+        raise AssertionError("the adaptive twin's scans differ from the "
+                             "static twin's")
+    st = ha.store
+    tuned = [r for r in st.live_runs() if r.layout != st.class_layout(len(r))]
+    if st.stats.retunes < 1 or not tuned:
+        raise AssertionError(f"no retune landed: {out['adaptive']}")
+    if not out["adaptive"]["absent_range_fpr"] \
+            < out["auto"]["absent_range_fpr"]:
+        raise AssertionError(f"adaptive FPR not below static: "
+                             f"{out['adaptive']['absent_range_fpr']} vs "
+                             f"{out['auto']['absent_range_fpr']}")
+    out["retune_events"] = ha.retune_report()["events"]
+    # B4 on the final tuned stack against its plain version, with the edges
+    kmin, kmax, quar = st._device_rows()
+    layouts = tuple(r.layout for r in st.live_runs())
+    blo, bhi = _scan_bounds_with_edges(np.random.default_rng(SEED + 121),
+                                       4096, st._kmins, st._kmaxs)
+    tlo, thi = _i64(blo, device), _i64(bhi, device)
+    fence, touch = store_scan_probe_flat(layouts, st._bases, st._flat, kmin,
+                                         kmax, tlo, thi, quar)
+    pf, pt = st._probe.touch_all(st._flat, kmin, kmax, tlo, thi, quar)
+    errs["store_scan"] = max(errs["store_scan"], _max_err(fence, pf),
+                             _max_err(touch, pt))
+    if errs["store_scan"]:
+        raise AssertionError(f"B4 != plain on the tuned stack: {errs}")
+    # B4 alone on one batch of each final stack
+    for tuning, (h, _, _) in stores.items():
+        s = h.store
+        k0, k1, q = s._device_rows()
+        lays = tuple(r.layout for r in s.live_runs())
+        b_lo, b_hi = _i64(lo[:SCAN_BATCH], device), _i64(hi[:SCAN_BATCH],
+                                                         device)
+        out[tuning]["b4_ms"] = _graph_ms(lambda: store_scan_probe_flat(
+            lays, s._bases, s._flat, k0, k1, b_lo, b_hi, q))
+        out[tuning]["b4_plain_ms"] = _cuda_ms(lambda: s._probe.touch_all(
+            s._flat, k0, k1, b_lo, b_hi, q), 20)
+    out["tuned_stack_cells_checked"] = 4096 * len(layouts)
+    return out
+
+
+def _baseline_stores(device, kernels):
+    """Phase 12 (b): phase 7's store with each host baseline as
+    ``store_backend`` at BASE_KEYS keys (numpy builds at flush and at every
+    compaction set the cut), BASE_SCANS of phase 7's scans exact against
+    the oracle, no kernel launched; a bloomRF store on the same stream
+    beside them.  A plain Bloom filter answers no ranges (in the reference
+    too), so its store takes BASE_SCANS point reads instead."""
+    import numpy as np
+
+    import repro_torch
+
+    rng = np.random.default_rng(SEED + 122)
+    data = rng.integers(0, 1 << 32, BASE_KEYS, dtype=np.uint64)
+    lo = _scan_starts(BASE_SCANS, data, rng)
+    hi = _scan_ends(lo)
+    pq = np.concatenate([rng.choice(data, BASE_SCANS // 2),
+                         rng.integers(0, 1 << 32, BASE_SCANS // 2,
+                                      dtype=np.uint64)])
+    last = {int(k): i for i, k in enumerate(data)}
+    out = {}
+    for backend in ("bloomrf", "bloom", "prefix_bloom", "rosetta", "surf"):
+        read = _counted(kernels)
+        h = repro_torch.open_filter(repro_torch.FilterSpec(
+            dtype="u32", placement="store", store_backend=backend,
+            **_STORE7))
+        t0 = time.perf_counter()
+        for i, k in enumerate(data):
+            h.put(int(k), i)
+        h.flush()
+        t1 = time.perf_counter()
+        row = {"load_s": t1 - t0}
+        if backend == "bloom":
+            got = h.get_many(pq)
+            if got != [last.get(int(k)) for k in pq]:
+                raise AssertionError("bloom store: gets differ from the "
+                                     "oracle")
+            row.update(gets=len(pq),
+                       get_fp_read_rate=h.stats.get_fp_read_rate,
+                       runs_read_per_get=h.stats.get_run_reads / len(pq))
+        else:
+            res = []
+            for s in range(0, BASE_SCANS, SCAN_BATCH):
+                res += h.scan_many(lo[s:s + SCAN_BATCH], hi[s:s + SCAN_BATCH])
+            bad = _scan_mismatches(data, data[:0], lo, hi,
+                                   [0] * (BASE_SCANS // SCAN_BATCH), res)
+            if bad:
+                raise AssertionError(f"{backend} store: {bad} scans differ "
+                                     f"from the oracle")
+            row.update(scans=BASE_SCANS,
+                       runs_probed_per_scan=h.stats.runs_probed_per_scan,
+                       scan_fp_read_rate=h.stats.scan_fp_read_rate,
+                       host_scans_per_s=BASE_SCANS / (time.perf_counter()
+                                                      - t1))
+        launches, st = read(), h.store
+        want = {k: 0 for k in kernels}
+        if backend == "bloomrf":
+            want.update(insert=st.filter_builds,
+                        store_scan=BASE_SCANS // SCAN_BATCH)
+        if launches != want:
+            raise AssertionError(f"{backend} store launches {launches}")
+        row.update(runs=len(st.live_runs()), filter_bits=sum(
+                       r.alt.size_bits() if r.alt is not None
+                       else r.layout.total_bits for r in st.live_runs()),
+                   rebuild_merges=st.stats.rebuild_merges,
+                   launches={k: v for k, v in launches.items() if v})
+        out[backend] = row
+    return out
+
+
+def _standalone(device, kernels):
+    """Phase 12 (c): the paper's standalone comparison on phase 3's keys:
+    ``BloomRFAdapter(d=32, bits_per_key=16)`` (one B1 launch per insert
+    chunk, one B2 and one B3 for the points and ranges) against Rosetta,
+    prefix Bloom, SuRF-lite and Bloom (points only) at 16 bits/key."""
+    import dataclasses
+
+    import numpy as np
+
+    import repro_torch
+    from repro_torch import filters as F
+
+    n = CMP_KEYS
+    rng = np.random.default_rng(SEED + n)            # phase 3's keys
+    top = (1 << 32) - 1
+    keys = rng.integers(0, top + 1, n, dtype=np.uint64)
+    pq, lo, hi = _queries(rng, CMP_QUERIES, keys, top)
+    ptruth, rtruth = _truth(keys, pq, lo, hi)
+
+    def fprs(pres, rres):
+        row = {"point_fpr": float((pres & ~ptruth).sum()
+                                  / max((~ptruth).sum(), 1))}
+        fn = int((ptruth & ~pres).sum())
+        if rres is not None:
+            row["range_fpr"] = float((rres & ~rtruth).sum()
+                                     / max((~rtruth).sum(), 1))
+            fn += int((rtruth & ~rres).sum())
+        if fn:
+            raise AssertionError(f"{fn} false negatives")
+        return row
+
+    out = {}
+    read = _counted(kernels)
+    ad = F.BloomRFAdapter(bits_per_key=16, d=32)
+    t0 = time.perf_counter()
+    ad.build(keys)
+    pres, rres = ad.point(pq), ad.range(lo, hi)
+    secs = time.perf_counter() - t0
+    launches = read()
+    chunks = -(-n // ad.chunk)
+    want = {k: 0 for k in kernels}
+    want.update(insert=chunks, point=1, range=1)
+    if launches != want:
+        raise AssertionError(f"adapter launches {launches} != {want}")
+    twin = repro_torch.open_filter(
+        dataclasses.replace(ad.handle.spec, backend="xla"))
+    twin.insert(keys)
+    if not (np.array_equal(twin.state_numpy(), ad.handle.state_numpy())
+            and np.array_equal(twin.point(pq), pres)
+            and np.array_equal(twin.range(lo, hi), rres)):
+        raise AssertionError("adapter != its xla twin")
+    out["bloomrf"] = {**fprs(pres, rres), "seconds": secs,
+                      "size_bits": ad.size_bits(),
+                      "launches": {k: v for k, v in launches.items() if v}}
+    makers = {"rosetta": lambda: F.Rosetta(16, max_range_log2=14),
+              "prefix_bloom": lambda: F.PrefixBloomFilter(16),
+              "surf": lambda: F.SuRFLite.for_budget(16),
+              "bloom": lambda: F.BloomFilter(16)}
+    for name, make in makers.items():
+        read = _counted(kernels)
+        f = make()
+        t0 = time.perf_counter()
+        f.build(keys)
+        t1 = time.perf_counter()
+        pres = f.point(pq)
+        rres = None if name == "bloom" else f.range(lo, hi)
+        t2 = time.perf_counter()
+        if any(read().values()):
+            raise AssertionError(f"{name} launched a kernel")
+        out[name] = {**fprs(pres, rres), "build_s": t1 - t0,
+                     "query_s": t2 - t1, "size_bits": f.size_bits()}
+    out["queries"] = len(pq)
+    return out
+
+
+def _ycsb_user_keys(rng, n):
+    """YCSB's key form: ``user`` and 12 digits."""
+    import numpy as np
+
+    nums = rng.choice(10 ** 12, n, replace=False)
+    return [f"user{int(x):012d}" for x in nums.astype(np.int64)]
+
+
+def _typed_stores(device, kernels):
+    """Phase 12 (d): a ``str`` store of STR_KEYS YCSB keys (per-code
+    buckets, read-modify-write puts) and a ``multiattr`` store of
+    TYPED_KEYS ``(a, b)`` pairs, each with TYPED_SCANS scans checked
+    against a sorted oracle; d = 64, so no kernel is launched.  Each
+    ``str`` put reads its bucket first, a plain d = 64 probe of every run
+    on the card and a copy back (about 450 puts/s on the H100): that sets
+    the cut from 200,000 keys to STR_KEYS."""
+    import bisect
+
+    import numpy as np
+
+    import repro_torch
+
+    rng = np.random.default_rng(SEED + 123)
+    read = _counted(kernels)
+    out = {}
+    words = _ycsb_user_keys(rng, STR_KEYS)
+    h = repro_torch.open_filter(repro_torch.FilterSpec(
+        dtype="str", placement="store", **_STORE7))
+    t0 = time.perf_counter()
+    for i, w in enumerate(words):
+        h.put(w, i)
+    h.flush()
+    t1 = time.perf_counter()
+    srt = sorted(words)
+    value = {w: i for i, w in enumerate(words)}
+    ia = rng.integers(0, len(srt), TYPED_SCANS)
+    ib = np.minimum(ia + rng.integers(0, 40, TYPED_SCANS), len(srt) - 1)
+    los = [srt[a][:-1] for a in ia]                 # a prefix: just before
+    his = [srt[b] for b in ib]
+    got = h.scan_many(los, his)
+    t2 = time.perf_counter()
+    bad = sum(rows != [(w, value[w]) for w in
+                       srt[bisect.bisect_left(srt, lo):
+                           bisect.bisect_right(srt, hi)]]
+              for rows, lo, hi in zip(got, los, his))
+    if bad:
+        raise AssertionError(f"str store: {bad} scans differ from the oracle")
+    out["str"] = {"keys": STR_KEYS, "scans": TYPED_SCANS,
+                  "puts_per_s": STR_KEYS / (t1 - t0),
+                  "scans_per_s": TYPED_SCANS / (t2 - t1),
+                  "rows_returned": sum(map(len, got)),
+                  "runs": h.n_runs,
+                  "runs_probed_per_scan": h.stats.runs_probed_per_scan}
+
+    a = rng.integers(0, 1 << 10, TYPED_KEYS, dtype=np.uint64)
+    b = rng.integers(0, 1 << 32, TYPED_KEYS, dtype=np.uint64)
+    m = repro_torch.open_filter(repro_torch.FilterSpec(
+        dtype="multiattr", placement="store", **_STORE7))
+    t0 = time.perf_counter()
+    for i in range(TYPED_KEYS):
+        m.put((int(a[i]), int(b[i])), i)
+    m.flush()
+    t1 = time.perf_counter()
+    pairs = {}
+    for i, (x, y) in enumerate(zip(a.tolist(), b.tolist())):
+        pairs[(x, y)] = i
+    order = sorted(pairs)
+    qi = rng.integers(0, TYPED_KEYS, TYPED_SCANS)
+    qa = a[qi]
+    blo = np.maximum(b[qi], np.uint64(1 << 24)) - np.uint64(1 << 24)
+    bhi = np.minimum(b[qi] + np.uint64(1 << 24), np.uint64((1 << 32) - 1))
+    got = m.scan_many((qa, blo), (qa, bhi))
+    t2 = time.perf_counter()
+    bad = 0
+    for rows, x, l, u in zip(got, qa.tolist(), blo.tolist(), bhi.tolist()):
+        s = bisect.bisect_left(order, (x, l))
+        e = bisect.bisect_right(order, (x, u))
+        bad += rows != [(k, pairs[k]) for k in order[s:e]]
+    if bad:
+        raise AssertionError(f"multiattr store: {bad} scans differ from the "
+                             f"oracle")
+    out["multiattr"] = {"keys": TYPED_KEYS, "scans": TYPED_SCANS,
+                        "puts_per_s": TYPED_KEYS / (t1 - t0),
+                        "scans_per_s": TYPED_SCANS / (t2 - t1),
+                        "rows_returned": sum(map(len, got)),
+                        "runs": m.n_runs,
+                        "runs_probed_per_scan":
+                            m.stats.runs_probed_per_scan}
+    launches = read()
+    if any(launches.values()):
+        raise AssertionError(f"typed stores launched kernels: {launches}")
+    out["launches"] = launches
+    return out
+
+
+def phase_tuned(device, kernels, errs, smi):
+    """Phase 12, each part printing its line; returns their results."""
+    t0 = time.perf_counter()
+    twin = _adaptive_twin(device, kernels, errs)
+    print(f"[12/12] (a) adaptive twin: phase 7's store, tuning 'auto' and "
+          f"'adaptive', {TUNE_KEYS} clustered keys, {TUNE_BATCHES} batches "
+          f"of near-miss scans between the halves and after: retunes "
+          f"{twin['adaptive']['retunes']}, scans == static twin == oracle, "
+          f"B1 == builds, B4 == batches, B4 == plain on the tuned stack "
+          f"({twin['tuned_stack_cells_checked']} cells, edges), absent-range "
+          f"FPR {twin['adaptive']['absent_range_fpr']:.4f} (adaptive) < "
+          f"{twin['auto']['absent_range_fpr']:.4f} (static): "
+          f"{json.dumps(twin)} on {smi} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    base = _baseline_stores(device, kernels)
+    print(f"[12/12] (b) host baselines as store_backend, {BASE_KEYS} keys "
+          f"each (phase 7's settings), {BASE_SCANS} of phase 7's scans == "
+          f"oracle (bloom: {BASE_SCANS} gets), no kernel launched; bloomRF "
+          f"on the same stream beside them: {json.dumps(base)} on {smi} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    cmp_ = _standalone(device, kernels)
+    print(f"[12/12] (c) standalone comparison on phase 3's {CMP_KEYS} keys at "
+          f"16 bits/key, {CMP_QUERIES} points (half present) and ranges "
+          f"(2^0..2^14): no false negatives, the adapter == its xla twin: "
+          f"{json.dumps(cmp_)} on {smi} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    typed = _typed_stores(device, kernels)
+    print(f"[12/12] (d) a str store of {STR_KEYS} keys and a multiattr "
+          f"store of {TYPED_KEYS}, {TYPED_SCANS} scans each == sorted "
+          f"oracle, no kernel launched: "
+          f"{json.dumps(typed)} on {smi} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return {"twin": twin, "baselines": base, "standalone": cmp_,
+            "typed": typed}
 
 
 def main() -> int:
@@ -2192,11 +2655,11 @@ def main() -> int:
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    print(f"[1/11] card: {smi} | torch: {name} | torch {torch.__version__} "
+    print(f"[1/12] card: {smi} | torch: {name} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
-    print(f"[1/11] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
+    print(f"[1/12] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
           flush=True)
-    print(f"[1/11] registers and spills (nvcc -Xptxas -v): "
+    print(f"[1/12] registers and spills (nvcc -Xptxas -v): "
           f"{json.dumps(_ptxas_usage())}", flush=True)
 
     src, rep = "src/repro_torch/csrc/", "src/repro/kernels/"
@@ -2237,7 +2700,7 @@ def main() -> int:
     errs = {k: 0 for k in kernels}
     t0 = time.perf_counter()
     n_lay = phase_kernels_vs_plain(device, kernels, errs, big)
-    print(f"[2/11] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
+    print(f"[2/12] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
           f"top==d, W=64+replicas, multi-segment, exact, full size; B7/B8 "
           f"also on odd batches and replicas 3 and 5, against plain "
           f"versions bucketed at blocks of 256, "
@@ -2248,22 +2711,22 @@ def main() -> int:
                                expect(insert=8, point=4, range=4), kernels)
     if main_run["layout"]["deltas"] != big.deltas:
         raise AssertionError(f"main-path layout {main_run['layout']}")
-    print(f"[3/11] main path {json.dumps(main_run)}", flush=True)
+    print(f"[3/12] main path {json.dumps(main_run)}", flush=True)
     large = phase_main_path(10_000_000, "resident", name,
                             expect(insert=39, point=4, range=4), kernels,
                             time_range=True)
-    print(f"[4/11] resident 10M {json.dumps(large)}", flush=True)
+    print(f"[4/12] resident 10M {json.dumps(large)}", flush=True)
 
     single = {k: kernels[k] for k in ("insert", "point", "range")}
     times = phase_times(device, big, single)
-    print(f"[5/11] times at {CHUNK} keys/queries, filter "
+    print(f"[5/12] times at {CHUNK} keys/queries, filter "
           f"{big.total_u32 * 4} B, on {smi}: {json.dumps(times)}", flush=True)
 
     t0 = time.perf_counter()
     stacked = phase_stacked_vs_plain(device, kernels, errs, big)
     stacked_times = stacked.pop("times")
     times.update(stacked_times)
-    print(f"[6/11] B4 == plain on {stacked['scan_cells_checked']} (scan, run) "
+    print(f"[6/12] B4 == plain on {stacked['scan_cells_checked']} (scan, run) "
           f"cells (mixed Δ, multi-segment, replicas, capacity ladder; padded "
           f"and flat stacks, rpb 0/2, quarantine, edge bounds); B5/B6 == "
           f"plain on {stacked['stacked_rows']} rows of the phase-3 layout: "
@@ -2285,7 +2748,7 @@ def main() -> int:
     store = phase_store(device, kernels, errs)
     times["store_scan"] = store.pop("times")
     b1_shapes.update(store.pop("b1_shapes"))
-    print(f"[7/11] store, {STORE_KEYS} keys loaded by put (the key count is "
+    print(f"[7/12] store, {STORE_KEYS} keys loaded by put (the key count is "
           f"set by the host's per-key Python load path, not by the card), "
           f"YCSB-E: every scan == numpy oracle, every batch's (fence, touch) "
           f"== plain touch_all, {store['launches']} B4 launches for "
@@ -2301,7 +2764,7 @@ def main() -> int:
     hbm = phase_hbm(device, kernels, errs)
     times.update(hbm.pop("times"))
     b1_shapes.update(hbm.pop("b1_shapes"))
-    print(f"[8/11] HBM-scale filter, {HBM_KEYS} keys under auto, grown x{GROW} "
+    print(f"[8/12] HBM-scale filter, {HBM_KEYS} keys under auto, grown x{GROW} "
           f"in place to {HBM_KEYS * GROW}: no false negatives over all keys "
           f"(truth sorted on the card), state and verdicts == xla twin, "
           f"launches {json.dumps(hbm['launches'])}; deletable and TTL "
@@ -2314,13 +2777,13 @@ def main() -> int:
     if errs["insert"]:
         raise AssertionError(f"B1 != plain on a traffic shape: {errs}")
     times["insert"]["shapes"] = b1_shapes
-    print(f"[8/11] B1 alone on its traffic shapes ((a) the phase-3 filter in "
+    print(f"[8/12] B1 alone on its traffic shapes ((a) the phase-3 filter in "
           f"the L2, (b) phase 8's states cold, each of {COLD_CHUNKS} chunks "
           f"captured once, (c) phase 7's flush and largest rebuild, sorted "
           f"keys) on {smi}: {json.dumps(b1_shapes)}", flush=True)
 
     call_ms = {k: t.pop("call_ms") for k, t in times.items()}
-    print(f"[8/11] kernel wrappers' ms per call by CUDA events over 200 "
+    print(f"[8/12] kernel wrappers' ms per call by CUDA events over 200 "
           f"back-to-back calls, host dispatch included (the kernels line's "
           f"ms is the kernel alone, from a CUDA graph): "
           f"{json.dumps(call_ms)}", flush=True)
@@ -2330,7 +2793,7 @@ def main() -> int:
         "insert_keys_per_s", "point_queries_per_s", "range_queries_per_s")},
               "phase7_store": {k: store[k] for k in (
                   "load_puts_per_s", "host_scans_per_s")}}
-    print(f"[9/11] 64-bit keys on the plain path on the card, no kernel "
+    print(f"[9/12] 64-bit keys on the plain path on the card, no kernel "
           f"launched: mix64 == numpy on {MIX64_KEYS} keys with the top bit "
           f"set; the default open_filter (u64) and an f64 filter of "
           f"{WIDE_KEYS} keys with no false negatives, {SUBSAMPLE} verdicts "
@@ -2341,15 +2804,26 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     durable, obs_run = _durable_and_obs(device, kernels, expect, smi)
+    tuned = phase_tuned(device, kernels, errs, smi)
+    twin = tuned["twin"]
     times["insert"]["launches_by_path"] = {
         "phase3_main": main_run["launches"]["insert"],
         "phase7_store_builds": store["b1_launches"],
         "phase8_hbm": hbm["launches"]["insert"],
         "phase10_durable_builds": durable["b1_launches"],
-        "phase11_obs_on": obs_run["launches_on"]["insert"]}
+        "phase11_obs_on": obs_run["launches_on"]["insert"],
+        "phase12_adaptive_builds": twin["adaptive"]["b1_launches"],
+        "phase12_static_builds": twin["auto"]["b1_launches"],
+        "phase12_adapter": tuned["standalone"]["bloomrf"]["launches"][
+            "insert"]}
     times["store_scan"]["launches_by_path"] = {
         "phase7_store": store["launches"],
-        "phase10_durable": durable["launches"]}
+        "phase10_durable": durable["launches"],
+        "phase12_adaptive": twin["adaptive"]["b4_launches"],
+        "phase12_static": twin["auto"]["b4_launches"]}
+    times["store_scan"]["phase12_batch_ms"] = {
+        t: {k: twin[t][k] for k in ("b4_ms", "b4_plain_ms", "runs")}
+        for t in ("adaptive", "auto")}
     launches = dict(main_run["launches"])
     launches.update(stacked["launches"])
     launches["store_scan"] = store["launches"]

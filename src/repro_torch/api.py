@@ -5,8 +5,10 @@ every dtype: ``u8``, ``u16``, ``u32``, ``u64`` (the default), ``f32``,
 ``f64``, ``str`` and ``multiattr``.  A :class:`FilterSpec` is validated
 exactly as in ``repro``, so the same spec describes the same filter in both
 packages.  For ``placement="store"`` :func:`open_filter` returns a
-:class:`TypedStore` (the LSM store of ``store/`` behind the codecs; integer
-and float keys only); for ``"single"`` a :class:`SingleFilter` that
+:class:`TypedStore` (the LSM store of ``store/`` behind the codecs, with
+string buckets and pair bounds for ``str`` and ``multiattr`` keys, and the
+workload-adaptive tuner under ``tuning="adaptive"``); for ``"single"`` a
+:class:`SingleFilter` that
 
 * routes every insert/point/range through the order-preserving codecs of
   ``core/codecs.py``;
@@ -27,8 +29,8 @@ checkpoints and scrubs the store.
 
 The filter or store lives on ``device``, which is ``"cuda"`` unless the
 caller asks for another; without a card :func:`open_filter` raises rather
-than quietly picking the CPU.  What is not ported yet raises
-``NotImplementedError`` naming its ROADMAP item.
+than quietly picking the CPU.  The bank and tenant placements are not
+ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -191,6 +193,9 @@ class _MultiAttrCodec(_Codec):
         return _cd.multiattr_range_for_a_eq_b_range(
             np.atleast_1d(np.asarray(b_const, np.uint64)),
             np.asarray(a_lo, np.uint64), np.asarray(a_hi, np.uint64))
+
+    def decode(self, code):
+        return _cd.unpack2x32(np.asarray(code, np.uint64))
 
 
 def _codec_for(dtype: str) -> _Codec:
@@ -648,19 +653,21 @@ class TypedStore(_Observed):
     """The LSM run-store behind the codec boundary: typed put/get/scan.
 
     Integer and float keys are bijective codes, so scans decode back to the
-    caller's key type exactly.  The store runs its scans through the
-    store-scan kernel on a CUDA device (``scan_backend="auto"``, d <= 32),
-    or through the plain ``StackedProbe`` at d > 32 or when ``spec.backend
-    == "xla"``, as in ``repro``.  The ``str`` and ``multiattr`` stores
-    (string buckets, pair bounds) are not ported yet."""
+    caller's key type exactly.  String codes are lossy (7-byte prefix + tail
+    hash), so the store keeps a per-code *bucket* ``{key: value}`` and
+    post-filters scans by true string order: collisions cost one bucket,
+    never a lost key.  Multi-attribute keys are <A,B> concatenations;
+    ``scan`` takes ``(a, b)`` pair bounds, so ``A == a AND B in [b_lo,
+    b_hi]`` is ``scan((a, b_lo), (a, b_hi))``.
+
+    The store runs its scans through the store-scan kernel on a CUDA device
+    (``scan_backend="auto"``, d <= 32), or through the plain
+    ``StackedProbe`` at d > 32 (``u64``, ``f64``, ``str``, ``multiattr``)
+    or when ``spec.backend == "xla"``, as in ``repro``."""
 
     def __init__(self, spec: FilterSpec, codec: _Codec, device):
         from .store.store import Store, StoreConfig
 
-        if codec.name in ("str", "multiattr"):
-            raise NotImplementedError(
-                f"the {codec.name} store (string buckets and pair bounds) "
-                f"is not ported yet (ROADMAP A.3c)")
         self.spec = spec
         self.codec = codec
         delta = spec.delta if spec.delta is not None else 6
@@ -680,6 +687,7 @@ class TypedStore(_Observed):
             wal_dir=spec.wal_dir,
             tuning="adaptive" if spec.tuning == "adaptive" else "static"),
             device=device)
+        self._buckets = codec.name == "str"
 
     @property
     def device(self) -> torch.device:
@@ -692,13 +700,32 @@ class TypedStore(_Observed):
     def put(self, key, value) -> None:
         code = self._code1(key)
         with _obs_trace.span("facade/put"):
-            self.store.put(code, value)
+            if self._buckets:
+                bucket = dict(self.store.get(code) or {})
+                bucket[key] = value
+                self.store.put(code, bucket)
+            else:
+                self.store.put(code, value)
 
     def delete(self, key) -> None:
-        self.store.delete(self._code1(key))
+        code = self._code1(key)
+        if self._buckets:
+            bucket = dict(self.store.get(code) or {})
+            bucket.pop(key, None)
+            if bucket:
+                self.store.put(code, bucket)
+            else:
+                self.store.delete(code)
+        else:
+            self.store.delete(code)
 
     def delete_many(self, keys) -> None:
-        """Batched deletes: one memtable-flush decision for the batch."""
+        """Batched deletes: one memtable-flush decision for the batch
+        (string buckets need a read-modify-write per key instead)."""
+        if self._buckets:
+            for k in keys:
+                self.delete(k)
+            return
         self.store.delete_many(self.codec.encode_point(keys))
 
     def flush(self) -> None:
@@ -722,9 +749,14 @@ class TypedStore(_Observed):
     def get(self, key):
         code = self._code1(key)
         with _obs_trace.span("facade/get"):
+            if self._buckets:
+                bucket = self.store.get(code)
+                return None if bucket is None else bucket.get(key)
             return self.store.get(code)
 
     def get_many(self, keys) -> list:
+        if self._buckets:
+            return [self.get(k) for k in keys]
         codes = self.codec.encode_point(keys)
         with _obs_trace.span("facade/get", batch=len(codes)):
             return self.store.get_many(codes)
@@ -734,14 +766,35 @@ class TypedStore(_Observed):
 
     def scan_many(self, los, his) -> list:
         """Batched typed scans: one pruning step for the batch."""
+        if self._buckets:
+            clo, chi = self.codec.encode_bounds(los, his)
+            self._observe_ranges(clo, chi)
+            with _obs_trace.span("facade/scan", batch=len(clo)):
+                raw = self.store.scan_many(clo, chi)
+            # typed bounds ride along: buckets post-filter by string order
+            return [self._decode_scan(rows, lo, hi)
+                    for rows, lo, hi in zip(raw, los, his)]
         clo, chi = self.codec.encode_bounds(np.asarray(los), np.asarray(his))
         self._observe_ranges(clo, chi)
+        # iterate the encoded bounds, not the caller's container: multiattr
+        # column-form bounds are a (2, B) array whose first axis is (a, b)
         with _obs_trace.span("facade/scan", batch=len(clo)):
             raw = self.store.scan_many(clo, chi)
+        return [self._decode_scan(rows, None, None) for rows in raw]
+
+    def _decode_scan(self, rows: list, lo, hi) -> list:
+        if self._buckets:
+            out = []
+            for _, bucket in rows:
+                out.extend((k, v) for k, v in bucket.items() if lo <= k <= hi)
+            return sorted(out)
+        if self.codec.name == "multiattr":
+            return [((int(a), int(b)), v) for (a, b), v in
+                    ((self.codec.decode(np.uint64(c)), v) for c, v in rows)]
         if self.codec.name in ("f32", "f64"):
-            return [[(float(self.codec.decode(np.uint64(c))), v)
-                     for c, v in rows] for rows in raw]
-        return raw
+            return [(float(self.codec.decode(np.uint64(c))), v)
+                    for c, v in rows]
+        return rows
 
     # -- device-resident probe plane ----------------------------------------
     def encode_scan_bounds(self, los, his):
@@ -753,7 +806,9 @@ class TypedStore(_Observed):
 
     def scan_probe_device(self, clo, chi):
         """Device-resident scan pruning over encoded bounds: ``(fence,
-        touch)`` (B, R) bool tensors, no host round-trip."""
+        touch)`` (B, R) bool tensors, no host round-trip.  Verdicts are at
+        code level (for lossy string codes a touched run may still
+        post-filter to empty)."""
         return self.store.scan_probe_device(clo, chi)
 
     # -- introspection ----------------------------------------------------
@@ -767,6 +822,26 @@ class TypedStore(_Observed):
 
     def size_bits(self) -> int:
         return self.store.filter_bits()
+
+    def retune_report(self) -> dict:
+        """What the adaptive tuner has seen and done.
+
+        For ``tuning='adaptive'``: the retune counter (compaction rebuilds
+        that landed in a tuner-advised layout), the solver's event log, the
+        fitted ``bloomrf-workload/v1`` model, per-class standing decisions,
+        and a model-vs-live cross-check for the largest live run's layout.
+        Static stores report ``{'tuning': 'static', ...}``."""
+        tuner = self.store._tuner
+        if tuner is None:
+            return {"tuning": self.spec.tuning, "retunes": 0, "events": []}
+        out = {"tuning": "adaptive",
+               "retunes": int(self.store.stats.retunes)}
+        out.update(tuner.report())
+        runs = self.store.live_runs()
+        if runs:
+            big = max(runs, key=len)
+            out["cross_check"] = tuner.cross_check(big.layout, len(big))
+        return out
 
     # -- observability ----------------------------------------------------
     def register_obs(self, family: str = "store") -> str:
@@ -802,6 +877,9 @@ class TypedStore(_Observed):
             pos = fence & filt
             out["range_fpr"] = float(pos.any(axis=1).mean())
             out["range_fpr_per_run"] = [float(x) for x in pos.mean(axis=0)]
+        if store._tuner is not None:
+            # the live sample is the cost model's cross-check input
+            store._tuner.record_observed(out)
         return self._record_fpr(out)
 
 

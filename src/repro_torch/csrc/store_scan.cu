@@ -24,8 +24,11 @@
 //   candidate words of layers k-1-s, k-1-s-kLanes, ... all at once and
 //   computes their tests (rangeplan::layer_bits); the group exchanges the
 //   test bits by warp shuffles and each lane runs the path flags over them
-//   (rangeplan::scan_layer).  The store's layouts have k = 2..4 layers, so
-//   a cell takes one round trip and a quarter of the work per thread;
+//   (rangeplan::scan_layer).  The capacity-class ladder's layouts have
+//   k = 2..4 layers, so such a cell takes one round trip and a quarter of
+//   the work per thread; a tuned layout (tune/solver.py: Δ = 1..7 ladders,
+//   a replicated top layer) can have up to d layers and takes
+//   ceil(k / kLanes) rounds, its lanes on layers k-1-s, k-1-s-kLanes, ...;
 // * cells in row-major order (cell = r * B + t), so the cells of a warp
 //   share a row and a layout and never diverge on a layer count or a Δ;
 // * word addresses by each layer's exact reciprocal of its word count.

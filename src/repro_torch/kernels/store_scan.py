@@ -15,8 +15,11 @@ each row at its own base lane, so it takes either
   concatenates for ``StackedProbe``, with the rows' base lanes.
 
 On CPU tensors both take the plain version, ``StackedProbe._touch_all``.
-Rows must share one key domain ``d <= 32`` and have no exact segment (the
-store's capacity-class ladder satisfies both).
+Rows must share one key domain ``d <= 32`` and have no exact segment.  The
+store's capacity-class ladder and the adaptive tuner's candidates
+(``tune/solver.py``: hashed single-segment layouts) satisfy both; a tuned
+row may have up to ``d`` layers and a replicated top layer, which the
+kernel takes in more than one round of its four lanes.
 """
 from __future__ import annotations
 

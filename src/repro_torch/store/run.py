@@ -50,13 +50,13 @@ _ACCEPTED_SCHEMAS = ("bloomrf-run/v1", "bloomrf-run/v2", "bloomrf-run/v3")
 class Run:
     """One immutable sorted run with its filter block and fences."""
 
-    __slots__ = ("keys", "vals", "tombs", "level", "layout", "state",
+    __slots__ = ("keys", "vals", "tombs", "level", "layout", "state", "alt",
                  "promotions", "quarantined", "_crcs")
 
     def __init__(self, keys: np.ndarray, vals: list, tombs: np.ndarray,
                  level: int, layout: FilterLayout,
-                 state: Optional[torch.Tensor], promotions: int = 0,
-                 quarantined: bool = False):
+                 state: Optional[torch.Tensor], alt=None,
+                 promotions: int = 0, quarantined: bool = False):
         keys = np.asarray(keys, np.uint64)
         if keys.ndim != 1 or len(keys) == 0:
             raise ValueError("a run needs a non-empty 1-D key vector")
@@ -70,6 +70,7 @@ class Run:
         self.level = level
         self.layout = layout
         self.state = state            # int32[layout.total_u32] filter block
+        self.alt = alt                # optional host baseline (filters/)
         # promote hops this filter block has survived without a rebuild: a
         # promoted segment answers at the source class's resolution, so
         # each hop multiplies FPR by the source count (the store caps hops
@@ -168,9 +169,10 @@ class Run:
         return enc
 
     @classmethod
-    def unpack(cls, enc: dict, device=None) -> "Run":
+    def unpack(cls, enc: dict, device=None, alt=None) -> "Run":
         """Validated inverse of :meth:`pack`, the filter state placed on
-        ``device`` (default ``"cuda"``).
+        ``device`` (default ``"cuda"``); ``alt`` is a host baseline filter
+        to attach (baselines do not snapshot: the store rebuilds them).
 
         Every malformed or corrupted input raises ``ValueError`` naming
         what failed; the one exception is a corrupt *filter block*, which
@@ -257,7 +259,7 @@ class Run:
         # it also heals v1 snapshots whose vals hold stale sentinels
         vals = [TOMBSTONE if t else v for v, t in zip(enc_vals, tombs)]
         try:
-            run = cls(keys, vals, tombs, level, layout, state,
+            run = cls(keys, vals, tombs, level, layout, state, alt=alt,
                       promotions=promotions, quarantined=quarantined)
         except Exception as e:
             raise ValueError(f"run snapshot: inconsistent run: {e}") from e

@@ -55,10 +55,18 @@ propagates.  Flushes, compactions, gets, scans, checkpoints, scrubs and
 WAL replays report through ``obs`` (spans, and the store's
 :class:`StoreStats` as a registered metric family).
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the ``repro.filters`` baselines as ``filter_backend`` (A.3c) and
-``tuning="adaptive"``, with the workload model a snapshot of such a store
-carries (A.8).
+``filter_backend`` may name a host baseline of ``filters/`` (``bloom``,
+``prefix_bloom``, ``rosetta``, ``surf``): each run then carries a numpy
+filter (``Run.alt``), built at flush and at every compaction (a rebuild
+merge), probed column by column on the host; no kernel runs for it.
+
+``tuning="adaptive"`` samples the scan workload (``tune/``): flushes take
+each capacity class's standing decision, and a compaction consults the
+solver where it pays for a rebuild anyway, re-inserting into the tuned
+layout (``StoreStats.retunes``).  The tuned layouts, Δ = 1..7 ladders and
+a replicated top layer at the class's bit budget, reach the insert and
+store-scan kernels like any other.  The fitted workload model rides in
+snapshots and checkpoints.
 """
 from __future__ import annotations
 
@@ -90,8 +98,17 @@ from .wal import WAL_FILENAME, Wal
 
 __all__ = ["Store", "StoreConfig", "StoreStats"]
 
-#: the host-side baselines of repro.filters (not ported, ROADMAP A.3c)
-_BASELINES = ("bloom", "prefix_bloom", "rosetta", "surf")
+
+
+def _baseline_factory(name: str):
+    from .. import filters as F
+
+    return {
+        "bloom": lambda bpk: F.BloomFilter(bits_per_key=bpk),
+        "prefix_bloom": lambda bpk: F.PrefixBloomFilter(bits_per_key=bpk),
+        "rosetta": lambda bpk: F.Rosetta(bits_per_key=bpk),
+        "surf": lambda bpk: F.SuRFLite(),
+    }[name]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,7 +122,9 @@ class StoreConfig:
     delta: int = 6
     fanout: int = 4                 # capacity-class / level size ratio
     level0_runs: int = 4            # level-0 run count that triggers compaction
-    filter_backend: str = "bloomrf"  # "bloomrf" | "none" | repro.filters name
+    filter_backend: str = "bloomrf"  # "bloomrf" | "none" | a filters/ baseline
+                                    # ("bloom", "prefix_bloom", "rosetta",
+                                    # "surf"), built and probed on the host
     scan_backend: str = "auto"      # scan-pruning plane: "auto" | "kernel"
                                     # | "xla" — "kernel" runs the store-scan
                                     # kernel (kernels/store_scan.py), "xla"
@@ -117,7 +136,8 @@ class StoreConfig:
     value_bytes: int = 64           # per-entry data-block size for accounting
     seed: int = 0x0B100F11
     mutability: str = "insert_only"  # "insert_only" | "deletable"
-    tuning: str = "static"          # "static" | "adaptive"
+    tuning: str = "static"          # "static" | "adaptive" (tune/: retune
+                                    # at class-graduating compactions)
     purge_dead_frac: float = 0.25   # deletable: dead fraction forcing a purge
     promote_max_hops: int = 1       # deletable: promote hops before a rebuild
     promote_density_slack: float = 1.5  # deletable: promote density guard
@@ -155,9 +175,12 @@ class StoreConfig:
         if not self.promote_density_slack > 0:
             raise ValueError(f"promote_density_slack must be > 0, "
                              f"got {self.promote_density_slack}")
-        if self.filter_backend not in ("bloomrf", "none") + _BASELINES:
-            raise ValueError(
-                f"unknown filter_backend {self.filter_backend!r}")
+        if self.filter_backend not in ("bloomrf", "none"):
+            try:
+                _baseline_factory(self.filter_backend)
+            except KeyError:
+                raise ValueError(
+                    f"unknown filter_backend {self.filter_backend!r}") from None
         if self.scan_backend not in ("auto", "kernel", "xla"):
             raise ValueError(f"scan_backend must be 'auto', 'kernel' or "
                              f"'xla', got {self.scan_backend!r}")
@@ -169,17 +192,6 @@ class StoreConfig:
         if self.wal_sync not in ("flush", "always"):
             raise ValueError(f"wal_sync must be 'flush' or 'always', "
                              f"got {self.wal_sync!r}")
-
-
-def _check_ported(cfg: StoreConfig) -> None:
-    """Refuse the valid configurations the port cannot run yet."""
-    if cfg.tuning == "adaptive":
-        raise NotImplementedError(
-            "tuning='adaptive' needs the tune/ package (ROADMAP A.8)")
-    if cfg.filter_backend in _BASELINES:
-        raise NotImplementedError(
-            f"filter_backend={cfg.filter_backend!r} needs the repro.filters "
-            f"baselines (ROADMAP A.3c)")
 
 
 @dataclasses.dataclass
@@ -270,7 +282,6 @@ class Store:
                  faults: Optional[FaultPlan] = None, _open_wal: bool = True,
                  **kw):
         self.cfg = config if config is not None else StoreConfig(**kw)
-        _check_ported(self.cfg)
         self.device = resolve_device(device)
         self.mem = Memtable()
         self.levels: List[List[Run]] = [[]]   # levels[0] newest-first
@@ -287,6 +298,11 @@ class Store:
         self.filter_builds = 0                # flush and rebuild filter builds
         self._wal: Optional[Wal] = None
         self._seq = 0                         # checkpoint sequence number
+        self._tuner = None                    # workload-adaptive tuner
+        if self.cfg.tuning == "adaptive":
+            from ..tune import AdaptiveTuner
+
+            self._tuner = AdaptiveTuner(self.cfg.d, seed=self.cfg.seed)
         if _obs_metrics.enabled():            # late joiners: register_obs()
             self.register_obs()
         if self.cfg.durability == "wal" and _open_wal:
@@ -354,10 +370,19 @@ class Store:
     def _make_run(self, keys: np.ndarray, vals: list, tombs: np.ndarray,
                   level: int) -> Run:
         layout = self.class_layout(len(keys))
-        state = None
+        if self._tuner is not None:
+            # flushes reuse the class's standing retune decision (no
+            # re-solve here) so fresh runs join the tuned layout and
+            # same-class compactions keep merging with a free OR
+            layout = self._tuner.cached_layout(layout) or layout
+        state = alt = None
         if self.cfg.filter_backend == "bloomrf":
             state = self._build_filter(layout, keys)
-        return Run(keys, vals, tombs, level, layout, state)
+        elif self.cfg.filter_backend != "none":
+            alt = _baseline_factory(self.cfg.filter_backend)(
+                self.cfg.bits_per_key)
+            alt.build(keys)
+        return Run(keys, vals, tombs, level, layout, state, alt=alt)
 
     # ------------------------------------------------------------------
     # write path
@@ -460,7 +485,15 @@ class Store:
             self._dirty = True
             return
         target_layout = self.class_layout(len(keys))
-        state = None
+        retuned = False
+        if self._tuner is not None:
+            # the retune point: a class-graduating merge already pays for
+            # a rebuild, so consult the solver and re-insert into the
+            # tuned layout instead of the ladder's
+            tuned = self._tuner.advise_layout(target_layout, len(keys))
+            retuned = tuned != target_layout
+            target_layout = tuned
+        state = alt = None
         promotions = 0
         if self.cfg.filter_backend == "bloomrf":
             # fraction of merged entries that did not survive (shadowed
@@ -484,9 +517,18 @@ class Store:
                        "rebuild": "rebuild_merges",
                        "purge": "purge_rebuilds"}[how]
             setattr(self.stats, counter, getattr(self.stats, counter) + 1)
+            if retuned and how in ("rebuild", "purge"):
+                # count only retunes that re-inserted into the tuned layout
+                # here; an OR over already-tuned sources did no such work
+                self.stats.retunes += 1
             promotions = {"or": hops, "promote": hops + 1}.get(how, 0)
+        elif self.cfg.filter_backend != "none":
+            alt = _baseline_factory(self.cfg.filter_backend)(
+                self.cfg.bits_per_key)
+            alt.build(keys)
+            self.stats.rebuild_merges += 1
         new_run = Run(keys, vals, tombs, level + 1, target_layout, state,
-                      promotions=promotions)
+                      alt=alt, promotions=promotions)
         new_run.checksums()             # checksummed before it goes live
         self._fault("compact.before_swap")
         self.levels[level] = []
@@ -547,15 +589,21 @@ class Store:
     def _filter_mask(self, lo: np.ndarray, hi: np.ndarray,
                      point: bool) -> np.ndarray:
         """(B, R) bool filter verdicts (True = run may hold a match), from
-        the plain ``StackedProbe``; quarantined rows answer "maybe"."""
+        the plain ``StackedProbe`` or, for a host baseline, each run's
+        ``alt`` column by column; quarantined rows answer "maybe"."""
         if self.cfg.filter_backend == "none":
             return np.ones((len(lo), len(self._runs)), bool)
-        if point:
-            v = self._probe.point_all(self._flat, self._codes(lo))
+        if self.cfg.filter_backend == "bloomrf":
+            if point:
+                v = self._probe.point_all(self._flat, self._codes(lo))
+            else:
+                v = self._probe.range_all(self._flat, self._codes(lo),
+                                          self._codes(hi))
+            out = v.cpu().numpy()
         else:
-            v = self._probe.range_all(self._flat, self._codes(lo),
-                                      self._codes(hi))
-        out = v.cpu().numpy()
+            cols = [r.alt.point(lo) if point else r.alt.range(lo, hi)
+                    for r in self._runs]
+            out = np.stack(cols, axis=1)
         if self._quar.any():
             out = out | self._quar[None, :]
         return out
@@ -650,7 +698,8 @@ class Store:
 
         One store-scan kernel launch in ``kernel`` mode; the plain
         ``StackedProbe.touch_all`` in ``xla`` mode; fence-only verdicts for
-        ``filter_backend="none"``."""
+        ``filter_backend="none"``.  A host baseline has no device probe
+        and raises."""
         self._refresh()
         if _obs_metrics.enabled():
             # host-side batch odometer only: the launch stays async
@@ -668,8 +717,12 @@ class Store:
         kmin, kmax, quar = self._device_rows()
         if self.cfg.filter_backend == "bloomrf":
             return self._probe.touch_all(self._flat, kmin, kmax, lo, hi, quar)
-        fence = fence_mask(kmin, kmax, lo, hi)
-        return fence, fence
+        if self.cfg.filter_backend == "none":
+            fence = fence_mask(kmin, kmax, lo, hi)
+            return fence, fence
+        raise ValueError(
+            f"device scan probing needs the 'bloomrf' or 'none' backend, "
+            f"not {self.cfg.filter_backend!r} (host-side baseline)")
 
     # ------------------------------------------------------------------
     # read path
@@ -681,6 +734,8 @@ class Store:
     def get_many(self, keys) -> list:
         """Batched point lookups: one gather over the flat state."""
         keys = np.atleast_1d(np.asarray(keys, np.uint64))
+        if self._tuner is not None:
+            self._tuner.observe_points(len(keys))
         with _obs_trace.span("store/get", batch=len(keys)):
             return self._get_many_inner(keys)
 
@@ -722,6 +777,10 @@ class Store:
         device step for the batch."""
         los = np.atleast_1d(np.asarray(los, np.uint64))
         his = np.atleast_1d(np.asarray(his, np.uint64))
+        if self._tuner is not None:
+            # host-side workload sampling (numpy histogram + reservoir);
+            # the device probe below stays untouched
+            self._tuner.observe_scan(los, his)
         with _obs_trace.span("store/scan", batch=len(los)):
             fence, touch = self._touch_masks(los, his)
             return [self._scan_one(int(lo), int(hi), fence[b], touch[b])
@@ -792,10 +851,15 @@ class Store:
                 f"memtable entries and no WAL: those writes are not in the "
                 f"snapshot and will not survive a restore",
                 RuntimeWarning, stacklevel=2)
-        return {"schema": "bloomrf-store/v3",
+        snap = {"schema": "bloomrf-store/v3",
                 "config": dataclasses.asdict(self.cfg),
                 "stats": self.stats.durable_snapshot(),
                 "levels": [[r.pack() for r in lvl] for lvl in self.levels]}
+        if self._tuner is not None:
+            # the fitted workload model (bloomrf-workload/v1) rides along
+            # so a reopened store resumes tuning from its sample
+            snap["workload"] = self._tuner.to_dict()
+        return snap
 
     @classmethod
     def restore(cls, snap: dict, device=None) -> "Store":
@@ -812,10 +876,6 @@ class Store:
         if snap.get("schema") not in ("bloomrf-store/v1", "bloomrf-store/v2",
                                       "bloomrf-store/v3"):
             raise ValueError(f"not a store snapshot: {snap.get('schema')!r}")
-        if snap.get("workload") is not None:
-            raise NotImplementedError(
-                "the snapshot carries a workload model of tuning='adaptive', "
-                "which needs the tune/ package (ROADMAP A.8)")
         cfg_enc = snap.get("config")
         if not isinstance(cfg_enc, dict):
             raise ValueError("store snapshot: 'config' must be a dict")
@@ -833,6 +893,12 @@ class Store:
                         for lvl in levels_enc]
         if not store.levels:
             store.levels = [[]]
+        if store.cfg.filter_backend not in ("bloomrf", "none"):
+            for lvl in store.levels:     # baselines don't snapshot: rebuild
+                for r in lvl:
+                    r.alt = _baseline_factory(store.cfg.filter_backend)(
+                        store.cfg.bits_per_key)
+                    r.alt.build(r.keys)
         stats_enc = snap.get("stats")    # optional: absent in v1/v2
         if stats_enc is not None:
             if (not isinstance(stats_enc, dict)
@@ -844,6 +910,21 @@ class Store:
                     "names to non-negative ints")
             for k, v in stats_enc.items():
                 setattr(store.stats, k, v)
+        wl_enc = snap.get("workload")    # optional: adaptive-tuned stores
+        if wl_enc is not None:
+            from ..tune import WorkloadModel
+
+            try:
+                model = WorkloadModel.from_dict(wl_enc)
+            except ValueError as e:
+                raise ValueError(
+                    f"store snapshot: bad workload model: {e}") from e
+            if store._tuner is not None:
+                if model.d != store.cfg.d:
+                    raise ValueError(
+                        f"store snapshot: workload model d={model.d} does "
+                        f"not match config d={store.cfg.d}")
+                store._tuner.load(wl_enc)
         store._dirty = True
         return store
 

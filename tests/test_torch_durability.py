@@ -390,7 +390,8 @@ def test_corrupt_snapshots_raise_or_degrade_as_the_reference():
     run = next(e for lv in snap["levels"] for e in lv)
     cases = [dict(snap, schema="bloomrf-store/v99"),
              dict(snap, config={"filter_backend": "quantum"}),
-             dict(snap, levels={"not": "a list"})]
+             dict(snap, levels={"not": "a list"}),
+             dict(snap, workload={"d": 16})]
     for field, value in (("n", run["n"] + 1), ("layout", {"bogus": True}),
                          ("vals", ["x"] * run["n"])):
         bad = copy.deepcopy(snap)
@@ -401,8 +402,6 @@ def test_corrupt_snapshots_raise_or_degrade_as_the_reference():
             Store.restore(copy.deepcopy(bad), device="cpu")
         with pytest.raises(ValueError):
             RStore.restore(copy.deepcopy(bad))
-    with pytest.raises(NotImplementedError, match="A.8"):
-        Store.restore(dict(snap, workload={"d": 16}), device="cpu")
 
 
 def test_durable_directory_contract(tmp_path):

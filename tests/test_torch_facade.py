@@ -84,13 +84,11 @@ def test_default_device_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(dtype="u32", placement="store", tuning="adaptive"), "A.8"),
-    (dict(dtype="u32", placement="store", store_backend="rosetta"), "A.3"),
     (dict(dtype="u32", placement="bank", shards=2), "A.9"),
     (dict(dtype="u32", placement="tenant", tenants=2), "A.9"),
-    (dict(dtype="str", placement="store"), "A.3c"),
-    (dict(dtype="multiattr", placement="store"), "A.3c"),
     (dict(dtype="f64", placement="tenant", tenants=2), "A.9"),
+    (dict(dtype="u32", placement="tenant", tenants=2, tuning="adaptive"),
+     "A.9"),
 ])
 def test_not_ported_raises(kw, match):
     spec = repro_torch.FilterSpec(n=1000, **kw)

@@ -839,3 +839,119 @@ def test_counter_add_of_a_device_tensor_never_syncs(cuda, monkeypatch):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert metrics.registry().snapshot()["unit/dev"] == 30 * 499_500
+
+
+# ---------------------------------------------------------------------------
+# tuned layouts (tune/solver.py) through B1 and B4
+# ---------------------------------------------------------------------------
+
+def _tuned_rows(n_keys=3200):
+    """A capacity class's ladder layout and every candidate the solver
+    weighs at its bit budget: Δ = 1..7 ladders (21 layers at Δ = 1), the
+    Δ <= 3 ones also with a replicated top layer, and the paper's shrink
+    vectors."""
+    from repro_torch.tune import candidate_layouts
+
+    ladder = basic_layout(32, n_keys, 14.0, delta=6)
+    return [ladder] + candidate_layouts(ladder, n_keys)
+
+
+def test_store_scan_kernel_on_a_tuned_stack(cuda):
+    """B4 over a stack of tuned rows built on the CPU (Δ = 1 and Δ = 2
+    ladders among them, with and without a replicated top layer) equals
+    its plain version on the card, with and without quarantine."""
+    rng = np.random.default_rng(20)
+    layouts = _tuned_rows()
+    deltas = {lay.deltas[0] for lay in layouts}
+    assert {1, 2} <= deltas and max(lay.k for lay in layouts) > 8
+    assert any(lay.replicas[-1] == 2 for lay in layouts)
+    states, kmin, kmax = [], [], []
+    for lay in layouts:
+        keys = np.sort(rng.integers(0, 1 << 32, 3200, dtype=np.uint64))
+        f = BloomRF(lay, device="cpu")
+        states.append(f.build(torch.from_numpy(keys.astype(np.int64)))
+                      .to(cuda))
+        kmin.append(int(keys[0]))
+        kmax.append(int(keys[-1]))
+    R = len(layouts)
+    sizes = [lay.total_u32 for lay in layouts]
+    bases = tuple(int(b) for b in np.cumsum([0] + sizes[:-1]))
+    flat = torch.cat(states)
+    tk = [torch.tensor(v, dtype=torch.int64, device=cuda)
+          for v in (kmin, kmax)]
+    top = (1 << 32) - 1
+    lo = rng.integers(0, top + 1, 4096, dtype=np.uint64)
+    hi = np.minimum(lo + rng.integers(0, 1 << 16, 4096, dtype=np.uint64), top)
+    lo[:3], hi[:3] = [0, top, 7], [top, top, 7]
+    tlo, thi = (torch.from_numpy(a.astype(np.int64)).to(cuda)
+                for a in (lo, hi))
+    plain = stacked_probe(tuple(layouts), bases, cuda)
+    for quar in (None, torch.arange(R, device=cuda) % 4 == 1):
+        want = plain.touch_all(flat, *tk, tlo, thi, quar)
+        n0 = store_scan_probe.launches
+        fence, touch = store_scan_probe_flat(tuple(layouts), bases, flat,
+                                             *tk, tlo, thi, quarantine=quar)
+        assert store_scan_probe.launches == n0 + 1
+        torch.testing.assert_close(fence, want[0])
+        torch.testing.assert_close(touch, want[1])
+    torch.cuda.synchronize()
+
+
+def test_insert_kernel_at_the_longest_tuned_layout(cuda):
+    """B1 at d = 32, Δ = 1 (the solver's longest candidate, one layer per
+    level below the top) with a replicated top layer: its descriptor fits
+    the launch parameter and the state equals the plain build."""
+    from repro_torch.kernels import _build
+    from repro_torch.tune.solver import _hashed, _ladder_deltas
+
+    deltas = _ladder_deltas(32, 2, 1)
+    lay = _hashed(32, 1 << 16, deltas, (1,) * (len(deltas) - 1) + (2,))
+    assert lay.k == 31
+    assert len(_build.layout_descriptor(lay)) <= _build.PARAM_DESC_WORDS
+    f = BloomRF(lay, device=cuda)
+    keys = torch.from_numpy(np.random.default_rng(21).integers(
+        0, 1 << 32, 5000, dtype=np.uint64).astype(np.int64)).to(cuda)
+    n0 = insert_resident.launches
+    state = insert_resident(lay, f.init_state(), keys)
+    assert insert_resident.launches == n0 + 1
+    torch.testing.assert_close(state, f.insert(f.init_state(), keys),
+                               rtol=0, atol=0)
+
+
+def test_adaptive_store_launch_counts(cuda):
+    """An adaptive store on the card: retunes fire, B1 launches once per
+    filter build, B4 once per scan batch, no other kernel runs, and scans
+    and run states equal the same store's on the CPU."""
+    rng = np.random.default_rng(22)
+    keys = ((rng.random(8000) ** 4) * (1 << 31)).astype(np.uint64)
+    keys += rng.integers(0, 1 << 22, 8000, dtype=np.uint64)
+    slo = keys[rng.integers(0, 8000, 256)] + np.uint64(1)
+    shi = slo + np.uint64(255)
+    cfg = StoreConfig(memtable_limit=800, level0_runs=3, fanout=4,
+                      tuning="adaptive")
+
+    def drive(st):
+        for i, k in enumerate(keys[:4000]):
+            st.put(int(k), i)
+        st.flush()
+        out = [st.scan_many(slo[s:s + 64], shi[s:s + 64])
+               for s in range(0, 256, 64)]
+        for i, k in enumerate(keys[4000:]):
+            st.put(int(k), 4000 + i)
+        st.flush()
+        return out + [st.scan_many(slo, shi)]
+
+    before = [k.launches for k in _ALL_KERNELS]
+    st = Store(cfg)
+    got = drive(st)
+    torch.cuda.synchronize()
+    delta = [k.launches - b for k, b in zip(_ALL_KERNELS, before)]
+    assert st.stats.retunes >= 1
+    assert any(r.layout != st.class_layout(len(r)) for r in st.live_runs())
+    assert delta == [st.filter_builds, 0, 0, 0, 0, 0, 0, 5]
+    host = Store(cfg, device="cpu")
+    assert got == drive(host)
+    assert st.stats.as_dict() == host.stats.as_dict()
+    for a, b in zip(st.live_runs(), host.live_runs()):
+        assert a.layout == b.layout
+        torch.testing.assert_close(a.state.cpu(), b.state, rtol=0, atol=0)

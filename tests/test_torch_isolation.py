@@ -15,6 +15,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "import repro_torch.store, repro_torch.kernels.store_scan\n"
             "import repro_torch.core.dynamic, repro_torch.obs\n"
             "import repro_torch.dist.compression, repro_torch.store.wal\n"
+            "import repro_torch.filters, repro_torch.tune\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -41,7 +42,11 @@ def test_no_module_imports_jax_or_repro():
             "kernels/store_scan.py", "core/dynamic.py",
             "core/uint64.py", "obs/__init__.py", "obs/metrics.py",
             "obs/trace.py", "obs/fpr.py", "dist/compression.py",
-            "store/wal.py"} <= names
+            "store/wal.py", "filters/api.py", "filters/bloom.py",
+            "filters/prefix_bloom.py", "filters/rosetta.py",
+            "filters/surf_lite.py", "filters/cuckoo.py", "filters/minmax.py",
+            "filters/bloomrf_adapter.py", "tune/workload.py", "tune/cost.py",
+            "tune/solver.py", "tune/retune.py"} <= names
     files.append(_ROOT / "chip_smoke.py")
     files += sorted((_ROOT / "benchmarks").glob("torch_*.py"))
     for f in files:

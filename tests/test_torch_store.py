@@ -306,16 +306,11 @@ def test_typed_store_scans_decode_as_reference(dtype):
 
 
 @pytest.mark.parametrize("make,match", [
-    (lambda: Store(StoreConfig(tuning="adaptive"), device="cpu"), "A.8"),
-    (lambda: Store(StoreConfig(filter_backend="rosetta"), device="cpu"),
-     "A.3c"),
-    (lambda: Store.restore({"schema": "bloomrf-store/v3",
-                            "workload": {"d": 32}}, device="cpu"), "A.8"),
     (lambda: repro_torch.open_filter(repro_torch.FilterSpec(
-        dtype="str", placement="store"), device="cpu"), "A.3c"),
+        dtype="u32", placement="bank", shards=2), device="cpu"), "A.9"),
     (lambda: repro_torch.open_filter(repro_torch.FilterSpec(
-        dtype="u32", placement="store", tuning="adaptive"), device="cpu"),
-     "A.8"),
+        dtype="u32", placement="tenant", tenants=2, tuning="adaptive"),
+        device="cpu"), "A.9"),
 ])
 def test_deferred_features_raise_naming_their_item(make, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -355,6 +355,3 @@ def test_typed_d64_store_matches_reference(dtype):
     assert port.get_many(keys[:20]) == ref.get_many(keys[:20])
     assert port.stats.as_dict() == ref.stats.as_dict()
     assert port.size_bits() == ref.size_bits()
-    with pytest.raises(NotImplementedError, match="A.3c"):
-        repro_torch.open_filter(repro_torch.FilterSpec(
-            dtype="str", placement="store"), device="cpu")
