@@ -99,7 +99,6 @@ from .wal import WAL_FILENAME, Wal
 __all__ = ["Store", "StoreConfig", "StoreStats"]
 
 
-
 def _baseline_factory(name: str):
     from .. import filters as F
 
@@ -379,10 +378,15 @@ class Store:
         if self.cfg.filter_backend == "bloomrf":
             state = self._build_filter(layout, keys)
         elif self.cfg.filter_backend != "none":
-            alt = _baseline_factory(self.cfg.filter_backend)(
-                self.cfg.bits_per_key)
-            alt.build(keys)
+            alt = self._build_alt(keys)
         return Run(keys, vals, tombs, level, layout, state, alt=alt)
+
+    def _build_alt(self, keys: np.ndarray):
+        """The run's host baseline filter over ``keys`` (numpy)."""
+        alt = _baseline_factory(self.cfg.filter_backend)(
+            self.cfg.bits_per_key)
+        alt.build(keys)
+        return alt
 
     # ------------------------------------------------------------------
     # write path
@@ -523,9 +527,7 @@ class Store:
                 self.stats.retunes += 1
             promotions = {"or": hops, "promote": hops + 1}.get(how, 0)
         elif self.cfg.filter_backend != "none":
-            alt = _baseline_factory(self.cfg.filter_backend)(
-                self.cfg.bits_per_key)
-            alt.build(keys)
+            alt = self._build_alt(keys)
             self.stats.rebuild_merges += 1
         new_run = Run(keys, vals, tombs, level + 1, target_layout, state,
                       alt=alt, promotions=promotions)
@@ -896,9 +898,7 @@ class Store:
         if store.cfg.filter_backend not in ("bloomrf", "none"):
             for lvl in store.levels:     # baselines don't snapshot: rebuild
                 for r in lvl:
-                    r.alt = _baseline_factory(store.cfg.filter_backend)(
-                        store.cfg.bits_per_key)
-                    r.alt.build(r.keys)
+                    r.alt = store._build_alt(r.keys)
         stats_enc = snap.get("stats")    # optional: absent in v1/v2
         if stats_enc is not None:
             if (not isinstance(stats_enc, dict)
