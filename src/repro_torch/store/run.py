@@ -169,10 +169,10 @@ class Run:
         return enc
 
     @classmethod
-    def unpack(cls, enc: dict, device=None, alt=None) -> "Run":
+    def unpack(cls, enc: dict, device=None) -> "Run":
         """Validated inverse of :meth:`pack`, the filter state placed on
-        ``device`` (default ``"cuda"``); ``alt`` is a host baseline filter
-        to attach (baselines do not snapshot: the store rebuilds them).
+        ``device`` (default ``"cuda"``).  Host baselines do not snapshot:
+        the store rebuilds a run's ``alt`` after unpacking it.
 
         Every malformed or corrupted input raises ``ValueError`` naming
         what failed; the one exception is a corrupt *filter block*, which
@@ -259,7 +259,7 @@ class Run:
         # it also heals v1 snapshots whose vals hold stale sentinels
         vals = [TOMBSTONE if t else v for v, t in zip(enc_vals, tombs)]
         try:
-            run = cls(keys, vals, tombs, level, layout, state, alt=alt,
+            run = cls(keys, vals, tombs, level, layout, state,
                       promotions=promotions, quarantined=quarantined)
         except Exception as e:
             raise ValueError(f"run snapshot: inconsistent run: {e}") from e
