@@ -121,7 +121,28 @@ Phases, one line of output each:
     (``user%012d``; cut from 200,000 by its read-modify-write put, a
     plain d = 64 probe on the card each) and a ``multiattr`` store of
     200,000 pairs, 1,000 scans each equal to a sorted oracle, no kernel
-    launched.
+    launched;
+13. the filter banks and the prefix cache: (a) ``open_filter`` of a
+    ``placement="bank"`` u32 filter, ``n=16_000_000``, 14 bits/key, Δ 6,
+    8 shards (benchmarks/dist_bench.py's settings; 2,000,000 keys a
+    shard), 16,000,000 inserts in 262,144-key chunks, phase 3's points
+    and ranges, 65,536 ranges across 2-3 shards and the edges: no false
+    negatives, state and verdicts equal to the ``xla`` twin, one B1
+    launch per row owning keys of a chunk, one B6 launch per point chunk,
+    none for a range, B6 equal to the plain ``point_all``; (b) a
+    ``placement="tenant"`` filter of 16 tenants x 4 shards at 1,000,000
+    keys a tenant with random tenants, the same mix with and without the
+    meta rows, ``meta_skip_stats``, ``grow(4)`` in place and a TTL twin
+    over 4 generations, each equal to its ``xla`` twin, B1 launches for
+    the main and meta rows; (c) ``PrefixCacheIndex(bits_per_key=14,
+    n_tenants=16, ttl_generations=4)`` over a WAL store of phase 10's
+    settings: 64 segments of 4,096 entries, 1,000 lookups (half hits),
+    256 ``session_segments``, 8 ``evict_window`` sweeps,
+    ``advance_generation`` and ``reopen_cold_tier``, its answers and stats
+    equal to a CPU run of the same sequence, one B6 launch per lookup
+    (every segment at once) and one B4 launch per sweep; (d) both sharded banks on an NCCL
+    world of one equal to their banks.  B1 and B6 are timed alone on the
+    bank's and the tenant bank's shapes.
 
 It prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -2169,7 +2190,7 @@ def _durable_and_obs(device, kernels, expect, smi):
         t0 = time.perf_counter()
         durable = phase_durable(device, kernels,
                                 str(Path(wal_root) / "wal"))
-        print(f"[10/12] deletable, durable store (phase 7's settings, "
+        print(f"[10/13] deletable, durable store (phase 7's settings, "
               f"mutability='deletable', durability='wal'): {STORE_KEYS} "
               f"puts through the WAL, a checkpoint, {durable['deleted']} "
               f"keys deleted in {durable['delete_batches']} delete_many "
@@ -2188,7 +2209,7 @@ def _durable_and_obs(device, kernels, expect, smi):
         obs_run = phase_obs(device, kernels,
                             expect(insert=8, point=4, range=4),
                             str(Path(wal_root) / "trace.jsonl"))
-        print(f"[11/12] obs on the main path (phase 3's filter and mix, "
+        print(f"[11/13] obs on the main path (phase 3's filter and mix, "
               f"obs.enable() and a JSONL trace sink): launches "
               f"{json.dumps(obs_run['launches_on'])} as with obs off, the "
               f"same verdicts and state, kernel/dispatch/resident == calls, "
@@ -2639,7 +2660,7 @@ def phase_tuned(device, kernels, errs, smi):
     """Phase 12, each part printing its line; returns their results."""
     t0 = time.perf_counter()
     twin = _adaptive_twin(device, kernels, errs)
-    print(f"[12/12] (a) adaptive twin: phase 7's store, tuning 'auto' and "
+    print(f"[12/13] (a) adaptive twin: phase 7's store, tuning 'auto' and "
           f"'adaptive', {TUNE_KEYS} clustered keys, {TUNE_BATCHES} batches "
           f"of near-miss scans between the halves and after: retunes "
           f"{twin['adaptive']['retunes']}, scans == static twin == oracle, "
@@ -2651,21 +2672,21 @@ def phase_tuned(device, kernels, errs, smi):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     base = _baseline_stores(device, kernels)
-    print(f"[12/12] (b) host baselines as store_backend, {BASE_KEYS} keys "
+    print(f"[12/13] (b) host baselines as store_backend, {BASE_KEYS} keys "
           f"each (phase 7's settings), {BASE_SCANS} of phase 7's scans == "
           f"oracle (bloom: {BASE_SCANS} gets), no kernel launched; bloomRF "
           f"on the same stream beside them: {json.dumps(base)} on {smi} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     cmp_ = _standalone(device, kernels)
-    print(f"[12/12] (c) standalone comparison on phase 3's {CMP_KEYS} keys at "
+    print(f"[12/13] (c) standalone comparison on phase 3's {CMP_KEYS} keys at "
           f"16 bits/key, {CMP_QUERIES} points (half present) and ranges "
           f"(2^0..2^14): no false negatives, the adapter == its xla twin: "
           f"{json.dumps(cmp_)} on {smi} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     typed = _typed_stores(device, kernels)
-    print(f"[12/12] (d) a str store of {STR_KEYS} keys (memtable "
+    print(f"[12/13] (d) a str store of {STR_KEYS} keys (memtable "
           f"{STR_MEMTABLE}, compactions asserted) and a multiattr "
           f"store of {TYPED_KEYS}, {TYPED_SCANS} scans each == sorted "
           f"oracle, no kernel launched: "
@@ -2673,6 +2694,537 @@ def phase_tuned(device, kernels, errs, smi):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return {"twin": twin, "baselines": base, "standalone": cmp_,
             "typed": typed}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the filter bank, the tenant bank and the prefix cache
+# ---------------------------------------------------------------------------
+
+BANK_KEYS = 16_000_000    # the bank's keys: 2,000,000 a shard (phase 3's)
+BANK_SHARDS = 8           # benchmarks/dist_bench.py's 8-device mesh
+TEN_KEYS = 1_000_000      # keys per tenant
+TENANTS = 16              # dist_bench.py's tenants and tenant shards
+TEN_SHARDS = 4
+BANK_QUERIES = 1 << 20    # phase 3's points and ranges
+SPAN_RANGES = 1 << 16     # ranges spanning 2-3 shards
+TTL_KEYS = 1_000_000      # keys a TTL window (4 windows, 4 generations)
+PC_SEGMENTS = 64          # the prefix cache's frozen segments
+PC_SESSIONS = 512         # sessions a segment, PC_CHUNKS chunks each
+PC_CHUNKS = 8             # (4,096 entries a segment)
+PC_LOOKUPS = 1000         # half of them hits
+PC_SESSION_QUERIES = 256
+PC_SWEEPS = 8             # evict_window sweeps
+SHARD_PROBES = 1 << 16    # the sharded variants' points and ranges
+BANK_SPEC = dict(dtype="u32", bits_per_key=14.0, delta=6)
+
+
+def _bank_ranges(rng, n, d_local, shards, top):
+    """Ranges that span 2-3 shards of ``2^d_local`` codes, then the
+    domain's and the shards' edges."""
+    import numpy as np
+
+    width = 1 << d_local
+    b = rng.integers(1, shards, n).astype(np.uint64) * np.uint64(width)
+    lo = b - rng.integers(1, width // 2, n, dtype=np.uint64)
+    hi = np.minimum(b + rng.integers(0, width + width // 2, n,
+                                     dtype=np.uint64), np.uint64(top))
+    edges = [(0, top), (0, 0), (top, top), (width - 1, width),
+             (top - width, top), (width, 2 * width - 1)]
+    return (np.concatenate([lo, np.asarray([e[0] for e in edges],
+                                           np.uint64)]),
+            np.concatenate([hi, np.asarray([e[1] for e in edges],
+                                           np.uint64)]))
+
+
+def _owners(chunks, row_of) -> int:
+    """Rows that own keys, summed over the chunks: the B1 launches of a
+    bank build (one launch per row that owns keys of a chunk)."""
+    import numpy as np
+
+    return int(sum(len(np.unique(row_of(c))) for c in chunks))
+
+
+def _bank_probe_times(device, lay, stack, keys, rows_label):
+    """B6 alone over a bank's rows at one chunk (the whole stack read once,
+    the verdicts written once), against the plain ``point_all``."""
+    from repro_torch.core import stacked_probe
+    from repro_torch.kernels import point_probe_stacked_resident
+
+    R, U = stack.shape
+    probe = stacked_probe((lay,) * R, tuple(r * U for r in range(R)), device)
+    flat = stack.reshape(-1)
+    err = _max_err(point_probe_stacked_resident(lay, stack, keys),
+                   probe.point_all(flat, keys))
+    n = keys.numel()
+    floor = _floor_ms(device, _grid(n), 256, 0, R, param=True)
+    row = _times(lambda: point_probe_stacked_resident(lay, stack, keys),
+                 lambda: probe.point_all(flat, keys), 3,
+                 n * 8 + R * U * 4 + n * R, floor)
+    row.pop("call_ms")
+    row.update(rows=R, lanes_per_row=U, queries=n, shape=rows_label,
+               max_abs_err=err)
+    return row
+
+
+def _bank13(device, kernels, errs):
+    """(a) the bank at full width through ``open_filter``, against truth on
+    the card, its ``xla`` twin and the plain versions of B1 and B6."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import insert_resident
+
+    rng = np.random.default_rng(SEED + 13)
+    top = (1 << 32) - 1
+    keys = rng.integers(0, top + 1, BANK_KEYS, dtype=np.uint64)
+    pq, lo, hi = _queries(rng, BANK_QUERIES, keys, top)
+    spec = dict(n=BANK_KEYS, placement="bank", shards=BANK_SHARDS,
+                **BANK_SPEC)
+    h = repro_torch.open_filter(repro_torch.FilterSpec(**spec))
+    bank = h.bank
+    slo, shi = _bank_ranges(rng, SPAN_RANGES, bank.d_local, BANK_SHARDS, top)
+    chunks = [keys[s:s + CHUNK] for s in range(0, BANK_KEYS, CHUNK)]
+    expect_b1 = _owners(chunks, lambda c: c >> np.uint64(bank.d_local))
+
+    read = _counted(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h.insert(keys)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    built = read()
+    pres = h.point(pq)
+    t2 = time.perf_counter()
+    probed = read()
+    _counted(kernels)
+    rres = h.range(lo, hi)
+    t3 = time.perf_counter()
+    sres = h.range(slo, shi)
+    ranged = read()
+    if built["insert"] != expect_b1 or sum(built.values()) != expect_b1:
+        raise AssertionError(f"bank build launches {built}, expected "
+                             f"{expect_b1} B1 launches and no other")
+    n_pchunks = _chunks(len(pq))
+    if probed["point_stacked"] - built["point_stacked"] != n_pchunks \
+            or sum(probed.values()) != expect_b1 + n_pchunks:
+        raise AssertionError(f"bank point launches {probed}")
+    if sum(ranged.values()):
+        raise AssertionError(f"a bank range launched a kernel: {ranged}")
+
+    sk = torch.sort(_i64(keys, device)).values
+    ptruth, rtruth = _truth_on_card(sk, pq, lo, hi, device)
+    _, struth = _truth_on_card(sk, pq[:1], slo, shi, device)
+    fn = {"point": int((ptruth & ~pres).sum()),
+          "range": int((rtruth & ~rres).sum()),
+          "span": int((struth & ~sres).sum())}
+    if any(fn.values()):
+        raise AssertionError(f"bank false negatives {fn}")
+    twin = repro_torch.open_filter(repro_torch.FilterSpec(backend="xla",
+                                                          **spec))
+    twin.insert(keys)
+    if not torch.equal(twin.state, h.state):
+        raise AssertionError("B1-built bank != the plain masked build")
+    if not (np.array_equal(twin.point(pq), pres)
+            and np.array_equal(twin.range(lo, hi), rres)
+            and np.array_equal(twin.range(slo, shi), sres)):
+        raise AssertionError("bank verdicts differ from the xla twin")
+    low = _i64(pq[:CHUNK] & np.uint64((1 << bank.d_local) - 1), device)
+    b6 = _bank_probe_times(device, bank.layout, h.state, low,
+                           f"bank {BANK_SHARDS} rows")
+    errs["point_stacked"] = max(errs["point_stacked"], b6["max_abs_err"])
+    row0 = keys[:CHUNK][(keys[:CHUNK] >> np.uint64(bank.d_local)) == 0]
+    b1 = _b1_shape(device, insert_resident, bank.layout, h.state[0].clone(),
+                   [_i64(row0, device)])
+    return h, (pq, lo, hi, slo, shi), {
+        "rows": BANK_SHARDS, "lanes_per_row": bank.layout.total_u32,
+        "state_mib": BANK_SHARDS * bank.layout.total_u32 * 4 / 2**20,
+        "deltas": bank.layout.deltas, "keys": BANK_KEYS,
+        "launches": {"build": built["insert"],
+                     "points": probed["point_stacked"],
+                     "ranges": sum(ranged.values())},
+        "point_chunks": n_pchunks,
+        "point_fpr": float((pres & ~ptruth).sum() / max((~ptruth).sum(), 1)),
+        "range_fpr": float((rres & ~rtruth).sum() / max((~rtruth).sum(), 1)),
+        "span_ranges": len(slo), "span_positive": float(sres.mean()),
+        "insert_keys_per_s": BANK_KEYS / (t1 - t0),
+        "point_queries_per_s": len(pq) / (t2 - t1),
+        "range_queries_per_s": len(lo) / (t3 - t2),
+        "b6": b6, "b1_row": b1}
+
+
+def _tenant_truth(sorted_packed, pten, pq, rten, lo, hi, device):
+    """Point and range truth per tenant, from the keys packed as ``tenant
+    << 32 | key`` and sorted on the card."""
+    import numpy as np
+
+    def packed(t, k):
+        return (np.asarray(t, np.uint64) << np.uint64(32)) | k
+
+    return _truth_on_card(sorted_packed, packed(pten, pq), packed(rten, lo),
+                          packed(rten, hi), device)
+
+
+def _tenant13(device, kernels, errs):
+    """(b) the tenant bank: the same mix with random tenants, ranges with
+    and without meta, ``meta_skip_stats``, ``grow(4)`` in place, and a TTL
+    twin over 4 generations, each against its ``xla`` twin."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import insert_resident
+
+    rng = np.random.default_rng(SEED + 131)
+    top = (1 << 32) - 1
+    n = TEN_KEYS * TENANTS
+    keys = rng.integers(0, top + 1, n, dtype=np.uint64)
+    ten = rng.integers(0, TENANTS, n).astype(np.uint32)
+    pq, lo, hi = _queries(rng, BANK_QUERIES, keys, top)
+    pick = rng.integers(0, n, BANK_QUERIES // 2)
+    pq[:BANK_QUERIES // 2] = keys[pick]
+    pten = rng.integers(0, TENANTS, BANK_QUERIES).astype(np.uint32)
+    pten[:BANK_QUERIES // 2] = ten[pick]
+    rten = rng.integers(0, TENANTS, BANK_QUERIES).astype(np.uint32)
+    spec = dict(n=TEN_KEYS, placement="tenant", tenants=TENANTS,
+                shards=TEN_SHARDS, **BANK_SPEC)
+    h = repro_torch.open_filter(repro_torch.FilterSpec(**spec))
+    tb = h.bank
+    dl = np.uint64(tb.bank.d_local)
+    expect_b1 = 2 * _owners(
+        [np.stack([ten[s:s + CHUNK], keys[s:s + CHUNK] >> dl])
+         for s in range(0, n, CHUNK)],
+        lambda c: c[0].astype(np.uint64) * np.uint64(TEN_SHARDS) + c[1])
+
+    read = _counted(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h.insert(ten, keys)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    built = read()
+    pres = h.point(pten, pq)
+    t2 = time.perf_counter()
+    probed = read()
+    _counted(kernels)
+    gated = h.range(rten, lo, hi)
+    t3 = time.perf_counter()
+    plain = h.range(rten, lo, hi, use_meta=False)
+    t4 = time.perf_counter()
+    ranged = read()
+    n_pchunks = _chunks(len(pq))
+    if built["insert"] != expect_b1 or sum(built.values()) != expect_b1:
+        raise AssertionError(f"tenant build launches {built}, expected "
+                             f"{expect_b1} B1 launches and no other")
+    if probed["point_stacked"] != n_pchunks \
+            or sum(probed.values()) != expect_b1 + n_pchunks:
+        raise AssertionError(f"tenant point launches {probed}")
+    if sum(ranged.values()):
+        raise AssertionError(f"a tenant range launched a kernel: {ranged}")
+    packed = (ten.astype(np.uint64) << np.uint64(32)) | keys
+    sp = torch.sort(_i64(packed, device)).values
+    ptruth, rtruth = _tenant_truth(sp, pten, pq, rten, lo, hi, device)
+    fn = {"point": int((ptruth & ~pres).sum()),
+          "range_meta": int((rtruth & ~gated).sum()),
+          "range": int((rtruth & ~plain).sum())}
+    if any(fn.values()) or (gated & ~plain).any():
+        raise AssertionError(f"tenant false negatives {fn}, or meta "
+                             f"widened a verdict")
+    cand = skip = 0
+    for s in range(0, len(lo), CHUNK):
+        c, k = tb.meta_skip_stats(
+            h.meta, _i64(rten[s:s + CHUNK], device),
+            _i64(lo[s:s + CHUNK], device), _i64(hi[s:s + CHUNK], device))
+        cand, skip = cand + int(c), skip + int(k)
+    twin = repro_torch.open_filter(repro_torch.FilterSpec(backend="xla",
+                                                          **spec))
+    twin.insert(ten, keys)
+    if not (torch.equal(twin.state, h.state)
+            and torch.equal(twin.meta, h.meta)):
+        raise AssertionError("B1-built tenant rows != the plain build")
+    if not (np.array_equal(twin.point(pten, pq), pres)
+            and np.array_equal(twin.range(rten, lo, hi), gated)
+            and np.array_equal(twin.range(rten, lo, hi, use_meta=False),
+                               plain)):
+        raise AssertionError("tenant verdicts differ from the xla twin")
+    low = _i64(pq[:CHUNK] & np.uint64((1 << tb.bank.d_local) - 1), device)
+    R = TENANTS * TEN_SHARDS
+    b6 = _bank_probe_times(device, tb.bank.layout, h.state.view(R, -1), low,
+                           f"tenant {R} rows")
+    errs["point_stacked"] = max(errs["point_stacked"], b6["max_abs_err"])
+    own = (ten[:CHUNK] == 0) & ((keys[:CHUNK] >> dl) == 0)
+    rk = _i64(keys[:CHUNK][own] & np.uint64((1 << tb.bank.d_local) - 1),
+              device)
+    b1 = _b1_shape(device, insert_resident, tb.bank.layout,
+                   h.state[0, 0].clone(), [rk])
+    from repro_torch.core import dyadic_prefixes
+
+    b1_meta = _b1_shape(device, insert_resident, tb.meta_layout,
+                        h.meta[0, 0].clone(),
+                        [dyadic_prefixes(rk, tb.meta_level,
+                                         tb.bank.d_local).contiguous()])
+
+    # grow(4) in place: every key still found, the same verdicts as the twin
+    _counted(kernels)
+    t5 = time.perf_counter()
+    for x in (h, twin):
+        x.grow(4)
+    found = h.point(ten, keys)
+    t6 = time.perf_counter()
+    grown = read()
+    if not found.all():
+        raise AssertionError(f"{int((~found).sum())} keys lost by grow(4)")
+    if grown["point_stacked"] != _chunks(n) or grown["insert"]:
+        raise AssertionError(f"grown tenant launches {grown}")
+    if not (torch.equal(twin.state, h.state)
+            and torch.equal(twin.meta, h.meta)
+            and np.array_equal(twin.range(rten, lo, hi),
+                               h.range(rten, lo, hi))
+            and np.array_equal(twin.point(pten, pq), h.point(pten, pq))):
+        raise AssertionError("grown tenant bank != its xla twin")
+
+    # the TTL twin: 4 windows of TTL_KEYS, 4 generations, 4 advances
+    ttl = [repro_torch.open_filter(repro_torch.FilterSpec(
+        backend=b, mutability="ttl", generations=4, **spec))
+        for b in ("auto", "xla")]
+    wins = [(rng.integers(0, TENANTS, TTL_KEYS).astype(np.uint32),
+             rng.integers(0, top + 1, TTL_KEYS, dtype=np.uint64))
+            for _ in range(4)]
+    _counted(kernels)
+    for t, k in wins:
+        for x in ttl:
+            x.insert(t, k)
+            x.advance_generation()
+    ttl_b1 = read()["insert"]
+    if not (torch.equal(ttl[0].state, ttl[1].state)
+            and torch.equal(ttl[0].meta, ttl[1].meta)):
+        raise AssertionError("TTL tenant bank != its xla twin")
+    kept = all(ttl[0].point(t, k).all() for t, k in wins[1:])
+    retired = float(ttl[0].point(*wins[0]).mean())
+    if not kept or not np.array_equal(ttl[0].range(rten, lo, hi),
+                                      ttl[1].range(rten, lo, hi)):
+        raise AssertionError("TTL tenant bank lost a retained window, or "
+                             "differs from its twin")
+    return h, (pten, pq, rten, lo, hi), {
+        "rows": R, "lanes_per_row": tb.bank.layout.total_u32,
+        "meta_lanes_per_row": tb.meta_layout.total_u32,
+        "meta_level": tb.meta_level, "keys": n,
+        "state_mib": R * (tb.bank.layout.total_u32
+                          + tb.meta_layout.total_u32) * 4 / 2**20,
+        "launches": {"build": built["insert"],
+                     "points": probed["point_stacked"],
+                     "ranges": sum(ranged.values()),
+                     "grown_points": grown["point_stacked"],
+                     "ttl_build": ttl_b1},
+        "point_fpr": float((pres & ~ptruth).sum() / max((~ptruth).sum(), 1)),
+        "range_fpr": float((plain & ~rtruth).sum() / max((~rtruth).sum(), 1)),
+        "range_fpr_meta": float((gated & ~rtruth).sum()
+                                / max((~rtruth).sum(), 1)),
+        "meta_skip_stats": {"candidates": cand, "skipped": skip,
+                            "share": skip / max(cand, 1)},
+        "insert_keys_per_s": n / (t1 - t0),
+        "point_queries_per_s": len(pq) / (t2 - t1),
+        "range_meta_queries_per_s": len(lo) / (t3 - t2),
+        "range_queries_per_s": len(lo) / (t4 - t3),
+        "grown_lanes_per_row": h.bank.bank.layout.total_u32,
+        "grown_points_per_s": n / (t6 - t5),
+        "ttl_retired_window_positive": retired,
+        "b6": b6, "b1_row": b1, "b1_meta_row": b1_meta}
+
+
+def _prefix_sequence(device, wal_dir):
+    """The prefix-cache sequence of (c) on ``device``: returns what every
+    call answered, the stats dict, the timings and the evicted keys."""
+    import numpy as np
+
+    from repro_torch.serve import PrefixCacheIndex, pack_key
+    from repro_torch.store import Store, StoreConfig
+
+    cfg = dict(STORE7)
+    cfg.pop("bits_per_key")
+    store = Store(StoreConfig(d=32, bits_per_key=STORE7["bits_per_key"],
+                              durability="wal", wal_dir=wal_dir, **cfg),
+                  device=device)
+    idx = PrefixCacheIndex(bits_per_key=14, n_tenants=16,
+                           backing_store=store, ttl_generations=4,
+                           device=device)
+    rng = np.random.default_rng(SEED + 132)
+    out, frozen, times = [], [], {}
+    t0 = time.perf_counter()
+    for seg in range(PC_SEGMENTS):
+        ses = rng.choice(1 << 16, PC_SESSIONS, replace=False)
+        entries = {pack_key(int(s), c): [seg, int(s), c] for s in ses
+                   for c in range(PC_CHUNKS)}
+        frozen.append(ses)
+        idx.freeze_segment(entries)
+        if seg % (PC_SEGMENTS // 4) == PC_SEGMENTS // 4 - 1 \
+                and seg + 1 < PC_SEGMENTS:    # four TTL windows of segments
+            idx.advance_generation()
+    times["freeze_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    missed = 0
+    for i in range(PC_LOOKUPS):
+        if i % 2 == 0:                      # a cached prefix
+            seg = int(rng.integers(0, PC_SEGMENTS))
+            s = int(rng.choice(frozen[seg]))
+            c = int(rng.integers(0, PC_CHUNKS))
+            got = idx.lookup(s, c)
+            missed += got is None or got[1:] != [s, c]
+        else:
+            got = idx.lookup(int(rng.integers(0, 1 << 16)),
+                             int(rng.integers(PC_CHUNKS, 1 << 16)))
+        out.append(got)
+    times["lookups_per_s"] = PC_LOOKUPS / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for _ in range(PC_SESSION_QUERIES):
+        seg = int(rng.integers(0, PC_SEGMENTS))
+        segs = idx.session_segments(int(rng.choice(frozen[seg])))
+        missed += seg not in segs
+        out.append(segs)
+    times["session_queries_per_s"] = PC_SESSION_QUERIES / (
+        time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    evicted = []
+    for w in range(PC_SWEEPS):
+        lo_s = w * 4096 + int(rng.integers(0, 2048))
+        out.append(idx.evict_window(lo_s, lo_s + 255))
+        evicted += [pack_key(s, c) for seg in frozen for s in seg
+                    if lo_s <= s <= lo_s + 255 for c in range(PC_CHUNKS)]
+    times["sweeps_per_s"] = PC_SWEEPS / (time.perf_counter() - t0)
+    out.append(idx.advance_generation())
+    store.checkpoint()
+    store.close()
+    t0 = time.perf_counter()
+    idx.reopen_cold_tier(wal_dir)
+    times["reopen_s"] = time.perf_counter() - t0
+    sample = evicted[::max(len(evicted) // 500, 1)]
+    back = [idx.lookup(k >> 16, k & 0xFFFF) for k in sample]
+    out.append(back)
+    return out, dict(idx.stats), dict(
+        times, missed=missed, back=sum(x is not None for x in back),
+        evicted_sampled=len(sample), lookups=PC_LOOKUPS + len(sample),
+        groups=len(idx._groups()), store_filter_builds=store.filter_builds)
+
+
+def _prefix13(device, kernels):
+    """(c) the prefix cache on the card with a durable backing store,
+    against a CPU run of the port on the same sequence."""
+    wal_root = tempfile.mkdtemp(prefix="bloomrf-smoke-pc-")
+    try:
+        read = _counted(kernels)
+        t0 = time.perf_counter()
+        out, stats, info = _prefix_sequence(device,
+                                            str(Path(wal_root) / "card"))
+        secs = time.perf_counter() - t0
+        launches = read()
+        cpu = _prefix_sequence("cpu", str(Path(wal_root) / "cpu"))
+        secs_cpu = time.perf_counter() - t0 - secs
+    finally:
+        shutil.rmtree(wal_root, ignore_errors=True)
+    if info["missed"]:
+        raise AssertionError(f"the prefix cache missed {info['missed']} "
+                             f"cached prefixes or their segments")
+    if info["back"]:
+        raise AssertionError(f"{info['back']} of {info['evicted_sampled']} "
+                             f"evicted keys came back after reopen")
+    if (out, stats) != cpu[:2]:
+        raise AssertionError(f"prefix cache on the card != its CPU run: "
+                             f"{stats} vs {cpu[1]}")
+    # one B6 launch a lookup (all segments of a bank in one launch), one
+    # B4 launch a sweep's store scan
+    if launches["point_stacked"] != info["lookups"] * info["groups"] \
+            or launches["store_scan"] != PC_SWEEPS:
+        raise AssertionError(f"prefix cache launches {launches}: "
+                             f"{info['lookups']} lookups, {PC_SWEEPS} "
+                             f"sweeps")
+    return {"segments": PC_SEGMENTS,
+            "entries": PC_SEGMENTS * PC_SESSIONS * PC_CHUNKS,
+            "stats": stats, "launches": launches,
+            "card_s": secs, "cpu_s": secs_cpu, **info}
+
+
+def _sharded13(device, bank_h, bank_q, ten_h, ten_q):
+    """(d) both sharded variants on an NCCL world of one, each against its
+    unsharded bank on SHARD_PROBES of (a)'s and (b)'s queries."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import ShardedFilterBank, ShardedTenantFilterBank
+
+    root = tempfile.mkdtemp(prefix="bloomrf-smoke-pg-")
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{root}/pg",
+                            rank=0, world_size=1)
+    try:
+        pq, lo, hi = (_i64(a[:SHARD_PROBES], device) for a in bank_q[:3])
+        bank, state = bank_h.bank, bank_h.state
+        sb = ShardedFilterBank(bank)
+        local = sb.shard_state(state)
+        ok = (torch.equal(sb.point(local, pq), bank.point(state, pq))
+              and torch.equal(sb.range(local, lo, hi),
+                              bank.range(state, lo, hi)))
+        tb, st, me = ten_h.bank, ten_h.state, ten_h.meta
+        pten, tq, rten, tlo, thi = (_i64(a[:SHARD_PROBES], device)
+                                    for a in ten_q)
+        stb = ShardedTenantFilterBank(tb)
+        ls, lm = stb.shard_state(st), stb.shard_meta(me)
+        ok &= torch.equal(stb.point(ls, pten, tq), tb.point(st, pten, tq))
+        for m, wm in ((None, None), (lm, me)):
+            ok &= torch.equal(stb.range(ls, rten, tlo, thi, m),
+                              tb.range(st, rten, tlo, thi, wm))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    if not ok:
+        raise AssertionError("a sharded bank differs from its bank")
+    return {"world": 1, "backend": backend, "probes": SHARD_PROBES}
+
+
+def phase_banks(device, kernels, errs, smi):
+    """Phase 13, each part printing its line; returns their results."""
+    t0 = time.perf_counter()
+    bank_h, bank_q, bank = _bank13(device, kernels, errs)
+    print(f"[13/13] (a) bank: open_filter(FilterSpec(u32, n={BANK_KEYS}, 14 "
+          f"bits/key, delta 6, placement='bank', shards={BANK_SHARDS})), "
+          f"{BANK_KEYS} inserts in {CHUNK}-key chunks, {BANK_QUERIES} points "
+          f"and ranges, {SPAN_RANGES} ranges across 2-3 shards and the "
+          f"edges: no false negatives, state and verdicts == xla twin, B1 "
+          f"== rows owning keys per chunk, one B6 launch per point chunk, "
+          f"no launch for a range: {json.dumps(bank)} on {smi} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    ten_h, ten_q, tenant = _tenant13(device, kernels, errs)
+    print(f"[13/13] (b) tenant bank: FilterSpec(u32, n={TEN_KEYS}, "
+          f"placement='tenant', tenants={TENANTS}, shards={TEN_SHARDS}), "
+          f"{TEN_KEYS * TENANTS} inserts with random tenants, the same mix, "
+          f"ranges with and without meta, meta_skip_stats, grow(4) in "
+          f"place, a TTL twin (4 generations, 4 windows of {TTL_KEYS}): no "
+          f"false negatives, == xla twins, B1 == main and meta rows owning "
+          f"keys per chunk, one B6 launch per point chunk, no launch for a "
+          f"range: {json.dumps(tenant)} on {smi} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    prefix = _prefix13(device, kernels)
+    print(f"[13/13] (c) prefix cache: PrefixCacheIndex(bits_per_key=14, "
+          f"n_tenants=16, ttl_generations=4) over a WAL store (phase 10's "
+          f"settings), {PC_SEGMENTS} segments of "
+          f"{PC_SESSIONS * PC_CHUNKS} entries, {PC_LOOKUPS} lookups (half "
+          f"hits), {PC_SESSION_QUERIES} session_segments, {PC_SWEEPS} "
+          f"evict_window sweeps, advance_generation, reopen_cold_tier: no "
+          f"cached prefix missed, evicted keys stay evicted, stats and "
+          f"answers == the CPU run, one B6 launch a lookup, one B4 a "
+          f"sweep: {json.dumps(prefix)} on {smi} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    sharded = _sharded13(device, bank_h, bank_q, ten_h, ten_q)
+    print(f"[13/13] (d) ShardedFilterBank and ShardedTenantFilterBank on an "
+          f"NCCL world of 1 == their banks on {SHARD_PROBES} of (a)'s and "
+          f"(b)'s points and ranges (with and without meta): "
+          f"{json.dumps(sharded)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return {"bank": bank, "tenant": tenant, "prefix": prefix,
+            "sharded": sharded}
 
 
 def main() -> int:
@@ -2694,11 +3246,11 @@ def main() -> int:
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    print(f"[1/12] card: {smi} | torch: {name} | torch {torch.__version__} "
+    print(f"[1/13] card: {smi} | torch: {name} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
-    print(f"[1/12] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
+    print(f"[1/13] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
           flush=True)
-    print(f"[1/12] registers and spills (nvcc -Xptxas -v): "
+    print(f"[1/13] registers and spills (nvcc -Xptxas -v): "
           f"{json.dumps(_ptxas_usage())}", flush=True)
 
     src, rep = "src/repro_torch/csrc/", "src/repro/kernels/"
@@ -2739,7 +3291,7 @@ def main() -> int:
     errs = {k: 0 for k in kernels}
     t0 = time.perf_counter()
     n_lay = phase_kernels_vs_plain(device, kernels, errs, big)
-    print(f"[2/12] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
+    print(f"[2/13] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
           f"top==d, W=64+replicas, multi-segment, exact, full size; B7/B8 "
           f"also on odd batches and replicas 3 and 5, against plain "
           f"versions bucketed at blocks of 256, "
@@ -2750,22 +3302,22 @@ def main() -> int:
                                expect(insert=8, point=4, range=4), kernels)
     if main_run["layout"]["deltas"] != big.deltas:
         raise AssertionError(f"main-path layout {main_run['layout']}")
-    print(f"[3/12] main path {json.dumps(main_run)}", flush=True)
+    print(f"[3/13] main path {json.dumps(main_run)}", flush=True)
     large = phase_main_path(10_000_000, "resident", name,
                             expect(insert=39, point=4, range=4), kernels,
                             time_range=True)
-    print(f"[4/12] resident 10M {json.dumps(large)}", flush=True)
+    print(f"[4/13] resident 10M {json.dumps(large)}", flush=True)
 
     single = {k: kernels[k] for k in ("insert", "point", "range")}
     times = phase_times(device, big, single)
-    print(f"[5/12] times at {CHUNK} keys/queries, filter "
+    print(f"[5/13] times at {CHUNK} keys/queries, filter "
           f"{big.total_u32 * 4} B, on {smi}: {json.dumps(times)}", flush=True)
 
     t0 = time.perf_counter()
     stacked = phase_stacked_vs_plain(device, kernels, errs, big)
     stacked_times = stacked.pop("times")
     times.update(stacked_times)
-    print(f"[6/12] B4 == plain on {stacked['scan_cells_checked']} (scan, run) "
+    print(f"[6/13] B4 == plain on {stacked['scan_cells_checked']} (scan, run) "
           f"cells (mixed Δ, multi-segment, replicas, capacity ladder; padded "
           f"and flat stacks, rpb 0/2, quarantine, edge bounds); B5/B6 == "
           f"plain on {stacked['stacked_rows']} rows of the phase-3 layout: "
@@ -2787,7 +3339,7 @@ def main() -> int:
     store = phase_store(device, kernels, errs)
     times["store_scan"] = store.pop("times")
     b1_shapes.update(store.pop("b1_shapes"))
-    print(f"[7/12] store, {STORE_KEYS} keys loaded by put (the key count is "
+    print(f"[7/13] store, {STORE_KEYS} keys loaded by put (the key count is "
           f"set by the host's per-key Python load path, not by the card), "
           f"YCSB-E: every scan == numpy oracle, every batch's (fence, touch) "
           f"== plain touch_all, {store['launches']} B4 launches for "
@@ -2803,7 +3355,7 @@ def main() -> int:
     hbm = phase_hbm(device, kernels, errs)
     times.update(hbm.pop("times"))
     b1_shapes.update(hbm.pop("b1_shapes"))
-    print(f"[8/12] HBM-scale filter, {HBM_KEYS} keys under auto, grown x{GROW} "
+    print(f"[8/13] HBM-scale filter, {HBM_KEYS} keys under auto, grown x{GROW} "
           f"in place to {HBM_KEYS * GROW}: no false negatives over all keys "
           f"(truth sorted on the card), state and verdicts == xla twin, "
           f"launches {json.dumps(hbm['launches'])}; deletable and TTL "
@@ -2816,13 +3368,13 @@ def main() -> int:
     if errs["insert"]:
         raise AssertionError(f"B1 != plain on a traffic shape: {errs}")
     times["insert"]["shapes"] = b1_shapes
-    print(f"[8/12] B1 alone on its traffic shapes ((a) the phase-3 filter in "
+    print(f"[8/13] B1 alone on its traffic shapes ((a) the phase-3 filter in "
           f"the L2, (b) phase 8's states cold, each of {COLD_CHUNKS} chunks "
           f"captured once, (c) phase 7's flush and largest rebuild, sorted "
           f"keys) on {smi}: {json.dumps(b1_shapes)}", flush=True)
 
     call_ms = {k: t.pop("call_ms") for k, t in times.items()}
-    print(f"[8/12] kernel wrappers' ms per call by CUDA events over 200 "
+    print(f"[8/13] kernel wrappers' ms per call by CUDA events over 200 "
           f"back-to-back calls, host dispatch included (the kernels line's "
           f"ms is the kernel alone, from a CUDA graph): "
           f"{json.dumps(call_ms)}", flush=True)
@@ -2832,7 +3384,7 @@ def main() -> int:
         "insert_keys_per_s", "point_queries_per_s", "range_queries_per_s")},
               "phase7_store": {k: store[k] for k in (
                   "load_puts_per_s", "host_scans_per_s")}}
-    print(f"[9/12] 64-bit keys on the plain path on the card, no kernel "
+    print(f"[9/13] 64-bit keys on the plain path on the card, no kernel "
           f"launched: mix64 == numpy on {MIX64_KEYS} keys with the top bit "
           f"set; the default open_filter (u64) and an f64 filter of "
           f"{WIDE_KEYS} keys with no false negatives, {SUBSAMPLE} verdicts "
@@ -2848,6 +3400,25 @@ def main() -> int:
     for shape, row in twin.pop("b1_shapes").items():
         row.pop("max_abs_err")
         b1_shapes[shape] = row
+    banks = phase_banks(device, kernels, errs, smi)
+    bank, tenant, prefix = banks["bank"], banks["tenant"], banks["prefix"]
+    for label, row in (("e_bank_row", bank.pop("b1_row")),
+                       ("e_tenant_row", tenant.pop("b1_row")),
+                       ("e_tenant_meta_row", tenant.pop("b1_meta_row"))):
+        errs["insert"] = max(errs["insert"], row.pop("max_abs_err"))
+        b1_shapes[label] = row
+    if errs["insert"] or errs["point_stacked"]:
+        raise AssertionError(f"B1 or B6 != plain on a bank shape: {errs}")
+    times["point_stacked"]["bank_shapes"] = {
+        "phase13_bank": bank.pop("b6"), "phase13_tenant": tenant.pop("b6")}
+    for row in times["point_stacked"]["bank_shapes"].values():
+        row.pop("max_abs_err")
+    times["point_stacked"]["launches_by_path"] = {
+        "phase6_stacked_path": stacked["launches"]["point_stacked"],
+        "phase13_bank_points": bank["launches"]["points"],
+        "phase13_tenant_points": tenant["launches"]["points"],
+        "phase13_tenant_grown_points": tenant["launches"]["grown_points"],
+        "phase13_prefix_lookups": prefix["launches"]["point_stacked"]}
     times["insert"]["launches_by_path"] = {
         "phase3_main": main_run["launches"]["insert"],
         "phase7_store_builds": store["b1_launches"],
@@ -2857,12 +3428,17 @@ def main() -> int:
         "phase12_adaptive_builds": twin["adaptive"]["b1_launches"],
         "phase12_static_builds": twin["auto"]["b1_launches"],
         "phase12_adapter": tuned["standalone"]["bloomrf"]["launches"][
-            "insert"]}
+            "insert"],
+        "phase13_bank_rows": bank["launches"]["build"],
+        "phase13_tenant_rows": tenant["launches"]["build"],
+        "phase13_ttl_tenant_rows": tenant["launches"]["ttl_build"],
+        "phase13_prefix_cache": prefix["launches"]["insert"]}
     times["store_scan"]["launches_by_path"] = {
         "phase7_store": store["launches"],
         "phase10_durable": durable["launches"],
         "phase12_adaptive": twin["adaptive"]["b4_launches"],
-        "phase12_static": twin["auto"]["b4_launches"]}
+        "phase12_static": twin["auto"]["b4_launches"],
+        "phase13_prefix_sweeps": prefix["launches"]["store_scan"]}
     times["store_scan"]["phase12_batch_ms"] = {
         t: {k: twin[t][k] for k in ("b4_ms", "b4_plain_ms", "runs")}
         for t in ("adaptive", "auto")}

@@ -14,13 +14,18 @@ front door is the same typed façade::
     st.put(key, value)
     st.scan_many(los, his)         # the store-scan kernel prunes the runs
 
+    tb = repro_torch.open_filter(repro_torch.FilterSpec(
+        dtype="u32", placement="tenant", tenants=16, shards=4))
+    tb.insert(tenants, keys)       # per-tenant rows, with meta rows
+    tb.point(tenants, keys)        # one stacked point-kernel launch a chunk
+
 This package imports ``torch`` and numpy, never ``jax`` and nothing of
 ``repro``.  Attribute access is lazy so ``import repro_torch`` stays cheap.
 """
 from __future__ import annotations
 
 __all__ = ["FilterSpec", "open_filter", "chunked_probe", "SingleFilter",
-           "TypedStore"]
+           "BankFilter", "TenantFilter", "TypedStore"]
 
 
 def __getattr__(name: str):

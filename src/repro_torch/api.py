@@ -1,8 +1,8 @@
 """The typed filter façade: one ``FilterSpec -> open_filter()`` front door.
 
-Counterpart of ``repro/api.py`` for the single and store placements and
-every dtype: ``u8``, ``u16``, ``u32``, ``u64`` (the default), ``f32``,
-``f64``, ``str`` and ``multiattr``.  A :class:`FilterSpec` is validated
+Counterpart of ``repro/api.py`` for every placement and every dtype:
+``u8``, ``u16``, ``u32``, ``u64`` (the default), ``f32``, ``f64``, ``str``
+and ``multiattr``.  A :class:`FilterSpec` is validated
 exactly as in ``repro``, so the same spec describes the same filter in both
 packages.  For ``placement="store"`` :func:`open_filter` returns a
 :class:`TypedStore` (the LSM store of ``store/`` behind the codecs, with
@@ -27,10 +27,20 @@ reservoir (``obs/fpr.py``).  A :class:`TypedStore` passes the store's
 ``mutability="deletable"`` and ``durability="wal"`` through unchanged and
 checkpoints and scrubs the store.
 
+For ``placement="bank"`` it returns a :class:`BankFilter` (the
+range-partitioned shard rows of ``dist/filter_bank.py``) and for
+``"tenant"`` a :class:`TenantFilter` (per-tenant banks with their meta
+rows, ``dist/tenant_bank.py``, aged out under ``mutability="ttl"`` and
+grown in place, by a factor advised from the sampled workload under
+``tuning="adaptive"``).  On the card both build through the insert kernel
+(one launch per row that owns keys of a chunk) and answer points through
+the stacked point kernel (one launch per chunk over all rows); ranges
+carry clipped bounds per row and take the plain ``StackedProbe``, as in
+the reference.  ``backend="xla"`` keeps them on the plain path.
+
 The filter or store lives on ``device``, which is ``"cuda"`` unless the
 caller asks for another; without a card :func:`open_filter` raises rather
-than quietly picking the CPU.  The bank and tenant placements are not
-ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+than quietly picking the CPU.
 """
 from __future__ import annotations
 
@@ -48,7 +58,7 @@ from .obs import metrics as _obs_metrics
 from .obs import trace as _obs_trace
 
 __all__ = ["FilterSpec", "open_filter", "chunked_probe", "SingleFilter",
-           "TypedStore"]
+           "BankFilter", "TenantFilter", "TypedStore"]
 
 _DTYPES = ("u8", "u16", "u32", "u64", "f32", "f64", "str", "multiattr")
 _PLACEMENTS = ("single", "bank", "tenant", "store")
@@ -373,6 +383,22 @@ def chunked_probe(fn, state, arrays, device, chunk: int) -> np.ndarray:
     return np.concatenate(outs) if outs else np.zeros(0, bool)
 
 
+def _lanes_tensor(lanes, shape: tuple, device) -> torch.Tensor:
+    """Host ``uint32`` lanes of ``shape`` (e.g. a ``repro`` handle's
+    ``np.asarray(handle.state)``) as an int32 tensor on ``device``."""
+    lanes = np.asarray(lanes)
+    if lanes.dtype != np.uint32 or lanes.shape != tuple(shape):
+        raise ValueError(
+            f"state must be uint32{list(shape)}, got "
+            f"{lanes.dtype}{list(lanes.shape)}")
+    return torch.from_numpy(lanes.view(np.int32).copy()).to(device)
+
+
+def _lanes_numpy(state: torch.Tensor) -> np.ndarray:
+    """A host copy of int32 lanes as ``uint32``."""
+    return state.cpu().numpy().view(np.uint32).copy()
+
+
 def _plan_layout(spec: FilterSpec, codec: _Codec):
     """Layout selection: tuning-free basic vs the §7 advisor."""
     from .core.tuning import advise
@@ -413,6 +439,12 @@ class _Observed:
         obs plane is on; one boolean check otherwise."""
         if _obs_metrics.enabled():
             self._fpr_sampler().observe_ranges(clo, chi)
+
+    def _require_multiattr(self) -> None:
+        if self.codec.name != "multiattr":
+            raise TypeError(
+                f"conjunctive-predicate probes need dtype='multiattr', "
+                f"this filter holds {self.codec.name} keys")
 
     def _record_fpr(self, out: dict) -> dict:
         """Publish an ``observed_fpr()`` result to the registry gauges."""
@@ -494,12 +526,7 @@ class SingleFilter(_Observed):
         return self.gens.collapsed if self.gens is not None else self._state
 
     def _lanes(self, lanes) -> torch.Tensor:
-        lanes = np.asarray(lanes)
-        if lanes.dtype != np.uint32 or lanes.shape != (self.layout.total_u32,):
-            raise ValueError(
-                f"state must be uint32[{self.layout.total_u32}], got "
-                f"{lanes.dtype}{list(lanes.shape)}")
-        return torch.from_numpy(lanes.view(np.int32).copy()).to(self.device)
+        return _lanes_tensor(lanes, (self.layout.total_u32,), self.device)
 
     def load_state(self, lanes=None, counts=None, generations=None,
                    current: int = 0) -> None:
@@ -537,7 +564,7 @@ class SingleFilter(_Observed):
 
     def state_numpy(self) -> np.ndarray:
         """A host copy of the probed state as ``uint32[total_u32]`` lanes."""
-        return self.state.cpu().numpy().view(np.uint32).copy()
+        return _lanes_numpy(self.state)
 
     # -- mutation -----------------------------------------------------------
     def _chunks(self, codes):
@@ -637,16 +664,347 @@ class SingleFilter(_Observed):
     def range_where_b(self, b_const, a_lo, a_hi) -> np.ndarray:
         """Multiattr: ``B == b_const AND A in [a_lo, a_hi]`` via <B,A>
         codes."""
-        if self.codec.name != "multiattr":
-            raise TypeError(
-                f"conjunctive-predicate probes need dtype='multiattr', "
-                f"this filter holds {self.codec.name} keys")
+        self._require_multiattr()
         clo, chi = self.codec.mirrored_bounds(b_const, a_lo, a_hi)
         return chunked_probe(self._range, self.state, [clo, chi],
                              self.device, self.spec.chunk)
 
     def size_bits(self) -> int:
         return self.layout.total_bits
+
+
+class BankFilter(_Observed):
+    """Range-partitioned shard rows (``dist/filter_bank.py``).
+
+    On a CUDA device the rows build through the insert kernel (one launch
+    per row that owns keys of a chunk) and the point probes of a chunk are
+    one stacked point-kernel launch over all rows, where the shard layout
+    takes the kernels (``d_local <= 32``); ranges, wider domains,
+    ``backend="xla"`` and the CPU take the plain ``StackedProbe``."""
+
+    def __init__(self, spec: FilterSpec, codec: _Codec, device):
+        from .dist.filter_bank import FilterBank
+
+        self.spec = spec
+        self.codec = codec
+        delta = spec.delta if spec.delta is not None else 6
+        self.bank = FilterBank(codec.d, spec.shards,
+                               max(spec.n * codec.codes_per_key, 1),
+                               spec.resolved_bits_per_key(), delta=delta,
+                               seed=spec.seed, device=device,
+                               use_kernels=spec.backend != "xla",
+                               _warn=False)
+        self.state = self.bank.init_state()
+
+    @property
+    def device(self) -> torch.device:
+        return self.bank.device
+
+    def load_state(self, lanes) -> None:
+        """Replace the state with ``uint32[shards, total_u32]`` lanes, e.g.
+        a ``repro`` bank's ``np.asarray(handle.state)`` for the same spec."""
+        self.state = _lanes_tensor(
+            lanes, (self.bank.n_shards, self.bank.layout.total_u32),
+            self.device)
+
+    def state_numpy(self) -> np.ndarray:
+        """A host copy of the state as ``uint32[shards, total_u32]``."""
+        return _lanes_numpy(self.state)
+
+    def insert(self, keys) -> None:
+        codes = self.codec.encode_insert(keys)
+        if _obs_metrics.enabled():
+            self._fpr_sampler().observe_insert(codes)
+        with _obs_trace.span("facade/insert", n=len(codes)):
+            for s in range(0, len(codes), self.spec.chunk):
+                self.state = self.bank.insert(
+                    self.state, _codes_tensor(codes[s:s + self.spec.chunk],
+                                              self.device))
+
+    def _probe(self, fn, arrays) -> np.ndarray:
+        return chunked_probe(fn, self.state, arrays, self.device,
+                             self.spec.chunk)
+
+    def point(self, qs) -> np.ndarray:
+        codes = self.codec.encode_point(qs)
+        with _obs_trace.span("facade/point", n=len(codes)):
+            return self._probe(self.bank.point, [codes])
+
+    def range(self, lo, hi) -> np.ndarray:
+        clo, chi = self.codec.encode_bounds(lo, hi)
+        self._observe_ranges(clo, chi)
+        with _obs_trace.span("facade/range", n=len(clo)):
+            return self._probe(self.bank.range, [clo, chi])
+
+    def observed_fpr(self) -> dict:
+        """Live observed FPR over the whole bank (see
+        :meth:`SingleFilter.observed_fpr`)."""
+        return self._record_fpr(self._fpr_sampler().sample(
+            point_probe=lambda ks: self._probe(self.bank.point, [ks]),
+            range_probe=lambda lo, hi: self._probe(self.bank.range,
+                                                   [lo, hi])))
+
+    def range_where_b(self, b_const, a_lo, a_hi) -> np.ndarray:
+        """Multiattr: ``B == b_const AND A in [a_lo, a_hi]`` via <B,A>
+        codes."""
+        self._require_multiattr()
+        clo, chi = self.codec.mirrored_bounds(b_const, a_lo, a_hi)
+        return self._probe(self.bank.range, [clo, chi])
+
+    def size_bits(self) -> int:
+        return self.bank.size_bits()
+
+
+class TenantFilter(_Observed):
+    """Per-tenant banks with their Bloofi-style meta rows
+    (``dist/tenant_bank.py``).
+
+    Every probe takes a ``tenants`` vector (or one tenant) beside the typed
+    keys; range probes AND the meta verdict in by default (fewer false
+    positives, never a false negative).  The kernels serve it as they
+    serve :class:`BankFilter`: the main and meta rows build through the
+    insert kernel, points through one stacked point-kernel launch per
+    chunk, ranges through the plain ``StackedProbe``."""
+
+    #: tenants tracked with their own known-absent reservoir; per-tenant
+    #: FPR telemetry over every tenant would cost O(tenants) probes per
+    #: sample, so only the first few observed tenants are followed
+    _MAX_FPR_TENANTS = 8
+
+    def __init__(self, spec: FilterSpec, codec: _Codec, device):
+        from .dist.tenant_bank import TenantFilterBank
+
+        self.spec = spec
+        self.codec = codec
+        delta = spec.delta if spec.delta is not None else 6
+        self.bank = TenantFilterBank(
+            codec.d, spec.tenants, spec.shards,
+            max(spec.n * codec.codes_per_key, 1),
+            spec.resolved_bits_per_key(), delta=delta, seed=spec.seed,
+            device=device, use_kernels=spec.backend != "xla", _warn=False)
+        self.aging = None       # ttl: generation lanes over (state, meta)
+        self._fpr_tenants: dict = {}    # per-tenant reservoirs (first <= 8)
+        self._wl_sampler = None         # adaptive: live scan-bounds sample
+        self._promote_events: list = []  # adaptive: advised promotions
+        if spec.tuning == "adaptive":
+            from .obs.fpr import FprSampler
+
+            self._wl_sampler = FprSampler(codec.d, seed=spec.seed ^ 0xAD47)
+        self._state = self.bank.init_state()
+        self._meta = self.bank.init_meta()
+        if spec.mutability == "ttl":
+            from .dist.tenant_bank import AgingTenantBank
+
+            self.aging = AgingTenantBank(self.bank, spec.generations)
+
+    @property
+    def device(self) -> torch.device:
+        return self.bank.device
+
+    # -- state (TTL filters probe the OR of their generations) -------------
+    @property
+    def state(self) -> torch.Tensor:
+        return self.aging.gens.collapsed[0] if self.aging is not None \
+            else self._state
+
+    @property
+    def meta(self) -> torch.Tensor:
+        return self.aging.gens.collapsed[1] if self.aging is not None \
+            else self._meta
+
+    def load_state(self, state=None, meta=None, generations=None,
+                   current: int = 0) -> None:
+        """Replace the state with ``uint32[tenants, shards, total_u32]``
+        lanes and the meta rows with ``uint32[tenants, shards,
+        meta_total_u32]``, e.g. a ``repro`` handle's ``np.asarray(h._state)``
+        and ``np.asarray(h._meta)``.  A TTL filter takes its generations
+        instead (``[(state, meta), ...]``, a ``repro`` handle's
+        ``h.gens.gens``) and the index of the ``current`` one."""
+        from .dist.tenant_bank import AgingTenantBank
+
+        bank = self.bank
+        shape = (bank.n_tenants, bank.n_shards)
+        main = shape + (bank.bank.layout.total_u32,)
+        mshape = shape + (bank.meta_layout.total_u32,)
+        if (generations is not None) != (self.aging is not None) \
+                or (generations is not None
+                    and (state is not None or meta is not None)):
+            raise ValueError("a TTL filter loads its generations (and no "
+                             "state or meta); other filters load both")
+        if self.aging is None:
+            self._state = _lanes_tensor(state, main, self.device)
+            self._meta = _lanes_tensor(meta, mshape, self.device)
+            return
+        if len(generations) != self.aging.n_generations \
+                or not 0 <= current < len(generations):
+            raise ValueError(
+                f"{len(generations)} generations (current {current}) for "
+                f"a filter of {self.aging.n_generations}")
+        gens = [(_lanes_tensor(s, main, self.device),
+                 _lanes_tensor(m, mshape, self.device))
+                for s, m in generations]
+        self.aging = AgingTenantBank(bank, len(gens))
+        self.aging.gens.gens, self.aging.gens.current = gens, current
+
+    def state_numpy(self) -> np.ndarray:
+        """Host copy of the probed state, ``uint32[tenants, shards,
+        total_u32]``."""
+        return _lanes_numpy(self.state)
+
+    def meta_numpy(self) -> np.ndarray:
+        """Host copy of the probed meta rows."""
+        return _lanes_numpy(self.meta)
+
+    def _tiled_tenants(self, tenants, n_codes: int) -> np.ndarray:
+        """Tenant ids aligned 1:1 with the encoded codes: a scalar tenant
+        broadcasts over the batch, and multiattr's dual codes repeat the
+        whole vector (codes are [ab..., ba...])."""
+        t = np.atleast_1d(np.asarray(tenants, np.uint32))
+        reps = n_codes // max(len(t), 1)
+        t = np.tile(t, reps) if reps > 1 else t
+        if len(t) != n_codes:
+            raise ValueError(
+                f"tenants ({len(t)} after broadcast) do not align with "
+                f"{n_codes} encoded keys")
+        return t
+
+    def _tenant_sampler(self, tid: int):
+        s = self._fpr_tenants.get(tid)
+        if s is None and len(self._fpr_tenants) < self._MAX_FPR_TENANTS:
+            from .obs.fpr import FprSampler
+
+            s = self._fpr_tenants[tid] = FprSampler(
+                self.codec.d, seed=(self.spec.seed ^ 0xB10F) + tid)
+        return s
+
+    def _probe(self, fn, arrays) -> np.ndarray:
+        """``fn(state, tenants, codes...)`` over the probed state, chunk by
+        chunk; ``arrays`` starts with the tenant vector."""
+        return chunked_probe(fn, self.state, arrays, self.device,
+                             self.spec.chunk)
+
+    def insert(self, tenants, keys) -> None:
+        codes = self.codec.encode_insert(keys)
+        t = self._tiled_tenants(tenants, len(codes))
+        if _obs_metrics.enabled():
+            for tid in np.unique(t):
+                s = self._tenant_sampler(int(tid))
+                if s is not None:
+                    s.observe_insert(codes[t == tid])
+        for s in range(0, len(codes), self.spec.chunk):
+            tj, cj = (_codes_tensor(a[s:s + self.spec.chunk], self.device)
+                      for a in (t, codes))
+            if self.aging is not None:
+                self.aging.insert(tj, cj)
+            else:
+                self._state = self.bank.insert(self._state, tj, cj)
+                self._meta = self.bank.insert_meta(self._meta, tj, cj)
+
+    def advance_generation(self) -> None:
+        """Close the current TTL window (``mutability='ttl'``): tenants'
+        cold keys expire after ``spec.generations`` windows without a
+        re-insert and stop costing false positives, with no sweeps."""
+        if self.aging is None:
+            raise ValueError(
+                "advance_generation() needs FilterSpec(mutability='ttl')")
+        self.aging.advance()
+
+    def grow(self, factor: Optional[int] = None) -> None:
+        """In-place capacity promotion of every tenant row, the meta rows
+        and every TTL generation: segment tiling, no key re-hashed.
+
+        With ``FilterSpec(tuning='adaptive')`` and ``factor=None`` the
+        factor is advised from the sampled workload
+        (``TenantFilterBank.advise_promotion``); without a sample, or with
+        static tuning, it is 4."""
+        if factor is None:
+            factor = 4
+            if (self._wl_sampler is not None
+                    and self._wl_sampler.workload_seen):
+                from .tune import fit_workload
+
+                wl = fit_workload(self.codec.d, sampler=self._wl_sampler)
+                factor, reports = self.bank.advise_promotion(wl)
+                self._promote_events.append({
+                    "factor": factor,
+                    "workload_seen": self._wl_sampler.workload_seen,
+                    "reports": {f: r.as_dict() for f, r in reports.items()},
+                })
+        if self.aging is not None:
+            self.aging = self.aging.promoted(factor)
+            self.bank = self.aging.bank
+        else:
+            self.bank, self._state, self._meta = self.bank.promote(
+                self._state, self._meta, factor)
+        self.spec = dataclasses.replace(self.spec, n=self.spec.n * factor)
+
+    def point(self, tenants, qs) -> np.ndarray:
+        codes = self.codec.encode_point(qs)
+        t = self._tiled_tenants(tenants, len(codes))
+        with _obs_trace.span("facade/point", n=len(codes)):
+            return self._probe(self.bank.point, [t, codes])
+
+    def range(self, tenants, lo, hi, use_meta: bool = True) -> np.ndarray:
+        clo, chi = self.codec.encode_bounds(lo, hi)
+        t = self._tiled_tenants(tenants, len(clo))
+        self._observe_ranges(clo, chi)
+        if self._wl_sampler is not None:
+            # adaptive tuning samples regardless of the obs-plane flag
+            self._wl_sampler.observe_ranges(clo, chi)
+        meta = self.meta if use_meta else None
+        record_skips = _obs_metrics.enabled() and use_meta
+
+        def probe(state, tj, lj, hj):
+            if record_skips:
+                # device scalars; they settle at the registry's snapshot,
+                # never here
+                self.bank.record_meta_skips(meta, tj, lj, hj)
+            return self.bank.range(state, tj, lj, hj, meta)
+
+        with _obs_trace.span("facade/range", n=len(clo)):
+            return self._probe(probe, [t, clo, chi])
+
+    def observed_fpr(self) -> dict:
+        """Per-tenant live observed FPR for every tracked tenant.
+
+        Tenants join the tracked set on their first ``insert`` while
+        observability is enabled (at most ``_MAX_FPR_TENANTS``).  Returns
+        ``{tenant_id: sample_dict}`` and publishes ``obs/fpr/tenant/<id>``
+        gauges."""
+        reg = _obs_metrics.registry()
+        out = {}
+
+        def ranges(state, tj, lj, hj):
+            return self.bank.range(state, tj, lj, hj, self.meta)
+
+        for tid, s in sorted(self._fpr_tenants.items()):
+            def tids(n, tid=tid):
+                return np.full(n, tid, np.uint32)
+
+            r = s.sample(
+                point_probe=lambda ks: self._probe(
+                    self.bank.point, [tids(len(ks)), ks]),
+                range_probe=lambda lo, hi: self._probe(
+                    ranges, [tids(len(lo)), lo, hi]))
+            out[tid] = r
+            if "range_fpr" in r:
+                reg.gauge(f"obs/fpr/tenant/{tid}").set(r["range_fpr"])
+        return out
+
+    def retune_report(self) -> dict:
+        """Workload sample and advised promotions (``tuning='adaptive'``)."""
+        if self._wl_sampler is None:
+            return {"tuning": self.spec.tuning, "promotions": []}
+        from .tune import fit_workload
+
+        return {"tuning": "adaptive",
+                "workload_seen": self._wl_sampler.workload_seen,
+                "promotions": list(self._promote_events),
+                "workload": fit_workload(
+                    self.codec.d, sampler=self._wl_sampler).to_dict()}
+
+    def size_bits(self) -> int:
+        return self.bank.size_bits()
 
 
 class TypedStore(_Observed):
@@ -887,23 +1245,16 @@ class TypedStore(_Observed):
 # the front door
 # ---------------------------------------------------------------------------
 
-_NOT_PORTED = {
-    "bank": "the filter bank (ROADMAP A.9)",
-    "tenant": "the tenant bank (ROADMAP A.9)",
-}
+_PLACEMENT_HANDLES = {"single": SingleFilter, "bank": BankFilter,
+                      "tenant": TenantFilter, "store": TypedStore}
 
 
 def open_filter(spec: FilterSpec, device=None):
     """Build the filter deployment described by ``spec`` on ``device``
     (default ``"cuda"``; raises when no card is present): a
-    :class:`SingleFilter` or a :class:`TypedStore`."""
+    :class:`SingleFilter`, :class:`BankFilter`, :class:`TenantFilter` or
+    :class:`TypedStore` according to ``spec.placement``."""
     if not isinstance(spec, FilterSpec):
         raise TypeError(f"open_filter takes a FilterSpec, got {type(spec)}")
-    if spec.placement in _NOT_PORTED:
-        raise NotImplementedError(
-            f"placement={spec.placement!r} needs "
-            f"{_NOT_PORTED[spec.placement]}, which is not ported yet")
-    codec = _codec_for(spec.dtype)
-    if spec.placement == "store":
-        return TypedStore(spec, codec, device)
-    return SingleFilter(spec, codec, resolve_device(device))
+    return _PLACEMENT_HANDLES[spec.placement](spec, _codec_for(spec.dtype),
+                                              resolve_device(device))

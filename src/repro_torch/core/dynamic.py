@@ -217,8 +217,17 @@ class CountingLanes:
 # generation lanes (TTL / aging)
 # ---------------------------------------------------------------------------
 
+def _or_states(a, b):
+    """Lane-wise OR of two states: tensors, or tuples of tensors."""
+    if isinstance(a, tuple):
+        return tuple(_or_states(x, y) for x, y in zip(a, b))
+    return torch.bitwise_or(a, b)
+
+
 class Generations:
-    """``G`` OR-composable copies of a lane state giving sweep-free TTL.
+    """``G`` OR-composable copies of a lane state (a tensor, or a tuple of
+    tensors such as a tenant bank's ``(state, meta)``) giving sweep-free
+    TTL.
 
     Inserts go to the current generation; probes read :attr:`collapsed`,
     the OR of all generations.  :meth:`advance` rotates to the next slot
@@ -234,8 +243,7 @@ class Generations:
             raise ValueError(
                 f"need >= 2 generations for aging, got {n_generations}")
         self.zero_fn = zero_fn
-        self.gens: List[torch.Tensor] = [zero_fn()
-                                         for _ in range(n_generations)]
+        self.gens: List = [zero_fn() for _ in range(n_generations)]
         self.current = 0
         self.advances = 0
         self._collapsed = None
@@ -254,7 +262,7 @@ class Generations:
     def collapsed(self) -> torch.Tensor:
         """OR of all generations: the state every probe reads."""
         if self._collapsed is None:
-            self._collapsed = reduce(torch.bitwise_or, self.gens)
+            self._collapsed = reduce(_or_states, self.gens)
         return self._collapsed
 
     def advance(self) -> None:

@@ -1,6 +1,6 @@
 """The port's façade against ``repro``'s: the same ``FilterSpec`` and keys
-give the same state and verdicts; states carry across in both directions;
-what is not ported raises."""
+give the same state and verdicts, for every placement; states carry across
+in both directions."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -83,17 +83,42 @@ def test_default_device_without_card_raises(monkeypatch):
     assert BloomRF(lay, device="cpu").init_state().device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw,match", [
+@pytest.mark.parametrize("kw,item", [
     (dict(dtype="u32", placement="bank", shards=2), "A.9"),
     (dict(dtype="u32", placement="tenant", tenants=2), "A.9"),
     (dict(dtype="f64", placement="tenant", tenants=2), "A.9"),
     (dict(dtype="u32", placement="tenant", tenants=2, tuning="adaptive"),
      "A.9"),
 ])
-def test_not_ported_raises(kw, match):
-    spec = repro_torch.FilterSpec(n=1000, **kw)
-    with pytest.raises(NotImplementedError, match=match):
-        repro_torch.open_filter(spec, device="cpu")
+def test_not_ported_raises(kw, item):
+    """The bank and tenant placements (ROADMAP ``item``; they raised
+    ``NotImplementedError`` before it was ported) open on the CPU and
+    answer as ``repro`` does on the same spec: state and verdicts."""
+    spec = dict(n=1000, **kw)
+    ref = repro.open_filter(repro.FilterSpec(**spec))
+    port = repro_torch.open_filter(repro_torch.FilterSpec(**spec),
+                                   device="cpu")
+    rng = np.random.default_rng(0xA9)
+    if kw["dtype"] == "f64":
+        keys = rng.normal(0, 1e6, 500)
+        lo = rng.normal(0, 1e6, 256)
+        hi = lo + rng.exponential(1e3, 256)
+    else:
+        keys, lo, hi = _keys_and_queries("u32", rng, 500, 256)
+    if kw["placement"] == "bank":
+        for h in (ref, port):
+            h.insert(keys)
+        args, pargs = (lo, hi), (keys,)
+    else:
+        ten = rng.integers(0, 2, 500).astype(np.uint32)
+        for h in (ref, port):
+            h.insert(ten, keys)
+        np.testing.assert_array_equal(port.meta_numpy(),
+                                      np.asarray(ref.meta))
+        args, pargs = (ten[:256], lo, hi), (ten, keys)
+    np.testing.assert_array_equal(port.state_numpy(), np.asarray(ref.state))
+    assert port.point(*pargs).all()
+    np.testing.assert_array_equal(port.range(*args), ref.range(*args))
 
 
 def test_not_ported_methods_raise():

@@ -16,6 +16,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "import repro_torch.core.dynamic, repro_torch.obs\n"
             "import repro_torch.dist.compression, repro_torch.store.wal\n"
             "import repro_torch.filters, repro_torch.tune\n"
+            "import repro_torch.dist, repro_torch.serve, repro_torch._compat\n"
+            "import repro_torch.data, repro_torch.train\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -46,7 +48,10 @@ def test_no_module_imports_jax_or_repro():
             "filters/prefix_bloom.py", "filters/rosetta.py",
             "filters/surf_lite.py", "filters/cuckoo.py", "filters/minmax.py",
             "filters/bloomrf_adapter.py", "tune/workload.py", "tune/cost.py",
-            "tune/solver.py", "tune/retune.py"} <= names
+            "tune/solver.py", "tune/retune.py", "_compat.py",
+            "dist/filter_bank.py", "dist/tenant_bank.py",
+            "serve/__init__.py", "serve/prefix_cache.py",
+            "data/pipeline.py", "train/checkpoint.py"} <= names
     files.append(_ROOT / "chip_smoke.py")
     files += sorted((_ROOT / "benchmarks").glob("torch_*.py"))
     for f in files:

@@ -305,16 +305,24 @@ def test_typed_store_scans_decode_as_reference(dtype):
     np.testing.assert_array_equal(touch.numpy(), t2)
 
 
-@pytest.mark.parametrize("make,match", [
-    (lambda: repro_torch.open_filter(repro_torch.FilterSpec(
-        dtype="u32", placement="bank", shards=2), device="cpu"), "A.9"),
-    (lambda: repro_torch.open_filter(repro_torch.FilterSpec(
+@pytest.mark.parametrize("make,item", [
+    (lambda pkg, **kw: pkg.open_filter(pkg.FilterSpec(
+        dtype="u32", placement="bank", shards=2), **kw), "A.9"),
+    (lambda pkg, **kw: pkg.open_filter(pkg.FilterSpec(
         dtype="u32", placement="tenant", tenants=2, tuning="adaptive"),
-        device="cpu"), "A.9"),
+        **kw), "A.9"),
 ])
-def test_deferred_features_raise_naming_their_item(make, match):
-    with pytest.raises(NotImplementedError, match=match):
-        make()
+def test_deferred_features_raise_naming_their_item(make, item):
+    """The bank and tenant placements of ROADMAP ``item`` (they raised
+    before it was ported) open and build the state ``repro`` builds."""
+    ref, port = make(repro), make(repro_torch, device="cpu")
+    keys = np.random.default_rng(0xA9).integers(0, 1 << 32, 400,
+                                                dtype=np.uint64)
+    args = (keys,) if port.spec.placement == "bank" else (1, keys)
+    for h in (ref, port):
+        h.insert(*args)
+    np.testing.assert_array_equal(port.state_numpy(), np.asarray(ref.state))
+    assert port.point(*args).all() and ref.point(*args).all()
 
 
 def test_store_config_validation_matches_reference(monkeypatch):
