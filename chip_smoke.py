@@ -140,9 +140,32 @@ Phases, one line of output each:
     256 ``session_segments``, 8 ``evict_window`` sweeps,
     ``advance_generation`` and ``reopen_cold_tier``, its answers and stats
     equal to a CPU run of the same sequence, one B6 launch per lookup
-    (every segment at once) and one B4 launch per sweep; (d) both sharded banks on an NCCL
-    world of one equal to their banks.  B1 and B6 are timed alone on the
-    bank's and the tenant bank's shapes.
+    (every segment at once) and one B4 launch per sweep; (d) both sharded
+    banks on an NCCL world of one equal to their banks.  B1 and B6 are
+    timed alone on the bank's and the tenant bank's shapes;
+14. serving a full-width ``qwen3-1.7b`` (28 layers, d_model 2048, 16
+    heads, 8 KV heads, vocab 151,936; f32 parameters drawn on the card
+    from a seeded generator, bf16 activations): (a) ``count_params`` ==
+    the leaves' elements, in the reference's band of 1.5e9-2.7e9; (b)
+    ``ServeLoop(max_seq=512, batch_slots=4, prefix_chunk=64)`` serves 8
+    greedy requests, sessions 0-3 twice, prompts of 256 tokens (4
+    chunks), 32 new tokens each: the first batch's 16 lookups find no
+    segment and launch nothing, the second's 16 are one B6 launch each
+    and all map hits, each frozen segment builds its 4 main and 4 meta
+    tenant rows through B1 (16 launches), no other launch; the index's
+    answers and stats == a CPU ``PrefixCacheIndex`` driven with the same
+    calls; (c) the loop's greedy tokens for one request (12 tokens, 5
+    new) == a manual greedy prefill and decode; (d) at full depth with
+    f32 activations (TF32 off), decode of token T against the cache of
+    ``prompt[:T]`` == the prefill of ``prompt[:T+1]`` within 2e-2 (B = 2,
+    T = 64); (e) 2 layers at full width in f32, (a)'s weights copied to
+    the CPU: prefill logits on the card == the CPU's within
+    ``CARD_CPU_TOL``; (f) ``PagedKVCache`` at the full KV shape (28
+    layers, 8 KV heads, hd 128, pages of 16 tokens) fed the first
+    batch's prompts and decoded tokens through ``write_prefill`` and
+    ``write_token``: ``gather_cache`` == the loop's cache bit for bit.
+    Prefill tokens/s, decode steps/s and tokens/s and lookups/s beside
+    the card.
 
 It prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -2190,7 +2213,7 @@ def _durable_and_obs(device, kernels, expect, smi):
         t0 = time.perf_counter()
         durable = phase_durable(device, kernels,
                                 str(Path(wal_root) / "wal"))
-        print(f"[10/13] deletable, durable store (phase 7's settings, "
+        print(f"[10/14] deletable, durable store (phase 7's settings, "
               f"mutability='deletable', durability='wal'): {STORE_KEYS} "
               f"puts through the WAL, a checkpoint, {durable['deleted']} "
               f"keys deleted in {durable['delete_batches']} delete_many "
@@ -2209,7 +2232,7 @@ def _durable_and_obs(device, kernels, expect, smi):
         obs_run = phase_obs(device, kernels,
                             expect(insert=8, point=4, range=4),
                             str(Path(wal_root) / "trace.jsonl"))
-        print(f"[11/13] obs on the main path (phase 3's filter and mix, "
+        print(f"[11/14] obs on the main path (phase 3's filter and mix, "
               f"obs.enable() and a JSONL trace sink): launches "
               f"{json.dumps(obs_run['launches_on'])} as with obs off, the "
               f"same verdicts and state, kernel/dispatch/resident == calls, "
@@ -2660,7 +2683,7 @@ def phase_tuned(device, kernels, errs, smi):
     """Phase 12, each part printing its line; returns their results."""
     t0 = time.perf_counter()
     twin = _adaptive_twin(device, kernels, errs)
-    print(f"[12/13] (a) adaptive twin: phase 7's store, tuning 'auto' and "
+    print(f"[12/14] (a) adaptive twin: phase 7's store, tuning 'auto' and "
           f"'adaptive', {TUNE_KEYS} clustered keys, {TUNE_BATCHES} batches "
           f"of near-miss scans between the halves and after: retunes "
           f"{twin['adaptive']['retunes']}, scans == static twin == oracle, "
@@ -2672,21 +2695,21 @@ def phase_tuned(device, kernels, errs, smi):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     base = _baseline_stores(device, kernels)
-    print(f"[12/13] (b) host baselines as store_backend, {BASE_KEYS} keys "
+    print(f"[12/14] (b) host baselines as store_backend, {BASE_KEYS} keys "
           f"each (phase 7's settings), {BASE_SCANS} of phase 7's scans == "
           f"oracle (bloom: {BASE_SCANS} gets), no kernel launched; bloomRF "
           f"on the same stream beside them: {json.dumps(base)} on {smi} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     cmp_ = _standalone(device, kernels)
-    print(f"[12/13] (c) standalone comparison on phase 3's {CMP_KEYS} keys at "
+    print(f"[12/14] (c) standalone comparison on phase 3's {CMP_KEYS} keys at "
           f"16 bits/key, {CMP_QUERIES} points (half present) and ranges "
           f"(2^0..2^14): no false negatives, the adapter == its xla twin: "
           f"{json.dumps(cmp_)} on {smi} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     typed = _typed_stores(device, kernels)
-    print(f"[12/13] (d) a str store of {STR_KEYS} keys (memtable "
+    print(f"[12/14] (d) a str store of {STR_KEYS} keys (memtable "
           f"{STR_MEMTABLE}, compactions asserted) and a multiattr "
           f"store of {TYPED_KEYS}, {TYPED_SCANS} scans each == sorted "
           f"oracle, no kernel launched: "
@@ -3185,7 +3208,7 @@ def phase_banks(device, kernels, errs, smi):
     """Phase 13, each part printing its line; returns their results."""
     t0 = time.perf_counter()
     bank_h, bank_q, bank = _bank13(device, kernels, errs)
-    print(f"[13/13] (a) bank: open_filter(FilterSpec(u32, n={BANK_KEYS}, 14 "
+    print(f"[13/14] (a) bank: open_filter(FilterSpec(u32, n={BANK_KEYS}, 14 "
           f"bits/key, delta 6, placement='bank', shards={BANK_SHARDS})), "
           f"{BANK_KEYS} inserts in {CHUNK}-key chunks, {BANK_QUERIES} points "
           f"and ranges, {SPAN_RANGES} ranges across 2-3 shards and the "
@@ -3195,7 +3218,7 @@ def phase_banks(device, kernels, errs, smi):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     ten_h, ten_q, tenant = _tenant13(device, kernels, errs)
-    print(f"[13/13] (b) tenant bank: FilterSpec(u32, n={TEN_KEYS}, "
+    print(f"[13/14] (b) tenant bank: FilterSpec(u32, n={TEN_KEYS}, "
           f"placement='tenant', tenants={TENANTS}, shards={TEN_SHARDS}), "
           f"{TEN_KEYS * TENANTS} inserts with random tenants, the same mix, "
           f"ranges with and without meta, meta_skip_stats, grow(4) in "
@@ -3206,7 +3229,7 @@ def phase_banks(device, kernels, errs, smi):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     prefix = _prefix13(device, kernels)
-    print(f"[13/13] (c) prefix cache: PrefixCacheIndex(bits_per_key=14, "
+    print(f"[13/14] (c) prefix cache: PrefixCacheIndex(bits_per_key=14, "
           f"n_tenants=16, ttl_generations=4) over a WAL store (phase 10's "
           f"settings), {PC_SEGMENTS} segments of "
           f"{PC_SESSIONS * PC_CHUNKS} entries, {PC_LOOKUPS} lookups (half "
@@ -3218,13 +3241,345 @@ def phase_banks(device, kernels, errs, smi):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     sharded = _sharded13(device, bank_h, bank_q, ten_h, ten_q)
-    print(f"[13/13] (d) ShardedFilterBank and ShardedTenantFilterBank on an "
+    print(f"[13/14] (d) ShardedFilterBank and ShardedTenantFilterBank on an "
           f"NCCL world of 1 == their banks on {SHARD_PROBES} of (a)'s and "
           f"(b)'s points and ranges (with and without meta): "
           f"{json.dumps(sharded)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     return {"bank": bank, "tenant": tenant, "prefix": prefix,
             "sharded": sharded}
+
+
+SERVE_ARCH = "qwen3-1.7b"
+SERVE_BAND = (1.5e9, 2.7e9)   # tests/test_models.py's band for qwen3-1.7b
+SERVE_MAX_SEQ = 512
+SERVE_SLOTS = 4               # one batch: sessions 0-3
+SERVE_CHUNK = 64
+SERVE_PROMPT = 256            # 4 whole chunks a prompt
+SERVE_NEW = 32
+GREEDY_PROMPT, GREEDY_NEW = 12, 5     # tests/test_serve_data.py's sizes
+CONSIST_B, CONSIST_T = 2, 64
+CARD_CPU_LAYERS = 2
+#: card against CPU, f32 with TF32 off: the two sum the same f32 products
+#: in other orders (up to d_ff = 6,144 terms), ~1e-6 of a logit; one bf16
+#: rounding is 2^-8 = 3.9e-3, so a path that rounds to bf16 fails
+CARD_CPU_TOL = 1e-3
+PAGE_SIZE = 16
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(fn, log: list, device):
+    """``fn`` with each call's host seconds, closed by a device
+    synchronize, appended to ``log``."""
+    def call(*a, **kw):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        _sync(device)
+        log.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def _pad_seq(cache, to: int):
+    """A prefill cache (L, B, S, kv, hd) padded along S to ``to``."""
+    import torch.nn.functional as F
+
+    return tuple(F.pad(c, (0, 0, 0, 0, 0, to - c.shape[2])) for c in cache)
+
+
+def _serve_model(device):
+    """(a) the full model on the card from a seeded generator."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models.params import count_params, tree_leaves
+
+    cfg = get_config(SERVE_ARCH)
+    model = get_model(cfg, device)
+    n = count_params(model.table())
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device).manual_seed(SEED))
+    _sync(device)
+    leaves = tree_leaves(params)
+    elems = sum(t.numel() for t in leaves)
+    if n != elems or not SERVE_BAND[0] < n < SERVE_BAND[1]:
+        raise AssertionError(f"{SERVE_ARCH}: count_params {n}, leaves "
+                             f"{elems}, band {SERVE_BAND}")
+    return cfg, model, params, {
+        "params": n, "param_bytes": sum(t.numel() * t.element_size()
+                                        for t in leaves),
+        "init_s": time.perf_counter() - t0}
+
+
+def _serve_loop(device, kernels, cfg, model, params):
+    """(b) the loop over two batches of the same sessions, its index calls
+    replayed on a CPU twin; returns the numbers and batch 1's final
+    cache."""
+    import numpy as np
+
+    from repro_torch.serve import PrefixCacheIndex, Request, ServeLoop
+
+    rng = np.random.default_rng(SEED + 14)
+    prompts = [rng.integers(0, cfg.vocab - 1, SERVE_PROMPT).astype(np.int32)
+               for _ in range(SERVE_SLOTS)]
+    requests = [Request(session=s, prompt=prompts[s],
+                        max_new_tokens=SERVE_NEW)
+                for _ in range(2) for s in range(SERVE_SLOTS)]
+    loop = ServeLoop(model, params, max_seq=SERVE_MAX_SEQ,
+                     batch_slots=SERVE_SLOTS, prefix_chunk=SERVE_CHUNK,
+                     device=device)
+    pre_s, dec_s, look_s, calls, held = [], [], [], [], {}
+    decode = _timed(loop._decode, dec_s, device)
+
+    def keep_last(*a):
+        held["last"] = out = decode(*a)
+        return out
+
+    loop._prefill = _timed(loop._prefill, pre_s, device)
+    loop._decode = keep_last
+    idx, b6 = loop.index, kernels["point_stacked"]["fn"]
+    lookup = _timed(idx.lookup, look_s, device)
+    freeze = idx.freeze_segment
+
+    def logged_lookup(session, chunk):
+        before = b6.launches
+        got = lookup(session, chunk)
+        calls.append(("lookup", (session, chunk), got,
+                      b6.launches - before))
+        return got
+
+    def logged_freeze(entries):
+        held.setdefault("batch1", held["last"][1])
+        got = freeze(entries)
+        calls.append(("freeze_segment", (entries,), got, 0))
+        return got
+
+    idx.lookup, idx.freeze_segment = logged_lookup, logged_freeze
+    read = _counted(kernels)
+    t0 = time.perf_counter()
+    done = loop.run(requests)
+    run_s = time.perf_counter() - t0
+    launches = read()
+
+    twin = PrefixCacheIndex(device="cpu")
+    for name, args, got, _ in calls:
+        if getattr(twin, name)(*args) != got:
+            raise AssertionError(f"{name}{args[:2]}: card {got}")
+    if dict(idx.stats) != twin.stats:
+        raise AssertionError(f"index stats {idx.stats} != CPU {twin.stats}")
+    chunks = SERVE_PROMPT // SERVE_CHUNK
+    per_batch = SERVE_SLOTS * chunks
+    per_lookup = [n for name, _, _, n in calls if name == "lookup"]
+    tenants = len({s & (idx.n_tenants - 1) for s in range(SERVE_SLOTS)})
+    # each frozen segment builds its tenants' main and meta rows: one B1
+    # launch per row that owns keys
+    b1 = 2 * 2 * tenants
+    expect = {k: {"insert": b1, "point_stacked": per_batch}.get(k, 0)
+              for k in kernels}
+    if launches != expect or per_lookup != [0] * per_batch + [1] * per_batch:
+        raise AssertionError(f"serve launches {launches} (expected "
+                             f"{expect}), per lookup {per_lookup}")
+    if idx.stats["map_hits"] != per_batch or any(
+            len(r.out_tokens) != SERVE_NEW for r in done):
+        raise AssertionError(f"serve stats {idx.stats}")
+    if not all(0 <= t < cfg.vocab for r in done for t in r.out_tokens):
+        raise AssertionError("a sampled token is outside the vocab")
+    steps = len(dec_s)
+    info = {
+        "requests": len(done), "batches": 2, "prompt_tokens": SERVE_PROMPT,
+        "new_tokens": SERVE_NEW, "lookups": len(per_lookup),
+        "segments": len(idx.segments), "stats": dict(idx.stats),
+        "launches": {k: v for k, v in launches.items() if v},
+        "prefill_s": pre_s, "decode_steps": steps,
+        "prefill_tokens_per_s": 2 * SERVE_SLOTS * SERVE_PROMPT / sum(pre_s),
+        "decode_steps_per_s": steps / sum(dec_s),
+        "decode_tokens_per_s": steps * SERVE_SLOTS / sum(dec_s),
+        "decode_step_ms_median": 1e3 * float(np.median(dec_s)),
+        "lookups_per_s_no_segment": per_batch / sum(look_s[:per_batch]),
+        "lookups_per_s_one_segment": per_batch / sum(look_s[per_batch:]),
+        "run_s": run_s}
+    return info, held["batch1"], np.stack(prompts)
+
+
+def _greedy_and_consistency(device, cfg, model, params):
+    """(c) the loop's greedy tokens == a manual greedy decode; (d) decode
+    against a prefill cache == the longer prefill, f32, full depth."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models.transformer import DenseModel
+    from repro_torch.serve import Request, ServeLoop
+
+    rng = np.random.default_rng(SEED + 140)
+    prompt = rng.integers(0, cfg.vocab - 1, GREEDY_PROMPT).astype(np.int32)
+    max_seq = GREEDY_PROMPT + GREEDY_NEW + 15
+    loop = ServeLoop(model, params, max_seq=max_seq, batch_slots=1,
+                     device=device)
+    [req] = loop.run([Request(session=1, prompt=prompt,
+                              max_new_tokens=GREEDY_NEW)])
+    logits, cache = model.prefill(params, {"tokens": prompt[None]})
+    cache = _pad_seq(cache, max_seq)
+    want = []
+    for t in range(GREEDY_NEW):
+        nxt = torch.argmax(logits[:, -1, :], dim=-1)
+        want.append(int(nxt[0]))
+        logits, cache = model.decode(params, cache, {
+            "token": nxt[:, None], "pos": GREEDY_PROMPT + t})
+    if req.out_tokens != want:
+        raise AssertionError(f"loop {req.out_tokens} != manual {want}")
+
+    f32 = DenseModel(dataclasses.replace(cfg, dtype="float32"), device)
+    toks = rng.integers(0, cfg.vocab - 1, (CONSIST_B, CONSIST_T + 1))
+    full, _ = f32.prefill(params, {"tokens": toks})
+    _, cache = f32.prefill(params, {"tokens": toks[:, :CONSIST_T]})
+    dec, _ = f32.decode(params, _pad_seq(cache, CONSIST_T + 1), {
+        "token": toks[:, CONSIST_T:], "pos": CONSIST_T})
+    err = float((dec - full).abs().max())
+    if not torch.allclose(dec, full, rtol=2e-2, atol=2e-2):
+        raise AssertionError(f"decode != prefill at full depth: {err}")
+    return {"greedy_tokens": want, "consistency_max_abs_err": err,
+            "consistency_logit_max": float(full.abs().max())}
+
+
+def _card_vs_cpu(device, cfg, params):
+    """(e) the first CARD_CPU_LAYERS layers of (a)'s weights at full width
+    in f32, copied to the CPU (drawing these 722 M values with the host's
+    generator takes tens of seconds); prefill logits compared."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.transformer import DenseModel
+
+    small = dataclasses.replace(cfg, n_layers=CARD_CPU_LAYERS,
+                                dtype="float32")
+    p_card = dict(params, layers=tree_map(lambda a: a[:CARD_CPU_LAYERS],
+                                          params["layers"]))
+    t0 = time.perf_counter()
+    p_cpu = tree_map(lambda a: a.cpu(), p_card)
+    copy_s = time.perf_counter() - t0
+    toks = np.random.default_rng(SEED + 141).integers(
+        0, cfg.vocab - 1, (CONSIST_B, CONSIST_T))
+    want, kv_cpu = DenseModel(small, "cpu").prefill(p_cpu, {"tokens": toks})
+    got, kv_card = DenseModel(small, device).prefill(p_card,
+                                                     {"tokens": toks})
+    got, kv_card = got.cpu(), [c.cpu() for c in kv_card]
+    err = float((got - want).abs().max())
+    kv_err = max(float((a - b).abs().max()) for a, b in zip(kv_card, kv_cpu))
+    if not torch.allclose(got, want, rtol=CARD_CPU_TOL, atol=CARD_CPU_TOL):
+        raise AssertionError(f"card != CPU: logits max_abs_err {err}")
+    return {"layers": CARD_CPU_LAYERS, "tolerance": CARD_CPU_TOL,
+            "logits_max_abs_err": err, "cache_max_abs_err": kv_err,
+            "logit_max": float(want.abs().max()), "copy_s": copy_s}
+
+
+def _paged_roundtrip(device, cfg, cache):
+    """(f) batch 1's final cache through a PagedKVCache: each sequence's
+    prompt by write_prefill, its decoded tokens by write_token, then
+    gather_cache == the loop's cache, bit for bit."""
+    import torch
+
+    from repro_torch.serve import PagedKVCache
+
+    k, v = cache                               # (L, B, max_seq, kv, hd)
+    n = SERVE_PROMPT + SERVE_NEW
+    pages = -(-n // PAGE_SIZE)
+    pc = PagedKVCache(cfg.n_layers, SERVE_SLOTS * pages + 8, PAGE_SIZE,
+                      cfg.kv_cache_heads, cfg.hd, dtype=k.dtype, device=device)
+    for i in range(SERVE_SLOTS):
+        pc.alloc_seq(i, SERVE_PROMPT)
+        pc.write_prefill(i, k[:, i, :SERVE_PROMPT], v[:, i, :SERVE_PROMPT])
+        for pos in range(SERVE_PROMPT, n):
+            pc.write_token(i, pos, k[:, i, pos:pos + 1], v[:, i, pos:pos + 1])
+    gk, gv = pc.gather_cache(list(range(SERVE_SLOTS)), pages)
+    ok = (torch.equal(gk[:, :, :n], k[:, :, :n])
+          and torch.equal(gv[:, :, :n], v[:, :, :n]))
+    used = len(pc.free)
+    for i in range(SERVE_SLOTS):
+        pc.free_seq(i)
+    if not ok or len(pc.free) != pc.n_pages or used != 8:
+        raise AssertionError("paged KV cache round trip failed")
+    return {"pages": pc.n_pages, "page_size": PAGE_SIZE,
+            "dtype": str(pc.k.dtype),
+            "pool_bytes": 2 * pc.k.numel() * pc.k.element_size(),
+            "tokens": SERVE_SLOTS * n}
+
+
+def phase_serve(device, kernels, smi):
+    """Phase 14, each part printing its line; returns the serve run's
+    numbers."""
+    import torch
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t_phase = t0 = time.perf_counter()
+        cfg, model, params, made = _serve_model(device)
+        if torch.device(device).type == "cuda":
+            made["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        print(f"[14/14] (a) {SERVE_ARCH} at full width ({cfg.n_layers} "
+              f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads, "
+              f"{cfg.n_kv_heads} KV heads, vocab {cfg.vocab}), f32 params "
+              f"on the card, count_params == leaves in {SERVE_BAND}: "
+              f"{json.dumps(made)} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        t0 = time.perf_counter()
+        serve, batch1, prompts = _serve_loop(device, kernels, cfg, model,
+                                             params)
+        # where a step's time goes: the device's share of its wall time
+        token = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32,
+                            device=device)
+        serve["profile"] = {
+            "decode_step": _device_busy(lambda: model.decode(
+                params, batch1, {"token": token,
+                                 "pos": SERVE_PROMPT + SERVE_NEW})),
+            "prefill": _device_busy(lambda: model.prefill(
+                params, {"tokens": prompts}), reps=2)}
+        print(f"[14/14] (b) ServeLoop(max_seq={SERVE_MAX_SEQ}, batch_slots="
+              f"{SERVE_SLOTS}, prefix_chunk={SERVE_CHUNK}), 8 greedy "
+              f"requests (sessions 0-3 twice, {SERVE_PROMPT}-token prompts, "
+              f"{SERVE_NEW} new tokens): index answers and stats == the CPU "
+              f"twin, one B6 launch a lookup against a segment, none "
+              f"before, B1 for the segments' rows, no other launch (profile: "
+              f"a decode step and a prefill, device time by torch.profiler): "
+              f"{json.dumps(serve)} on {smi} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        t0 = time.perf_counter()
+        greedy = _greedy_and_consistency(device, cfg, model, params)
+        print(f"[14/14] (c, d) loop greedy tokens == manual greedy decode; "
+              f"decode(token T | cache(prompt[:T])) == prefill(prompt[:T+1])"
+              f" within 2e-2 at full depth, f32, B {CONSIST_B}, T "
+              f"{CONSIST_T}: {json.dumps(greedy)} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        t0 = time.perf_counter()
+        versus = _card_vs_cpu(device, cfg, params)
+        print(f"[14/14] (e) card == CPU, {CARD_CPU_LAYERS} layers at full "
+              f"width, f32, TF32 off, prefill logits within {CARD_CPU_TOL}: "
+              f"{json.dumps(versus)} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        t0 = time.perf_counter()
+        paged = _paged_roundtrip(device, cfg, batch1)
+        if torch.device(device).type == "cuda":
+            serve["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        secs = time.perf_counter() - t_phase
+        print(f"[14/14] (f) PagedKVCache at the full KV shape == the loop's "
+              f"cache bit for bit: {json.dumps(paged)}; phase 14 in "
+              f"{secs:.1f} s on {smi}", flush=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return dict(serve, phase_s=secs)
 
 
 def main() -> int:
@@ -3246,11 +3601,11 @@ def main() -> int:
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    print(f"[1/13] card: {smi} | torch: {name} | torch {torch.__version__} "
+    print(f"[1/14] card: {smi} | torch: {name} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
-    print(f"[1/13] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
+    print(f"[1/14] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
           flush=True)
-    print(f"[1/13] registers and spills (nvcc -Xptxas -v): "
+    print(f"[1/14] registers and spills (nvcc -Xptxas -v): "
           f"{json.dumps(_ptxas_usage())}", flush=True)
 
     src, rep = "src/repro_torch/csrc/", "src/repro/kernels/"
@@ -3291,7 +3646,7 @@ def main() -> int:
     errs = {k: 0 for k in kernels}
     t0 = time.perf_counter()
     n_lay = phase_kernels_vs_plain(device, kernels, errs, big)
-    print(f"[2/13] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
+    print(f"[2/14] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
           f"top==d, W=64+replicas, multi-segment, exact, full size; B7/B8 "
           f"also on odd batches and replicas 3 and 5, against plain "
           f"versions bucketed at blocks of 256, "
@@ -3302,22 +3657,22 @@ def main() -> int:
                                expect(insert=8, point=4, range=4), kernels)
     if main_run["layout"]["deltas"] != big.deltas:
         raise AssertionError(f"main-path layout {main_run['layout']}")
-    print(f"[3/13] main path {json.dumps(main_run)}", flush=True)
+    print(f"[3/14] main path {json.dumps(main_run)}", flush=True)
     large = phase_main_path(10_000_000, "resident", name,
                             expect(insert=39, point=4, range=4), kernels,
                             time_range=True)
-    print(f"[4/13] resident 10M {json.dumps(large)}", flush=True)
+    print(f"[4/14] resident 10M {json.dumps(large)}", flush=True)
 
     single = {k: kernels[k] for k in ("insert", "point", "range")}
     times = phase_times(device, big, single)
-    print(f"[5/13] times at {CHUNK} keys/queries, filter "
+    print(f"[5/14] times at {CHUNK} keys/queries, filter "
           f"{big.total_u32 * 4} B, on {smi}: {json.dumps(times)}", flush=True)
 
     t0 = time.perf_counter()
     stacked = phase_stacked_vs_plain(device, kernels, errs, big)
     stacked_times = stacked.pop("times")
     times.update(stacked_times)
-    print(f"[6/13] B4 == plain on {stacked['scan_cells_checked']} (scan, run) "
+    print(f"[6/14] B4 == plain on {stacked['scan_cells_checked']} (scan, run) "
           f"cells (mixed Δ, multi-segment, replicas, capacity ladder; padded "
           f"and flat stacks, rpb 0/2, quarantine, edge bounds); B5/B6 == "
           f"plain on {stacked['stacked_rows']} rows of the phase-3 layout: "
@@ -3339,7 +3694,7 @@ def main() -> int:
     store = phase_store(device, kernels, errs)
     times["store_scan"] = store.pop("times")
     b1_shapes.update(store.pop("b1_shapes"))
-    print(f"[7/13] store, {STORE_KEYS} keys loaded by put (the key count is "
+    print(f"[7/14] store, {STORE_KEYS} keys loaded by put (the key count is "
           f"set by the host's per-key Python load path, not by the card), "
           f"YCSB-E: every scan == numpy oracle, every batch's (fence, touch) "
           f"== plain touch_all, {store['launches']} B4 launches for "
@@ -3355,7 +3710,7 @@ def main() -> int:
     hbm = phase_hbm(device, kernels, errs)
     times.update(hbm.pop("times"))
     b1_shapes.update(hbm.pop("b1_shapes"))
-    print(f"[8/13] HBM-scale filter, {HBM_KEYS} keys under auto, grown x{GROW} "
+    print(f"[8/14] HBM-scale filter, {HBM_KEYS} keys under auto, grown x{GROW} "
           f"in place to {HBM_KEYS * GROW}: no false negatives over all keys "
           f"(truth sorted on the card), state and verdicts == xla twin, "
           f"launches {json.dumps(hbm['launches'])}; deletable and TTL "
@@ -3368,13 +3723,13 @@ def main() -> int:
     if errs["insert"]:
         raise AssertionError(f"B1 != plain on a traffic shape: {errs}")
     times["insert"]["shapes"] = b1_shapes
-    print(f"[8/13] B1 alone on its traffic shapes ((a) the phase-3 filter in "
+    print(f"[8/14] B1 alone on its traffic shapes ((a) the phase-3 filter in "
           f"the L2, (b) phase 8's states cold, each of {COLD_CHUNKS} chunks "
           f"captured once, (c) phase 7's flush and largest rebuild, sorted "
           f"keys) on {smi}: {json.dumps(b1_shapes)}", flush=True)
 
     call_ms = {k: t.pop("call_ms") for k, t in times.items()}
-    print(f"[8/13] kernel wrappers' ms per call by CUDA events over 200 "
+    print(f"[8/14] kernel wrappers' ms per call by CUDA events over 200 "
           f"back-to-back calls, host dispatch included (the kernels line's "
           f"ms is the kernel alone, from a CUDA graph): "
           f"{json.dumps(call_ms)}", flush=True)
@@ -3384,7 +3739,7 @@ def main() -> int:
         "insert_keys_per_s", "point_queries_per_s", "range_queries_per_s")},
               "phase7_store": {k: store[k] for k in (
                   "load_puts_per_s", "host_scans_per_s")}}
-    print(f"[9/13] 64-bit keys on the plain path on the card, no kernel "
+    print(f"[9/14] 64-bit keys on the plain path on the card, no kernel "
           f"launched: mix64 == numpy on {MIX64_KEYS} keys with the top bit "
           f"set; the default open_filter (u64) and an f64 filter of "
           f"{WIDE_KEYS} keys with no false negatives, {SUBSAMPLE} verdicts "
@@ -3409,6 +3764,7 @@ def main() -> int:
         b1_shapes[label] = row
     if errs["insert"] or errs["point_stacked"]:
         raise AssertionError(f"B1 or B6 != plain on a bank shape: {errs}")
+    serve = phase_serve(device, kernels, smi)
     times["point_stacked"]["bank_shapes"] = {
         "phase13_bank": bank.pop("b6"), "phase13_tenant": tenant.pop("b6")}
     for row in times["point_stacked"]["bank_shapes"].values():
@@ -3418,7 +3774,8 @@ def main() -> int:
         "phase13_bank_points": bank["launches"]["points"],
         "phase13_tenant_points": tenant["launches"]["points"],
         "phase13_tenant_grown_points": tenant["launches"]["grown_points"],
-        "phase13_prefix_lookups": prefix["launches"]["point_stacked"]}
+        "phase13_prefix_lookups": prefix["launches"]["point_stacked"],
+        "phase14_serve_lookups": serve["launches"]["point_stacked"]}
     times["insert"]["launches_by_path"] = {
         "phase3_main": main_run["launches"]["insert"],
         "phase7_store_builds": store["b1_launches"],
@@ -3432,7 +3789,8 @@ def main() -> int:
         "phase13_bank_rows": bank["launches"]["build"],
         "phase13_tenant_rows": tenant["launches"]["build"],
         "phase13_ttl_tenant_rows": tenant["launches"]["ttl_build"],
-        "phase13_prefix_cache": prefix["launches"]["insert"]}
+        "phase13_prefix_cache": prefix["launches"]["insert"],
+        "phase14_serve_freezes": serve["launches"]["insert"]}
     times["store_scan"]["launches_by_path"] = {
         "phase7_store": store["launches"],
         "phase10_durable": durable["launches"],

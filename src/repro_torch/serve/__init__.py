@@ -1,6 +1,8 @@
-"""Serving substrate of the port: the bloomRF prefix-cache index.  The
-paged KV cache and the batched decode loop of ``repro.serve`` are ROADMAP
-A.11."""
+"""Serving substrate of the port: paged KV cache, batched decode, and the
+bloomRF prefix-cache index."""
+from .decode import Request, ServeLoop
+from .kv_cache import PagedKVCache
 from .prefix_cache import PrefixCacheIndex, pack_key
 
-__all__ = ["PrefixCacheIndex", "pack_key"]
+__all__ = ["PagedKVCache", "PrefixCacheIndex", "Request", "ServeLoop",
+           "pack_key"]

@@ -18,6 +18,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "import repro_torch.filters, repro_torch.tune\n"
             "import repro_torch.dist, repro_torch.serve, repro_torch._compat\n"
             "import repro_torch.data, repro_torch.train\n"
+            "import repro_torch.models, repro_torch.configs\n"
+            "import repro_torch.models.transformer, repro_torch.serve.decode\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -51,7 +53,16 @@ def test_no_module_imports_jax_or_repro():
             "tune/solver.py", "tune/retune.py", "_compat.py",
             "dist/filter_bank.py", "dist/tenant_bank.py",
             "serve/__init__.py", "serve/prefix_cache.py",
-            "data/pipeline.py", "train/checkpoint.py"} <= names
+            "data/pipeline.py", "train/checkpoint.py",
+            "models/__init__.py", "models/config.py", "models/params.py",
+            "models/act.py", "models/layers.py", "models/transformer.py",
+            "models/registry.py", "configs/__init__.py", "configs/base.py",
+            "configs/qwen3_1_7b.py", "configs/qwen2_5_3b.py",
+            "configs/qwen1_5_32b.py", "configs/granite_8b.py",
+            "configs/pixtral_12b.py", "configs/granite_moe_3b_a800m.py",
+            "configs/moonshot_v1_16b_a3b.py", "configs/mamba2_130m.py",
+            "configs/zamba2_2_7b.py", "configs/whisper_base.py",
+            "serve/kv_cache.py", "serve/decode.py"} <= names
     files.append(_ROOT / "chip_smoke.py")
     files += sorted((_ROOT / "benchmarks").glob("torch_*.py"))
     for f in files:
