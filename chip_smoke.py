@@ -165,7 +165,31 @@ Phases, one line of output each:
     batch's prompts and decoded tokens through ``write_prefill`` and
     ``write_token``: ``gather_cache`` == the loop's cache bit for bit.
     Prefill tokens/s, decode steps/s and tokens/s and lookups/s beside
-    the card.
+    the card;
+15. the other model families at full width, f32 parameters drawn on the
+    card from a seeded generator, bf16 activations, TF32 off, each model
+    freed before the next: (a) ``granite-moe-3b-a800m`` (40 experts,
+    top-8, capacity factor 1.25), (b) ``mamba2-130m`` and (c)
+    ``zamba2-2.7b`` served as phase 14 serves qwen3 but with 16 new
+    tokens: 16 B6 and 16 B1 launches each, the index == its CPU twin,
+    the loop's greedy tokens for 4 prompts of 12 tokens == a manual
+    greedy decode (mamba2 also at 24 = ``ssm_heads`` and 3 =
+    ``conv_kernel - 1`` tokens, zamba2 at 3: the cache grow of ROADMAP
+    C.7, where the SSM state and conv tails keep their shapes), f32
+    decode == the longer prefill at full depth within 2e-2 (the MoE at
+    the capacity factor ``n_experts / experts_per_token``, which drops
+    nothing), card == CPU within ``CARD_CPU_TOL`` on 2 layers (granite:
+    each token's experts compared first, logits on the sequences whose
+    routing agrees), 24 (mamba2) and 6 (zamba2); the share of (token, k)
+    pairs capacity drops in granite's served prefills; mamba2's
+    ``ssd_chunked`` at its shapes (B 4, S 256) == the naive recurrence
+    within 1e-4; (d) ``whisper-base`` (not served: the loop passes no
+    frames): 4 sequences of 1,500 frame embeddings, a prefill of 64
+    tokens, 16 greedy decode steps, decode == prefill in f32, card ==
+    CPU at full depth; (e) ``moonshot-v1-16b-a3b`` at full width cut to
+    4 of 48 layers (28.06 B f32 params need 112 GB): decode == prefill
+    at the no-drop capacity.  Each part's parameters, init seconds, peak
+    memory, and the served parts' rates and profiles beside the card.
 
 It prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -174,6 +198,8 @@ device is present.  It imports neither ``jax`` nor the ``repro`` package.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import shutil
 import subprocess
@@ -2213,7 +2239,7 @@ def _durable_and_obs(device, kernels, expect, smi):
         t0 = time.perf_counter()
         durable = phase_durable(device, kernels,
                                 str(Path(wal_root) / "wal"))
-        print(f"[10/14] deletable, durable store (phase 7's settings, "
+        print(f"[10/15] deletable, durable store (phase 7's settings, "
               f"mutability='deletable', durability='wal'): {STORE_KEYS} "
               f"puts through the WAL, a checkpoint, {durable['deleted']} "
               f"keys deleted in {durable['delete_batches']} delete_many "
@@ -2232,7 +2258,7 @@ def _durable_and_obs(device, kernels, expect, smi):
         obs_run = phase_obs(device, kernels,
                             expect(insert=8, point=4, range=4),
                             str(Path(wal_root) / "trace.jsonl"))
-        print(f"[11/14] obs on the main path (phase 3's filter and mix, "
+        print(f"[11/15] obs on the main path (phase 3's filter and mix, "
               f"obs.enable() and a JSONL trace sink): launches "
               f"{json.dumps(obs_run['launches_on'])} as with obs off, the "
               f"same verdicts and state, kernel/dispatch/resident == calls, "
@@ -2683,7 +2709,7 @@ def phase_tuned(device, kernels, errs, smi):
     """Phase 12, each part printing its line; returns their results."""
     t0 = time.perf_counter()
     twin = _adaptive_twin(device, kernels, errs)
-    print(f"[12/14] (a) adaptive twin: phase 7's store, tuning 'auto' and "
+    print(f"[12/15] (a) adaptive twin: phase 7's store, tuning 'auto' and "
           f"'adaptive', {TUNE_KEYS} clustered keys, {TUNE_BATCHES} batches "
           f"of near-miss scans between the halves and after: retunes "
           f"{twin['adaptive']['retunes']}, scans == static twin == oracle, "
@@ -2695,21 +2721,21 @@ def phase_tuned(device, kernels, errs, smi):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     base = _baseline_stores(device, kernels)
-    print(f"[12/14] (b) host baselines as store_backend, {BASE_KEYS} keys "
+    print(f"[12/15] (b) host baselines as store_backend, {BASE_KEYS} keys "
           f"each (phase 7's settings), {BASE_SCANS} of phase 7's scans == "
           f"oracle (bloom: {BASE_SCANS} gets), no kernel launched; bloomRF "
           f"on the same stream beside them: {json.dumps(base)} on {smi} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     cmp_ = _standalone(device, kernels)
-    print(f"[12/14] (c) standalone comparison on phase 3's {CMP_KEYS} keys at "
+    print(f"[12/15] (c) standalone comparison on phase 3's {CMP_KEYS} keys at "
           f"16 bits/key, {CMP_QUERIES} points (half present) and ranges "
           f"(2^0..2^14): no false negatives, the adapter == its xla twin: "
           f"{json.dumps(cmp_)} on {smi} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     typed = _typed_stores(device, kernels)
-    print(f"[12/14] (d) a str store of {STR_KEYS} keys (memtable "
+    print(f"[12/15] (d) a str store of {STR_KEYS} keys (memtable "
           f"{STR_MEMTABLE}, compactions asserted) and a multiattr "
           f"store of {TYPED_KEYS}, {TYPED_SCANS} scans each == sorted "
           f"oracle, no kernel launched: "
@@ -3208,7 +3234,7 @@ def phase_banks(device, kernels, errs, smi):
     """Phase 13, each part printing its line; returns their results."""
     t0 = time.perf_counter()
     bank_h, bank_q, bank = _bank13(device, kernels, errs)
-    print(f"[13/14] (a) bank: open_filter(FilterSpec(u32, n={BANK_KEYS}, 14 "
+    print(f"[13/15] (a) bank: open_filter(FilterSpec(u32, n={BANK_KEYS}, 14 "
           f"bits/key, delta 6, placement='bank', shards={BANK_SHARDS})), "
           f"{BANK_KEYS} inserts in {CHUNK}-key chunks, {BANK_QUERIES} points "
           f"and ranges, {SPAN_RANGES} ranges across 2-3 shards and the "
@@ -3218,7 +3244,7 @@ def phase_banks(device, kernels, errs, smi):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     ten_h, ten_q, tenant = _tenant13(device, kernels, errs)
-    print(f"[13/14] (b) tenant bank: FilterSpec(u32, n={TEN_KEYS}, "
+    print(f"[13/15] (b) tenant bank: FilterSpec(u32, n={TEN_KEYS}, "
           f"placement='tenant', tenants={TENANTS}, shards={TEN_SHARDS}), "
           f"{TEN_KEYS * TENANTS} inserts with random tenants, the same mix, "
           f"ranges with and without meta, meta_skip_stats, grow(4) in "
@@ -3229,7 +3255,7 @@ def phase_banks(device, kernels, errs, smi):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     prefix = _prefix13(device, kernels)
-    print(f"[13/14] (c) prefix cache: PrefixCacheIndex(bits_per_key=14, "
+    print(f"[13/15] (c) prefix cache: PrefixCacheIndex(bits_per_key=14, "
           f"n_tenants=16, ttl_generations=4) over a WAL store (phase 10's "
           f"settings), {PC_SEGMENTS} segments of "
           f"{PC_SESSIONS * PC_CHUNKS} entries, {PC_LOOKUPS} lookups (half "
@@ -3241,7 +3267,7 @@ def phase_banks(device, kernels, errs, smi):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     sharded = _sharded13(device, bank_h, bank_q, ten_h, ten_q)
-    print(f"[13/14] (d) ShardedFilterBank and ShardedTenantFilterBank on an "
+    print(f"[13/15] (d) ShardedFilterBank and ShardedTenantFilterBank on an "
           f"NCCL world of 1 == their banks on {SHARD_PROBES} of (a)'s and "
           f"(b)'s points and ranges (with and without meta): "
           f"{json.dumps(sharded)} ({time.perf_counter() - t0:.1f} s)",
@@ -3287,22 +3313,17 @@ def _timed(fn, log: list, device):
     return call
 
 
-def _pad_seq(cache, to: int):
-    """A prefill cache (L, B, S, kv, hd) padded along S to ``to``."""
-    import torch.nn.functional as F
-
-    return tuple(F.pad(c, (0, 0, 0, 0, 0, to - c.shape[2])) for c in cache)
-
-
-def _serve_model(device):
-    """(a) the full model on the card from a seeded generator."""
+def _serve_model(device, arch, band, cfg=None):
+    """The model of ``arch`` (or of ``cfg``, a cut of it) at full width on
+    the card from a seeded generator; ``count_params`` == the leaves'
+    elements, in ``band`` where there is one."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
     from repro_torch.models.params import count_params, tree_leaves
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = cfg or get_config(arch)
     model = get_model(cfg, device)
     n = count_params(model.table())
     t0 = time.perf_counter()
@@ -3310,31 +3331,32 @@ def _serve_model(device):
     _sync(device)
     leaves = tree_leaves(params)
     elems = sum(t.numel() for t in leaves)
-    if n != elems or not SERVE_BAND[0] < n < SERVE_BAND[1]:
-        raise AssertionError(f"{SERVE_ARCH}: count_params {n}, leaves "
-                             f"{elems}, band {SERVE_BAND}")
+    if n != elems or (band and not band[0] < n < band[1]):
+        raise AssertionError(f"{cfg.name}: count_params {n}, leaves "
+                             f"{elems}, band {band}")
     return cfg, model, params, {
-        "params": n, "param_bytes": sum(t.numel() * t.element_size()
-                                        for t in leaves),
+        "params": n, "band": band, "param_bytes": sum(
+            t.numel() * t.element_size() for t in leaves),
         "init_s": time.perf_counter() - t0}
 
 
-def _serve_loop(device, kernels, cfg, model, params):
-    """(b) the loop over two batches of the same sessions, its index calls
-    replayed on a CPU twin; returns the numbers and batch 1's final
-    cache."""
+def _serve_loop(device, kernels, cfg, model, params, prompt=SERVE_PROMPT,
+                new=SERVE_NEW, slots=SERVE_SLOTS):
+    """(b) the loop over two batches of the same ``slots`` sessions
+    (prompts of ``prompt`` tokens, ``new`` new tokens each), its index
+    calls replayed on a CPU twin; returns the numbers, batch 1's final
+    cache and the prompts."""
     import numpy as np
 
     from repro_torch.serve import PrefixCacheIndex, Request, ServeLoop
 
     rng = np.random.default_rng(SEED + 14)
-    prompts = [rng.integers(0, cfg.vocab - 1, SERVE_PROMPT).astype(np.int32)
-               for _ in range(SERVE_SLOTS)]
-    requests = [Request(session=s, prompt=prompts[s],
-                        max_new_tokens=SERVE_NEW)
-                for _ in range(2) for s in range(SERVE_SLOTS)]
+    prompts = [rng.integers(0, cfg.vocab - 1, prompt).astype(np.int32)
+               for _ in range(slots)]
+    requests = [Request(session=s, prompt=prompts[s], max_new_tokens=new)
+                for _ in range(2) for s in range(slots)]
     loop = ServeLoop(model, params, max_seq=SERVE_MAX_SEQ,
-                     batch_slots=SERVE_SLOTS, prefix_chunk=SERVE_CHUNK,
+                     batch_slots=slots, prefix_chunk=SERVE_CHUNK,
                      device=device)
     pre_s, dec_s, look_s, calls, held = [], [], [], [], {}
     decode = _timed(loop._decode, dec_s, device)
@@ -3375,10 +3397,10 @@ def _serve_loop(device, kernels, cfg, model, params):
             raise AssertionError(f"{name}{args[:2]}: card {got}")
     if dict(idx.stats) != twin.stats:
         raise AssertionError(f"index stats {idx.stats} != CPU {twin.stats}")
-    chunks = SERVE_PROMPT // SERVE_CHUNK
-    per_batch = SERVE_SLOTS * chunks
+    chunks = prompt // SERVE_CHUNK
+    per_batch = slots * chunks
     per_lookup = [n for name, _, _, n in calls if name == "lookup"]
-    tenants = len({s & (idx.n_tenants - 1) for s in range(SERVE_SLOTS)})
+    tenants = len({s & (idx.n_tenants - 1) for s in range(slots)})
     # each frozen segment builds its tenants' main and meta rows: one B1
     # launch per row that owns keys
     b1 = 2 * 2 * tenants
@@ -3388,20 +3410,20 @@ def _serve_loop(device, kernels, cfg, model, params):
         raise AssertionError(f"serve launches {launches} (expected "
                              f"{expect}), per lookup {per_lookup}")
     if idx.stats["map_hits"] != per_batch or any(
-            len(r.out_tokens) != SERVE_NEW for r in done):
+            len(r.out_tokens) != new for r in done):
         raise AssertionError(f"serve stats {idx.stats}")
     if not all(0 <= t < cfg.vocab for r in done for t in r.out_tokens):
         raise AssertionError("a sampled token is outside the vocab")
     steps = len(dec_s)
     info = {
-        "requests": len(done), "batches": 2, "prompt_tokens": SERVE_PROMPT,
-        "new_tokens": SERVE_NEW, "lookups": len(per_lookup),
+        "requests": len(done), "batches": 2, "prompt_tokens": prompt,
+        "new_tokens": new, "lookups": len(per_lookup),
         "segments": len(idx.segments), "stats": dict(idx.stats),
         "launches": {k: v for k, v in launches.items() if v},
         "prefill_s": pre_s, "decode_steps": steps,
-        "prefill_tokens_per_s": 2 * SERVE_SLOTS * SERVE_PROMPT / sum(pre_s),
+        "prefill_tokens_per_s": 2 * slots * prompt / sum(pre_s),
         "decode_steps_per_s": steps / sum(dec_s),
-        "decode_tokens_per_s": steps * SERVE_SLOTS / sum(dec_s),
+        "decode_tokens_per_s": steps * slots / sum(dec_s),
         "decode_step_ms_median": 1e3 * float(np.median(dec_s)),
         "lookups_per_s_no_segment": per_batch / sum(look_s[:per_batch]),
         "lookups_per_s_one_segment": per_batch / sum(look_s[per_batch:]),
@@ -3409,80 +3431,185 @@ def _serve_loop(device, kernels, cfg, model, params):
     return info, held["batch1"], np.stack(prompts)
 
 
-def _greedy_and_consistency(device, cfg, model, params):
-    """(c) the loop's greedy tokens == a manual greedy decode; (d) decode
-    against a prefill cache == the longer prefill, f32, full depth."""
-    import dataclasses
+def _serve_profile(device, model, params, cache, prompts, pos):
+    """Where a step's time goes: a decode step against ``cache`` and a
+    prefill of ``prompts``, the device's share of each one's wall time."""
+    import torch
 
+    token = torch.zeros((len(prompts), 1), dtype=torch.int32, device=device)
+    return {"decode_step": _device_busy(lambda: model.decode(
+                params, cache, {"token": token, "pos": pos})),
+            "prefill": _device_busy(lambda: model.prefill(
+                params, {"tokens": prompts}), reps=2)}
+
+
+@contextlib.contextmanager
+def _routes(seen):
+    """Every MoE layer's routing (``repro_torch.models.moe.route``) passed
+    to ``seen`` while the block runs."""
+    from repro_torch.models import moe
+
+    route = moe.route
+
+    def logged(p, cfg, xg):
+        r = route(p, cfg, xg)
+        seen(r)
+        return r
+
+    moe.route = logged
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def _greedy_and_consistency(device, cfg, model, params,
+                            lengths=(GREEDY_PROMPT,), batch=1,
+                            consist_params=None, **f32_changes):
+    """(c) the loop's greedy tokens for a batch of ``batch`` prompts of
+    each length == a manual greedy prefill and decode; (d) decode against
+    a prefill cache == the longer prefill, f32 (``cfg`` with
+    ``f32_changes``), full depth, on ``consist_params`` where given."""
     import numpy as np
     import torch
 
-    from repro_torch.models.transformer import DenseModel
-    from repro_torch.serve import Request, ServeLoop
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serve import Request, ServeLoop, grow_cache
 
     rng = np.random.default_rng(SEED + 140)
-    prompt = rng.integers(0, cfg.vocab - 1, GREEDY_PROMPT).astype(np.int32)
-    max_seq = GREEDY_PROMPT + GREEDY_NEW + 15
-    loop = ServeLoop(model, params, max_seq=max_seq, batch_slots=1,
-                     device=device)
-    [req] = loop.run([Request(session=1, prompt=prompt,
-                              max_new_tokens=GREEDY_NEW)])
-    logits, cache = model.prefill(params, {"tokens": prompt[None]})
-    cache = _pad_seq(cache, max_seq)
-    want = []
-    for t in range(GREEDY_NEW):
-        nxt = torch.argmax(logits[:, -1, :], dim=-1)
-        want.append(int(nxt[0]))
-        logits, cache = model.decode(params, cache, {
-            "token": nxt[:, None], "pos": GREEDY_PROMPT + t})
-    if req.out_tokens != want:
-        raise AssertionError(f"loop {req.out_tokens} != manual {want}")
+    greedy = {}
+    for plen in lengths:
+        prompts = rng.integers(0, cfg.vocab - 1, (batch, plen)).astype(
+            np.int32)
+        max_seq = plen + GREEDY_NEW + 15
+        loop = ServeLoop(model, params, max_seq=max_seq, batch_slots=batch,
+                         device=device)
+        done = loop.run([Request(session=i, prompt=prompts[i],
+                                 max_new_tokens=GREEDY_NEW)
+                         for i in range(batch)])
+        logits, cache = model.prefill(params, {"tokens": prompts})
+        grown = grow_cache(model, cache, max_seq, batch)
+        # leaves of constant size (SSM states, conv tails) are not padded
+        kept = sum(a is b for a, b in zip(tree_leaves(cache),
+                                          tree_leaves(grown)))
+        if model.family == "ssm" and kept != len(tree_leaves(cache)):
+            raise AssertionError(f"prompt of {plen}: an SSM cache grew")
+        cache, want = grown, [[] for _ in range(batch)]
+        for t in range(GREEDY_NEW):
+            nxt = torch.argmax(logits[:, -1, :], dim=-1)
+            for i, v in enumerate(nxt.tolist()):
+                want[i].append(v)
+            logits, cache = model.decode(params, cache, {
+                "token": nxt[:, None], "pos": plen + t})
+        got = [r.out_tokens for r in done]
+        if got != want:
+            raise AssertionError(f"prompts of {plen}: loop {got} != "
+                                 f"manual {want}")
+        greedy[plen] = {"tokens": want[0], "constant_leaves": kept}
+    return {"greedy": greedy, **_consistency(
+        device, cfg, params if consist_params is None else consist_params,
+        rng, **f32_changes)}
 
-    f32 = DenseModel(dataclasses.replace(cfg, dtype="float32"), device)
-    toks = rng.integers(0, cfg.vocab - 1, (CONSIST_B, CONSIST_T + 1))
-    full, _ = f32.prefill(params, {"tokens": toks})
-    _, cache = f32.prefill(params, {"tokens": toks[:, :CONSIST_T]})
-    dec, _ = f32.decode(params, _pad_seq(cache, CONSIST_T + 1), {
-        "token": toks[:, CONSIST_T:], "pos": CONSIST_T})
-    err = float((dec - full).abs().max())
-    if not torch.allclose(dec, full, rtol=2e-2, atol=2e-2):
-        raise AssertionError(f"decode != prefill at full depth: {err}")
-    return {"greedy_tokens": want, "consistency_max_abs_err": err,
-            "consistency_logit_max": float(full.abs().max())}
 
-
-def _card_vs_cpu(device, cfg, params):
-    """(e) the first CARD_CPU_LAYERS layers of (a)'s weights at full width
-    in f32, copied to the CPU (drawing these 722 M values with the host's
-    generator takes tens of seconds); prefill logits compared."""
+def _consistency(device, cfg, params, rng, extra=None, hold=True,
+                 **f32_changes):
+    """Decode of token T against the cache of ``prompt[:T]`` == the
+    prefill of ``prompt[:T+1]``, f32 (``cfg`` with ``f32_changes``),
+    within 2e-2 (only reported unless ``hold``); an MoE config must drop
+    no (token, expert) pair."""
     import dataclasses
 
+    import torch
+
+    from repro_torch.models import get_model
+    from repro_torch.serve import grow_cache
+
+    f32 = get_model(dataclasses.replace(cfg, dtype="float32", **f32_changes),
+                    device)
+    toks = rng.integers(0, cfg.vocab - 1, (CONSIST_B, CONSIST_T + 1))
+    extra = extra or {}
+    drops = []
+    with _routes(lambda r: drops.append(int((r.rank >= r.capacity).sum()))):
+        full, _ = f32.prefill(params, {"tokens": toks, **extra})
+        _, cache = f32.prefill(params, {"tokens": toks[:, :CONSIST_T],
+                                        **extra})
+        dec, _ = f32.decode(params, grow_cache(f32, cache, CONSIST_T + 1,
+                                               CONSIST_B),
+                            {"token": toks[:, CONSIST_T:], "pos": CONSIST_T})
+    err = float((dec - full).abs().max())
+    if any(drops) or hold and not torch.allclose(dec, full, rtol=2e-2,
+                                                 atol=2e-2):
+        raise AssertionError(f"decode != prefill at full depth: {err}, "
+                             f"drops {sum(drops)}")
+    out = {"consistency_max_abs_err": err,
+           "consistency_logit_max": float(full.abs().max())}
+    if f32_changes:
+        out["consistency_config"] = f32_changes
+    return out
+
+
+def _cut_depth(cfg, params, n_layers):
+    """``cfg`` in f32 at ``n_layers`` (decoder) layers and ``params``
+    with those layers' slices; every other leaf (the encoder, a hybrid's
+    shared blocks) as it is."""
+    import dataclasses
+
+    from repro_torch.models.params import tree_map
+
+    key = "dec_layers" if cfg.family == "encdec" else "layers"
+    small = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32")
+    return small, dict(params, **{key: tree_map(lambda a: a[:n_layers],
+                                                params[key])})
+
+
+def _card_vs_cpu(device, cfg, params, layers=CARD_CPU_LAYERS, extra=None):
+    """(e) the first ``layers`` layers of the card's weights at full width
+    in f32, copied to the CPU (drawing them with the host's generator
+    takes tens of seconds); prefill logits compared.  An MoE model's
+    routing is compared first: a token whose top-k experts differ (a
+    near-tie flipped by the order of f32 sums) is counted, and the
+    logits are held to the tolerance on the sequences (one group each)
+    whose routing agrees on every layer."""
     import numpy as np
     import torch
 
-    from repro_torch.models.params import tree_map
-    from repro_torch.models.transformer import DenseModel
+    from repro_torch.models import get_model
+    from repro_torch.models.params import tree_leaves, tree_map
 
-    small = dataclasses.replace(cfg, n_layers=CARD_CPU_LAYERS,
-                                dtype="float32")
-    p_card = dict(params, layers=tree_map(lambda a: a[:CARD_CPU_LAYERS],
-                                          params["layers"]))
+    small, p_card = _cut_depth(cfg, params, layers)
     t0 = time.perf_counter()
     p_cpu = tree_map(lambda a: a.cpu(), p_card)
     copy_s = time.perf_counter() - t0
     toks = np.random.default_rng(SEED + 141).integers(
         0, cfg.vocab - 1, (CONSIST_B, CONSIST_T))
-    want, kv_cpu = DenseModel(small, "cpu").prefill(p_cpu, {"tokens": toks})
-    got, kv_card = DenseModel(small, device).prefill(p_card,
-                                                     {"tokens": toks})
-    got, kv_card = got.cpu(), [c.cpu() for c in kv_card]
-    err = float((got - want).abs().max())
+    batch = {"tokens": toks, **(extra or {})}
+    runs = []
+    for dev, p in (("cpu", p_cpu), (device, p_card)):
+        topi = []
+        with _routes(lambda r: topi.append(r.topi.cpu())):
+            logits, cache = get_model(small, dev).prefill(p, batch)
+        runs.append((logits.cpu(), [c.cpu() for c in tree_leaves(cache)],
+                     topi))
+    (want, kv_cpu, topi_cpu), (got, kv_card, topi_card) = runs
+    agree = torch.ones(CONSIST_B, dtype=torch.bool)
+    flips = 0
+    for a, b in zip(topi_cpu, topi_card):        # (B, T, K) a layer
+        same = (a == b).all(-1)
+        flips += int((~same).sum())
+        agree &= same.all(-1)
+    err = float((got - want)[agree].abs().max()) if agree.any() else None
     kv_err = max(float((a - b).abs().max()) for a, b in zip(kv_card, kv_cpu))
-    if not torch.allclose(got, want, rtol=CARD_CPU_TOL, atol=CARD_CPU_TOL):
-        raise AssertionError(f"card != CPU: logits max_abs_err {err}")
-    return {"layers": CARD_CPU_LAYERS, "tolerance": CARD_CPU_TOL,
-            "logits_max_abs_err": err, "cache_max_abs_err": kv_err,
-            "logit_max": float(want.abs().max()), "copy_s": copy_s}
+    if not agree.any() or not torch.allclose(
+            got[agree], want[agree], rtol=CARD_CPU_TOL, atol=CARD_CPU_TOL):
+        raise AssertionError(f"card != CPU: logits max_abs_err {err}, "
+                             f"routing flips {flips}")
+    out = {"layers": layers, "tolerance": CARD_CPU_TOL,
+           "logits_max_abs_err": err, "cache_max_abs_err": kv_err,
+           "logit_max": float(want.abs().max()), "copy_s": copy_s}
+    if topi_cpu:
+        out.update(routing_flips=flips, routed_tokens=CONSIST_B * CONSIST_T,
+                   sequences_compared=int(agree.sum()))
+    return out
 
 
 def _paged_roundtrip(device, cfg, cache):
@@ -3526,10 +3653,11 @@ def phase_serve(device, kernels, smi):
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         t_phase = t0 = time.perf_counter()
-        cfg, model, params, made = _serve_model(device)
+        cfg, model, params, made = _serve_model(device, SERVE_ARCH,
+                                                SERVE_BAND)
         if torch.device(device).type == "cuda":
             made["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-        print(f"[14/14] (a) {SERVE_ARCH} at full width ({cfg.n_layers} "
+        print(f"[14/15] (a) {SERVE_ARCH} at full width ({cfg.n_layers} "
               f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads, "
               f"{cfg.n_kv_heads} KV heads, vocab {cfg.vocab}), f32 params "
               f"on the card, count_params == leaves in {SERVE_BAND}: "
@@ -3538,16 +3666,9 @@ def phase_serve(device, kernels, smi):
         t0 = time.perf_counter()
         serve, batch1, prompts = _serve_loop(device, kernels, cfg, model,
                                              params)
-        # where a step's time goes: the device's share of its wall time
-        token = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32,
-                            device=device)
-        serve["profile"] = {
-            "decode_step": _device_busy(lambda: model.decode(
-                params, batch1, {"token": token,
-                                 "pos": SERVE_PROMPT + SERVE_NEW})),
-            "prefill": _device_busy(lambda: model.prefill(
-                params, {"tokens": prompts}), reps=2)}
-        print(f"[14/14] (b) ServeLoop(max_seq={SERVE_MAX_SEQ}, batch_slots="
+        serve["profile"] = _serve_profile(device, model, params, batch1,
+                                          prompts, SERVE_PROMPT + SERVE_NEW)
+        print(f"[14/15] (b) ServeLoop(max_seq={SERVE_MAX_SEQ}, batch_slots="
               f"{SERVE_SLOTS}, prefix_chunk={SERVE_CHUNK}), 8 greedy "
               f"requests (sessions 0-3 twice, {SERVE_PROMPT}-token prompts, "
               f"{SERVE_NEW} new tokens): index answers and stats == the CPU "
@@ -3558,14 +3679,14 @@ def phase_serve(device, kernels, smi):
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         t0 = time.perf_counter()
         greedy = _greedy_and_consistency(device, cfg, model, params)
-        print(f"[14/14] (c, d) loop greedy tokens == manual greedy decode; "
+        print(f"[14/15] (c, d) loop greedy tokens == manual greedy decode; "
               f"decode(token T | cache(prompt[:T])) == prefill(prompt[:T+1])"
               f" within 2e-2 at full depth, f32, B {CONSIST_B}, T "
               f"{CONSIST_T}: {json.dumps(greedy)} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         t0 = time.perf_counter()
         versus = _card_vs_cpu(device, cfg, params)
-        print(f"[14/14] (e) card == CPU, {CARD_CPU_LAYERS} layers at full "
+        print(f"[14/15] (e) card == CPU, {CARD_CPU_LAYERS} layers at full "
               f"width, f32, TF32 off, prefill logits within {CARD_CPU_TOL}: "
               f"{json.dumps(versus)} ({time.perf_counter() - t0:.1f} s)",
               flush=True)
@@ -3574,12 +3695,330 @@ def phase_serve(device, kernels, smi):
         if torch.device(device).type == "cuda":
             serve["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         secs = time.perf_counter() - t_phase
-        print(f"[14/14] (f) PagedKVCache at the full KV shape == the loop's "
+        print(f"[14/15] (f) PagedKVCache at the full KV shape == the loop's "
               f"cache bit for bit: {json.dumps(paged)}; phase 14 in "
               f"{secs:.1f} s on {smi}", flush=True)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     return dict(serve, phase_s=secs)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the MoE, SSM, hybrid and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+#: tests/test_models.py's parameter bands, where it has one
+FAMILY_BANDS = {"mamba2-130m": (0.1e9, 0.2e9),
+                "zamba2-2.7b": (2.2e9, 3.5e9),
+                "whisper-base": (0.05e9, 0.12e9)}
+FAMILY_NEW = 16               # new tokens a request (phase 14: 32)
+HYBRID_CARD_CPU_LAYERS = 6    # zamba2: one attention application
+WHISPER_B, WHISPER_T = 4, 64  # sequences of 1,500 frames; prompt tokens
+MOONSHOT_LAYERS = 4           # of 48: its 28.06 B f32 params need 112 GB
+SSD_B, SSD_S = 4, 256         # ssd_chunked at mamba2-130m's shapes
+SSD_TOL = 1e-4
+
+
+def _tamed(params):
+    """``params`` with every 3-D attention projection rescaled from the
+    reference's init fan-in to the true one (ROADMAP C.8): ``wq`` /
+    ``wk`` / ``wv`` (..., D, H, hd) were drawn at 1/sqrt(H), ``wo``
+    (..., H, hd, D) at 1/sqrt(hd).  At those scales a layer without
+    qk-norm has attention logits of standard deviation near D/H (64 on
+    granite-moe), its softmax picks one key, and f32 roundings grow from
+    layer to layer; rescaled, the precision checks compare the code, not
+    that amplification.  Other leaves are shared."""
+    import math
+
+    def walk(t):
+        if not isinstance(t, dict):
+            return t
+        out = {}
+        for k, v in t.items():
+            if k in ("wq", "wk", "wv") and not isinstance(v, dict):
+                out[k] = v * math.sqrt(v.shape[-2] / v.shape[-3])
+            elif k == "wo" and not isinstance(v, dict):
+                out[k] = v / math.sqrt(v.shape[-3])
+            else:
+                out[k] = walk(v)
+        return out
+    return walk(params)
+
+
+def _peak(device):
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated()
+
+
+def _free(device):
+    """Release a finished part's tensors and reset the peak count."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _no_drop(cfg) -> dict:
+    """The capacity factor at which every (token, expert) pair keeps its
+    slot (C = Sg): a prefill of T + 1 tokens forms other groups, hence
+    other drops, than one of T, so decode == prefill holds only there."""
+    return ({"moe_capacity_factor": cfg.n_experts / cfg.experts_per_token}
+            if cfg.family == "moe" else {})
+
+
+def _served_family(device, kernels, smi, part, arch, card_cpu_layers,
+                   lengths=(GREEDY_PROMPT,)):
+    """Phase 15 (a)-(c): ``arch`` at full width served as phase 14 serves
+    qwen3 (FAMILY_NEW new tokens), each check printing its line; returns
+    the serve run's numbers."""
+    import numpy as np
+
+    t_part = t0 = time.perf_counter()
+    cfg, model, params, made = _serve_model(device, arch,
+                                            FAMILY_BANDS.get(arch))
+    made["max_memory_allocated"] = _peak(device)
+    print(f"[15/15] ({part}) {arch} at full width ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab}), f32 params on the "
+          f"card: {json.dumps(made)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    t0 = time.perf_counter()
+    drops = []
+
+    def count_drops(r):      # the served prefills' groups (decode: Sg 1)
+        if r.rank.shape[1] > 1:
+            drops.append((int((r.rank >= r.capacity).sum()), r.rank.numel()))
+
+    with _routes(count_drops):
+        serve, batch1, prompts = _serve_loop(device, kernels, cfg, model,
+                                             params, new=FAMILY_NEW)
+    if drops:
+        serve["capacity_dropped_share"] = sum(d for d, _ in drops) / sum(
+            n for _, n in drops)
+    serve["profile"] = _serve_profile(device, model, params, batch1,
+                                      prompts, SERVE_PROMPT + FAMILY_NEW)
+    print(f"[15/15] ({part}) ServeLoop as phase 14's, {FAMILY_NEW} new "
+          f"tokens: index answers and stats == the CPU twin, one B6 launch "
+          f"a lookup against a segment, none before, B1 for the segments' "
+          f"rows, no other launch: {json.dumps(serve)} on {smi} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    del batch1
+    t0 = time.perf_counter()
+    tamed = _tamed(params)
+    greedy = _greedy_and_consistency(device, cfg, model, params, lengths,
+                                     SERVE_SLOTS, tamed, **_no_drop(cfg))
+    greedy["reference_init"] = _consistency(
+        device, cfg, params, np.random.default_rng(SEED + 143), hold=False,
+        **_no_drop(cfg))
+    print(f"[15/15] ({part}) loop greedy tokens == manual greedy decode for "
+          f"{SERVE_SLOTS} prompts of each of {list(lengths)} tokens; "
+          f"decode == prefill within 2e-2 at full depth, f32, attention "
+          f"projections at their true fan-in (ROADMAP C.8; at the "
+          f"reference's init the gap is reported, not held; an MoE at the "
+          f"capacity factor that drops nothing): {json.dumps(greedy)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    versus = _card_vs_cpu(device, cfg, tamed, card_cpu_layers)
+    print(f"[15/15] ({part}) card == CPU, {card_cpu_layers} layers at full "
+          f"width, f32, TF32 off, prefill logits within {CARD_CPU_TOL}: "
+          f"{json.dumps(versus)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    serve["max_memory_allocated"] = _peak(device)
+    serve["part_s"] = time.perf_counter() - t_part
+    del model, params, tamed
+    _free(device)
+    return serve
+
+
+def _ssd_on_card(device, cfg):
+    """(b) ``ssd_chunked`` at ``cfg``'s heads, state and chunk (B SSD_B,
+    S SSD_S: two chunks) against the naive recurrence in f64, f32."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    rng = np.random.default_rng(SEED + 150)
+    H, Pd, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    f = functools.partial(torch.tensor, dtype=torch.float32, device=device)
+    x = f(rng.normal(0, 1, (SSD_B, SSD_S, H, Pd)))
+    dt = f(rng.uniform(0.01, 0.2, (SSD_B, SSD_S, H)))
+    A = -f(rng.uniform(0.5, 2, H))
+    Bm = f(rng.normal(0, 1, (SSD_B, SSD_S, N)))
+    Cm = f(rng.normal(0, 1, (SSD_B, SSD_S, N)))
+    t0 = time.perf_counter()
+    y, state = ssd_chunked(x, dt, A, Bm, Cm, cfg.ssm_chunk)
+    _sync(device)
+    ssd_s = time.perf_counter() - t0
+    d = [t.double() for t in (x, dt, A, Bm, Cm)]
+    s = torch.zeros((SSD_B, H, N, Pd), dtype=torch.float64, device=device)
+    ys = []
+    for t in range(SSD_S):
+        s = torch.exp(d[1][:, t] * d[2])[:, :, None, None] * s + \
+            torch.einsum("bh,bn,bhp->bhnp", d[1][:, t], d[3][:, t],
+                         d[0][:, t])
+        ys.append(torch.einsum("bn,bhnp->bhp", d[4][:, t], s))
+    naive = torch.stack(ys, dim=1)
+    err = float((y.double() - naive).abs().max())
+    s_err = float((state.double() - s).abs().max())
+    if not (torch.allclose(y.double(), naive, atol=SSD_TOL, rtol=SSD_TOL)
+            and torch.allclose(state.double(), s, atol=SSD_TOL,
+                               rtol=SSD_TOL)):
+        raise AssertionError(f"ssd_chunked != naive: y {err}, state {s_err}")
+    return {"shape": [SSD_B, SSD_S, H, Pd], "state": N,
+            "chunk": cfg.ssm_chunk, "tolerance": SSD_TOL,
+            "y_max_abs_err": err, "y_max": float(naive.abs().max()),
+            "state_max_abs_err": s_err, "ssd_s": ssd_s}
+
+
+def _whisper(device, smi):
+    """Phase 15 (d): whisper-base at full width, not served (the loop
+    passes no frames): a prefill of WHISPER_T tokens over WHISPER_B
+    sequences of 1,500 frame embeddings, FAMILY_NEW greedy decode steps,
+    decode == prefill in f32, card == CPU at full depth."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import grow_cache
+
+    t_part = time.perf_counter()
+    arch = "whisper-base"
+    cfg, model, params, made = _serve_model(device, arch, FAMILY_BANDS[arch])
+    rng = np.random.default_rng(SEED + 154)
+    frames = rng.normal(0, 1, (WHISPER_B, cfg.enc_seq, cfg.d_model)).astype(
+        np.float32)
+    toks = rng.integers(0, cfg.vocab - 1, (WHISPER_B, WHISPER_T))
+    pre_s, dec_s = [], []
+    prefill = _timed(model.prefill, pre_s, device)
+    decode = _timed(model.decode, dec_s, device)
+    logits, cache = prefill(params, {"frames": frames, "tokens": toks})
+    cache = grow_cache(model, cache, WHISPER_T + FAMILY_NEW, WHISPER_B)
+    if cache["xk"].shape[2] != cfg.enc_seq:
+        raise AssertionError(f"cross-attention KV grew: {cache['xk'].shape}")
+    out = []
+    for t in range(FAMILY_NEW):
+        nxt = torch.argmax(logits[:, -1, :], dim=-1)
+        out.append(nxt)
+        logits, cache = decode(params, cache, {"token": nxt[:, None],
+                                               "pos": WHISPER_T + t})
+    tokens = torch.stack(out, 1).tolist()
+    if not (torch.isfinite(logits).all() and all(
+            0 <= t < cfg.vocab for r in tokens for t in r)):
+        raise AssertionError("whisper decode: non-finite logits or a token "
+                             "outside the vocab")
+    token = torch.zeros((WHISPER_B, 1), dtype=torch.int32, device=device)
+    run = {"prefill_s": pre_s, "decode_steps": len(dec_s),
+           "prefill_tokens_per_s": WHISPER_B * WHISPER_T / sum(pre_s),
+           "prefill_frames_per_s": WHISPER_B * cfg.enc_seq / sum(pre_s),
+           "decode_steps_per_s": len(dec_s) / sum(dec_s),
+           "decode_tokens_per_s": len(dec_s) * WHISPER_B / sum(dec_s),
+           "decode_step_ms_median": 1e3 * float(np.median(dec_s)),
+           "tokens": tokens[0],
+           "profile": {"decode_step": _device_busy(lambda: model.decode(
+               params, cache, {"token": token,
+                               "pos": WHISPER_T + FAMILY_NEW - 1})),
+               "prefill": _device_busy(lambda: model.prefill(
+                   params, {"frames": frames, "tokens": toks}), reps=2)}}
+    del cache
+    few = {"frames": frames[:CONSIST_B]}
+    tamed = _tamed(params)
+    run.update(_consistency(device, cfg, tamed, rng, few))
+    run["reference_init"] = _consistency(device, cfg, params, rng, few,
+                                         hold=False)
+    run["card_vs_cpu"] = _card_vs_cpu(device, cfg, tamed, cfg.n_layers, few)
+    made["max_memory_allocated"] = _peak(device)
+    print(f"[15/15] (d) {arch} at full width ({cfg.n_enc_layers} + "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.enc_seq} "
+          f"frames, vocab {cfg.vocab}), f32 params on the card: "
+          f"{json.dumps(made)}; prefill of {WHISPER_B} x {WHISPER_T} tokens, "
+          f"{FAMILY_NEW} greedy decode steps, decode == prefill within 2e-2 "
+          f"(f32), card == CPU at full depth within {CARD_CPU_TOL}, both on "
+          f"attention projections at their true fan-in (ROADMAP C.8): "
+          f"{json.dumps(run)} on {smi} "
+          f"({time.perf_counter() - t_part:.1f} s)", flush=True)
+    del model, params, tamed
+    _free(device)
+    return run
+
+
+def _moonshot(device, smi):
+    """Phase 15 (e): moonshot-v1-16b-a3b at full width cut to
+    MOONSHOT_LAYERS layers: decode == prefill at the no-drop capacity."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    t_part = time.perf_counter()
+    full = get_config("moonshot-v1-16b-a3b")
+    cfg, model, params, made = _serve_model(
+        device, full.name, None,
+        dataclasses.replace(full, n_layers=MOONSHOT_LAYERS))
+    made["max_memory_allocated"] = _peak(device)
+    rng = np.random.default_rng(SEED + 155)
+    consist = _consistency(device, cfg, _tamed(params), rng, **_no_drop(cfg))
+    consist["reference_init"] = _consistency(device, cfg, params, rng,
+                                             hold=False, **_no_drop(cfg))
+    print(f"[15/15] (e) {full.name} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts, top-{cfg.experts_per_token}, vocab "
+          f"{cfg.vocab}) cut to {MOONSHOT_LAYERS} of {full.n_layers} "
+          f"layers, f32 params on the card: {json.dumps(made)}; decode == "
+          f"prefill within 2e-2 (f32, nothing dropped, attention projections "
+          f"at their true fan-in, ROADMAP C.8): "
+          f"{json.dumps(consist)} on {smi} "
+          f"({time.perf_counter() - t_part:.1f} s)", flush=True)
+    del model, params
+    _free(device)
+    return consist
+
+
+def phase_families(device, kernels, smi):
+    """Phase 15: granite-moe-3b-a800m, mamba2-130m and zamba2-2.7b served
+    at full width, whisper-base driven, moonshot at full width cut in
+    depth; returns each served part's numbers."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    try:
+        _free(device)
+        served = {"granite-moe-3b-a800m": _served_family(
+            device, kernels, smi, "a", "granite-moe-3b-a800m",
+            CARD_CPU_LAYERS)}
+        mamba = get_config("mamba2-130m")
+        t0 = time.perf_counter()
+        ssd = _ssd_on_card(device, mamba)
+        print(f"[15/15] (b) ssd_chunked on the card == the naive recurrence "
+              f"(f64) within {SSD_TOL}, f32: {json.dumps(ssd)} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        served["mamba2-130m"] = _served_family(
+            device, kernels, smi, "b", "mamba2-130m", mamba.n_layers,
+            (GREEDY_PROMPT, mamba.ssm_heads, mamba.conv_kernel - 1))
+        zamba = get_config("zamba2-2.7b")
+        served["zamba2-2.7b"] = _served_family(
+            device, kernels, smi, "c", "zamba2-2.7b", HYBRID_CARD_CPU_LAYERS,
+            (GREEDY_PROMPT, zamba.conv_kernel - 1))
+        whisper = _whisper(device, smi)
+        moonshot = _moonshot(device, smi)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    secs = time.perf_counter() - t_phase
+    launches = {k: sum(s["launches"].get(k, 0) for s in served.values())
+                for k in ("point_stacked", "insert")}
+    print(f"[15/15] phase 15 in {secs:.1f} s on {smi}: launches "
+          f"{json.dumps(launches)}", flush=True)
+    return {"served": served, "whisper": whisper, "moonshot": moonshot,
+            "launches": launches, "phase_s": secs}
 
 
 def main() -> int:
@@ -3601,11 +4040,11 @@ def main() -> int:
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    print(f"[1/14] card: {smi} | torch: {name} | torch {torch.__version__} "
+    print(f"[1/15] card: {smi} | torch: {name} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
-    print(f"[1/14] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
+    print(f"[1/15] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
           flush=True)
-    print(f"[1/14] registers and spills (nvcc -Xptxas -v): "
+    print(f"[1/15] registers and spills (nvcc -Xptxas -v): "
           f"{json.dumps(_ptxas_usage())}", flush=True)
 
     src, rep = "src/repro_torch/csrc/", "src/repro/kernels/"
@@ -3646,7 +4085,7 @@ def main() -> int:
     errs = {k: 0 for k in kernels}
     t0 = time.perf_counter()
     n_lay = phase_kernels_vs_plain(device, kernels, errs, big)
-    print(f"[2/14] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
+    print(f"[2/15] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
           f"top==d, W=64+replicas, multi-segment, exact, full size; B7/B8 "
           f"also on odd batches and replicas 3 and 5, against plain "
           f"versions bucketed at blocks of 256, "
@@ -3657,22 +4096,22 @@ def main() -> int:
                                expect(insert=8, point=4, range=4), kernels)
     if main_run["layout"]["deltas"] != big.deltas:
         raise AssertionError(f"main-path layout {main_run['layout']}")
-    print(f"[3/14] main path {json.dumps(main_run)}", flush=True)
+    print(f"[3/15] main path {json.dumps(main_run)}", flush=True)
     large = phase_main_path(10_000_000, "resident", name,
                             expect(insert=39, point=4, range=4), kernels,
                             time_range=True)
-    print(f"[4/14] resident 10M {json.dumps(large)}", flush=True)
+    print(f"[4/15] resident 10M {json.dumps(large)}", flush=True)
 
     single = {k: kernels[k] for k in ("insert", "point", "range")}
     times = phase_times(device, big, single)
-    print(f"[5/14] times at {CHUNK} keys/queries, filter "
+    print(f"[5/15] times at {CHUNK} keys/queries, filter "
           f"{big.total_u32 * 4} B, on {smi}: {json.dumps(times)}", flush=True)
 
     t0 = time.perf_counter()
     stacked = phase_stacked_vs_plain(device, kernels, errs, big)
     stacked_times = stacked.pop("times")
     times.update(stacked_times)
-    print(f"[6/14] B4 == plain on {stacked['scan_cells_checked']} (scan, run) "
+    print(f"[6/15] B4 == plain on {stacked['scan_cells_checked']} (scan, run) "
           f"cells (mixed Δ, multi-segment, replicas, capacity ladder; padded "
           f"and flat stacks, rpb 0/2, quarantine, edge bounds); B5/B6 == "
           f"plain on {stacked['stacked_rows']} rows of the phase-3 layout: "
@@ -3694,7 +4133,7 @@ def main() -> int:
     store = phase_store(device, kernels, errs)
     times["store_scan"] = store.pop("times")
     b1_shapes.update(store.pop("b1_shapes"))
-    print(f"[7/14] store, {STORE_KEYS} keys loaded by put (the key count is "
+    print(f"[7/15] store, {STORE_KEYS} keys loaded by put (the key count is "
           f"set by the host's per-key Python load path, not by the card), "
           f"YCSB-E: every scan == numpy oracle, every batch's (fence, touch) "
           f"== plain touch_all, {store['launches']} B4 launches for "
@@ -3710,7 +4149,7 @@ def main() -> int:
     hbm = phase_hbm(device, kernels, errs)
     times.update(hbm.pop("times"))
     b1_shapes.update(hbm.pop("b1_shapes"))
-    print(f"[8/14] HBM-scale filter, {HBM_KEYS} keys under auto, grown x{GROW} "
+    print(f"[8/15] HBM-scale filter, {HBM_KEYS} keys under auto, grown x{GROW} "
           f"in place to {HBM_KEYS * GROW}: no false negatives over all keys "
           f"(truth sorted on the card), state and verdicts == xla twin, "
           f"launches {json.dumps(hbm['launches'])}; deletable and TTL "
@@ -3723,13 +4162,13 @@ def main() -> int:
     if errs["insert"]:
         raise AssertionError(f"B1 != plain on a traffic shape: {errs}")
     times["insert"]["shapes"] = b1_shapes
-    print(f"[8/14] B1 alone on its traffic shapes ((a) the phase-3 filter in "
+    print(f"[8/15] B1 alone on its traffic shapes ((a) the phase-3 filter in "
           f"the L2, (b) phase 8's states cold, each of {COLD_CHUNKS} chunks "
           f"captured once, (c) phase 7's flush and largest rebuild, sorted "
           f"keys) on {smi}: {json.dumps(b1_shapes)}", flush=True)
 
     call_ms = {k: t.pop("call_ms") for k, t in times.items()}
-    print(f"[8/14] kernel wrappers' ms per call by CUDA events over 200 "
+    print(f"[8/15] kernel wrappers' ms per call by CUDA events over 200 "
           f"back-to-back calls, host dispatch included (the kernels line's "
           f"ms is the kernel alone, from a CUDA graph): "
           f"{json.dumps(call_ms)}", flush=True)
@@ -3739,7 +4178,7 @@ def main() -> int:
         "insert_keys_per_s", "point_queries_per_s", "range_queries_per_s")},
               "phase7_store": {k: store[k] for k in (
                   "load_puts_per_s", "host_scans_per_s")}}
-    print(f"[9/14] 64-bit keys on the plain path on the card, no kernel "
+    print(f"[9/15] 64-bit keys on the plain path on the card, no kernel "
           f"launched: mix64 == numpy on {MIX64_KEYS} keys with the top bit "
           f"set; the default open_filter (u64) and an f64 filter of "
           f"{WIDE_KEYS} keys with no false negatives, {SUBSAMPLE} verdicts "
@@ -3765,6 +4204,7 @@ def main() -> int:
     if errs["insert"] or errs["point_stacked"]:
         raise AssertionError(f"B1 or B6 != plain on a bank shape: {errs}")
     serve = phase_serve(device, kernels, smi)
+    families = phase_families(device, kernels, smi)
     times["point_stacked"]["bank_shapes"] = {
         "phase13_bank": bank.pop("b6"), "phase13_tenant": tenant.pop("b6")}
     for row in times["point_stacked"]["bank_shapes"].values():
@@ -3775,7 +4215,8 @@ def main() -> int:
         "phase13_tenant_points": tenant["launches"]["points"],
         "phase13_tenant_grown_points": tenant["launches"]["grown_points"],
         "phase13_prefix_lookups": prefix["launches"]["point_stacked"],
-        "phase14_serve_lookups": serve["launches"]["point_stacked"]}
+        "phase14_serve_lookups": serve["launches"]["point_stacked"],
+        "phase15_serve_lookups": families["launches"]["point_stacked"]}
     times["insert"]["launches_by_path"] = {
         "phase3_main": main_run["launches"]["insert"],
         "phase7_store_builds": store["b1_launches"],
@@ -3790,7 +4231,8 @@ def main() -> int:
         "phase13_tenant_rows": tenant["launches"]["build"],
         "phase13_ttl_tenant_rows": tenant["launches"]["ttl_build"],
         "phase13_prefix_cache": prefix["launches"]["insert"],
-        "phase14_serve_freezes": serve["launches"]["insert"]}
+        "phase14_serve_freezes": serve["launches"]["insert"],
+        "phase15_serve_freezes": families["launches"]["insert"]}
     times["store_scan"]["launches_by_path"] = {
         "phase7_store": store["launches"],
         "phase10_durable": durable["launches"],

@@ -1,5 +1,6 @@
-"""Model zoo of the port: the dense and VLM backbones (the MoE, SSM,
-hybrid and encoder-decoder families are ROADMAP A.11.2b)."""
+"""Model zoo of the port: the dense and VLM backbones, MoE, Mamba2 (SSD),
+the Zamba2-style hybrid and the whisper-style encoder-decoder, each
+family built by ``get_model``."""
 from .config import SHAPES, ModelConfig, Shape
 from .registry import MODEL_FAMILIES, get_model
 

@@ -2,7 +2,11 @@
 temperature sampling, prefix-cache admission via the bloomRF index, and
 fixed-slot batching.
 
-Counterpart of ``repro/serve/decode.py``.  Greedy decoding (``argmax``)
+Counterpart of ``repro/serve/decode.py``.  The prefill cache grows to the
+model's own decode cache shapes (``grow_cache``), where the reference pads
+every leaf whose axis 2 equals the prompt length: that also pads a Mamba
+state whose head count, or a conv tail whose ``conv_kernel - 1``, equals
+the prompt length (ROADMAP C.7).  Greedy decoding (``argmax``)
 gives the reference's tokens; temperature sampling draws from a
 ``torch.Generator`` seeded with ``seed``, a different stream from
 ``jax.random.categorical``'s, so sampled tokens differ from the
@@ -18,10 +22,33 @@ import torch
 import torch.nn.functional as F
 
 from ..core.bloomrf import resolve_device
+from ..models.config import Shape
 from ..models.params import tree_map
 from .prefix_cache import PrefixCacheIndex, pack_key
 
-__all__ = ["Request", "ServeLoop"]
+__all__ = ["Request", "ServeLoop", "grow_cache"]
+
+
+def grow_cache(model, cache, max_seq: int, batch: int):
+    """A prefill cache padded at the end of each axis to the matching leaf
+    of ``model.cache_specs`` at ``max_seq`` tokens: KV sequence axes grow,
+    constant-size leaves (SSM states, conv tails, cross-attention KV) keep
+    their shapes."""
+    specs = model.cache_specs(Shape("serve", max_seq, batch, "decode"))
+
+    def grow(x, spec):
+        if tuple(x.shape) == tuple(spec.shape):
+            return x
+        short = [want - have for have, want in zip(x.shape, spec.shape)]
+        if len(short) != x.ndim or min(short) < 0:
+            raise ValueError(f"cache leaf {tuple(x.shape)} does not fit "
+                             f"{tuple(spec.shape)}")
+        pad = []
+        for n in reversed(short):
+            pad += [0, n]
+        return F.pad(x, pad)
+
+    return tree_map(grow, cache, specs)
 
 
 @dataclasses.dataclass
@@ -81,7 +108,7 @@ class ServeLoop:
                 self.index.lookup(r.session, c)
         logits, cache = self._prefill(
             self.params, {"tokens": torch.from_numpy(toks).to(self.device)})
-        cache = self._grow_cache(cache, plen)
+        cache = grow_cache(self.model, cache, self.max_seq, B)
         for r in batch:
             r.out_tokens = []
         nxt = self._sample(logits, batch[0].temperature)
@@ -102,15 +129,3 @@ class ServeLoop:
                 entries[pack_key(r.session, c)] = [i]  # page ids (demo)
         if entries:
             self.index.freeze_segment(entries)
-
-    def _grow_cache(self, cache, plen: int):
-        """Pad prefill caches (seq dim = plen) out to max_seq for decode."""
-        pad_to = self.max_seq
-
-        def grow(x):
-            if x.ndim >= 3 and x.shape[2] == plen:  # (L,B,S,...) KV layout
-                pad = [0, 0] * (x.ndim - 3) + [0, pad_to - plen]
-                return F.pad(x, pad)
-            return x
-
-        return tree_map(grow, cache)

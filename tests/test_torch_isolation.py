@@ -20,6 +20,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "import repro_torch.data, repro_torch.train\n"
             "import repro_torch.models, repro_torch.configs\n"
             "import repro_torch.models.transformer, repro_torch.serve.decode\n"
+            "import repro_torch.models.moe, repro_torch.models.mamba2\n"
+            "import repro_torch.models.hybrid, repro_torch.models.encdec\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -56,7 +58,9 @@ def test_no_module_imports_jax_or_repro():
             "data/pipeline.py", "train/checkpoint.py",
             "models/__init__.py", "models/config.py", "models/params.py",
             "models/act.py", "models/layers.py", "models/transformer.py",
-            "models/registry.py", "configs/__init__.py", "configs/base.py",
+            "models/registry.py", "models/moe.py", "models/mamba2.py",
+            "models/hybrid.py", "models/encdec.py",
+            "configs/__init__.py", "configs/base.py",
             "configs/qwen3_1_7b.py", "configs/qwen2_5_3b.py",
             "configs/qwen1_5_32b.py", "configs/granite_8b.py",
             "configs/pixtral_12b.py", "configs/granite_moe_3b_a800m.py",

@@ -31,6 +31,11 @@ from repro_torch.configs import ARCH_NAMES, cells, get_config
 from repro_torch.models import SHAPES, get_model, layers
 from repro_torch.models.params import (P, count_params, init_params,
                                        params_from_numpy, tree_leaves)
+from repro_torch.models import MODEL_FAMILIES
+from repro_torch.models.encdec import EncDecModel
+from repro_torch.models.hybrid import HybridModel
+from repro_torch.models.mamba2 import MambaModel
+from repro_torch.models.moe import MoEModel
 from repro_torch.models.transformer import DenseModel
 from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 
@@ -105,16 +110,22 @@ def _torch_name(dtype):
 
 
 def test_unported_families_raise_and_no_card_is_never_the_cpu(monkeypatch):
+    """Every family is ported (ROADMAP A.11.2b): each arch builds
+    its family's class on the CPU when asked, and no family's model falls
+    back to the CPU where no card is present."""
+    classes = {"dense": DenseModel, "vlm": DenseModel, "moe": MoEModel,
+               "ssm": MambaModel, "hybrid": HybridModel,
+               "encdec": EncDecModel}
+    assert set(classes) == set(MODEL_FAMILIES)
     for arch in ARCH_NAMES:
         cfg = get_config(arch, smoke=True)
-        if cfg.family in ("dense", "vlm"):
-            assert isinstance(get_model(cfg, device="cpu"), DenseModel)
-        else:
-            with pytest.raises(NotImplementedError, match="A.11.2b"):
-                get_model(cfg, device="cpu")
+        model = get_model(cfg, device="cpu")
+        assert type(model) is classes[cfg.family]
+        assert model.device == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        get_model(get_config("qwen3-1.7b", smoke=True))
+    for arch in ARCH_NAMES:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            get_model(get_config(arch, smoke=True))
     assert set(SHAPES) == {"train_4k", "prefill_32k", "decode_32k",
                            "long_500k"}
 
