@@ -189,7 +189,35 @@ Phases, one line of output each:
     CPU at full depth; (e) ``moonshot-v1-16b-a3b`` at full width cut to
     4 of 48 layers (28.06 B f32 params need 112 GB): decode == prefill
     at the no-drop capacity.  Each part's parameters, init seconds, peak
-    memory, and the served parts' rates and profiles beside the card.
+    memory, and the served parts' rates and profiles beside the card;
+16. training (the port of ``repro.train``): (a) full-width
+    ``qwen3-1.7b`` (f32 parameters drawn on the card, bf16 activations,
+    remat on) trained 8 steps by ``Trainer`` on
+    examples/train_lm_dedup.py's stream (``SyntheticCorpus(seed=1,
+    dup_rate=0.3)``, ``StreamDeduper(1 << 14)``, freshness window
+    ``(0, 10000)``) at batch 4 x 512 tokens, 2 microbatches, int8 error
+    feedback, AdamW at lr 3e-4 (warmup 2, 8 steps): losses and grad norms
+    finite, lr == ``cosine_lr``, every leaf moved, the deduper's stats and
+    every batch's tokens == a CPU twin of the stream, B1 (a shard index
+    filter, a deduper insert), B2 (a deduper probe) and B3 (a window
+    query) launched as the data path implies; the median step ms,
+    tokens/s, one step's device busy share and operations
+    (``torch.profiler``) and ``max_memory_allocated``; (b) 6 steps on one
+    repeated batch (1 microbatch, no compression): the last loss below the
+    first; (c) at the reference tests' sizes in f32, TF32 off, attention
+    at the true fan-in (ROADMAP C.8, C.9): one train step of qwen3,
+    granite-moe (2 microbatches, error feedback), zamba2 and whisper smoke
+    on the card == the CPU (loss, grad norm and the step's gradient within
+    1e-4 of scale, params within 1e-4 where the gradient is resolved), the
+    rmsnorm and flash Functions' outputs and gradients on the card == the
+    CPU within 1e-5, and the flash backward at qwen3-1.7b's heads (B 1, S
+    2048, 8 KV heads, G 2, hd 128) in bf16 within 2e-2 of f32 autograd of
+    the plain forward; (d) tests/test_train.py's restart test on the card
+    (qwen2.5-3b smoke, 14 steps, a checkpoint every 7, a failure at step
+    10 under ``Supervisor``): one restart, the final loss == the straight
+    run's within 1e-4, one B1 launch per shard filter of each checkpoint,
+    and ``restore_layer_range`` of layer 1 equal to that layer of the full
+    restore, one B3 launch per hashed shard filter.
 
 It prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -354,7 +382,11 @@ def _grid(n: int, threads: int = 256) -> int:
 _ENQUEUE = r"^cu(da)?(Launch|Memcpy|Memset)"
 
 
-def _device_busy(fn, reps: int = 4, launches=None):
+#: device kernels that are matrix products (cuBLAS / CUTLASS names)
+_MATMUL = r"gemm|xmma|cutlass|nvjet|cublas"
+
+
+def _device_busy(fn, reps: int = 4, launches=None, top: int = 0):
     """``fn``'s wall milliseconds per call (host clock, closed by a
     synchronize) beside the device time of the kernels and copies it ran
     and their count per call, from a ``torch.profiler`` trace of ``reps``
@@ -369,7 +401,9 @@ def _device_busy(fn, reps: int = 4, launches=None):
     enqueue record is there (PERF.md §7): it is counted in
     ``device_records_missing`` and its time is not in ``device_ms``.
     ``launches`` (a wrapper's own launch count) must move by exactly
-    ``reps`` over the traced calls."""
+    ``reps`` over the traced calls.  With ``top``, also the matrix
+    products' share of the device time and the ``top`` device names by
+    their milliseconds per call."""
     import re
 
     import torch
@@ -399,11 +433,22 @@ def _device_busy(fn, reps: int = 4, launches=None):
     orphans = sum(e.correlation_id() not in enqueued for e in device)
     if not dev_us:
         return None
-    return {"wall_ms": wall / reps * 1e3, "device_ms": dev_us / reps / 1e3,
-            "device_busy_share": dev_us / 1e6 / wall,
-            "device_ops_per_call": (len(enqueued) + orphans) / reps,
-            "device_records": len(device),
-            "device_records_missing": len(enqueued - joined)}
+    out = {"wall_ms": wall / reps * 1e3, "device_ms": dev_us / reps / 1e3,
+           "device_busy_share": dev_us / 1e6 / wall,
+           "device_ops_per_call": (len(enqueued) + orphans) / reps,
+           "device_records": len(device),
+           "device_records_missing": len(enqueued - joined)}
+    if top:
+        by_name: dict = {}
+        for e in device:
+            by_name[e.name()] = by_name.get(e.name(), 0) + (
+                e.end_ns() - e.start_ns())
+        mm = sum(v for k, v in by_name.items()
+                 if re.search(_MATMUL, k, re.IGNORECASE))
+        out["matmul_share_of_device"] = mm / 1e3 / dev_us
+        out["top_device_ms"] = {k[:80]: v / 1e6 / reps for k, v in sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:top]}
+    return out
 
 
 def _pair_halves(delta, par, qlo, qhi):
@@ -2239,7 +2284,7 @@ def _durable_and_obs(device, kernels, expect, smi):
         t0 = time.perf_counter()
         durable = phase_durable(device, kernels,
                                 str(Path(wal_root) / "wal"))
-        print(f"[10/15] deletable, durable store (phase 7's settings, "
+        print(f"[10/16] deletable, durable store (phase 7's settings, "
               f"mutability='deletable', durability='wal'): {STORE_KEYS} "
               f"puts through the WAL, a checkpoint, {durable['deleted']} "
               f"keys deleted in {durable['delete_batches']} delete_many "
@@ -2258,7 +2303,7 @@ def _durable_and_obs(device, kernels, expect, smi):
         obs_run = phase_obs(device, kernels,
                             expect(insert=8, point=4, range=4),
                             str(Path(wal_root) / "trace.jsonl"))
-        print(f"[11/15] obs on the main path (phase 3's filter and mix, "
+        print(f"[11/16] obs on the main path (phase 3's filter and mix, "
               f"obs.enable() and a JSONL trace sink): launches "
               f"{json.dumps(obs_run['launches_on'])} as with obs off, the "
               f"same verdicts and state, kernel/dispatch/resident == calls, "
@@ -2709,7 +2754,7 @@ def phase_tuned(device, kernels, errs, smi):
     """Phase 12, each part printing its line; returns their results."""
     t0 = time.perf_counter()
     twin = _adaptive_twin(device, kernels, errs)
-    print(f"[12/15] (a) adaptive twin: phase 7's store, tuning 'auto' and "
+    print(f"[12/16] (a) adaptive twin: phase 7's store, tuning 'auto' and "
           f"'adaptive', {TUNE_KEYS} clustered keys, {TUNE_BATCHES} batches "
           f"of near-miss scans between the halves and after: retunes "
           f"{twin['adaptive']['retunes']}, scans == static twin == oracle, "
@@ -2721,21 +2766,21 @@ def phase_tuned(device, kernels, errs, smi):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     base = _baseline_stores(device, kernels)
-    print(f"[12/15] (b) host baselines as store_backend, {BASE_KEYS} keys "
+    print(f"[12/16] (b) host baselines as store_backend, {BASE_KEYS} keys "
           f"each (phase 7's settings), {BASE_SCANS} of phase 7's scans == "
           f"oracle (bloom: {BASE_SCANS} gets), no kernel launched; bloomRF "
           f"on the same stream beside them: {json.dumps(base)} on {smi} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     cmp_ = _standalone(device, kernels)
-    print(f"[12/15] (c) standalone comparison on phase 3's {CMP_KEYS} keys at "
+    print(f"[12/16] (c) standalone comparison on phase 3's {CMP_KEYS} keys at "
           f"16 bits/key, {CMP_QUERIES} points (half present) and ranges "
           f"(2^0..2^14): no false negatives, the adapter == its xla twin: "
           f"{json.dumps(cmp_)} on {smi} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     typed = _typed_stores(device, kernels)
-    print(f"[12/15] (d) a str store of {STR_KEYS} keys (memtable "
+    print(f"[12/16] (d) a str store of {STR_KEYS} keys (memtable "
           f"{STR_MEMTABLE}, compactions asserted) and a multiattr "
           f"store of {TYPED_KEYS}, {TYPED_SCANS} scans each == sorted "
           f"oracle, no kernel launched: "
@@ -3234,7 +3279,7 @@ def phase_banks(device, kernels, errs, smi):
     """Phase 13, each part printing its line; returns their results."""
     t0 = time.perf_counter()
     bank_h, bank_q, bank = _bank13(device, kernels, errs)
-    print(f"[13/15] (a) bank: open_filter(FilterSpec(u32, n={BANK_KEYS}, 14 "
+    print(f"[13/16] (a) bank: open_filter(FilterSpec(u32, n={BANK_KEYS}, 14 "
           f"bits/key, delta 6, placement='bank', shards={BANK_SHARDS})), "
           f"{BANK_KEYS} inserts in {CHUNK}-key chunks, {BANK_QUERIES} points "
           f"and ranges, {SPAN_RANGES} ranges across 2-3 shards and the "
@@ -3244,7 +3289,7 @@ def phase_banks(device, kernels, errs, smi):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     ten_h, ten_q, tenant = _tenant13(device, kernels, errs)
-    print(f"[13/15] (b) tenant bank: FilterSpec(u32, n={TEN_KEYS}, "
+    print(f"[13/16] (b) tenant bank: FilterSpec(u32, n={TEN_KEYS}, "
           f"placement='tenant', tenants={TENANTS}, shards={TEN_SHARDS}), "
           f"{TEN_KEYS * TENANTS} inserts with random tenants, the same mix, "
           f"ranges with and without meta, meta_skip_stats, grow(4) in "
@@ -3255,7 +3300,7 @@ def phase_banks(device, kernels, errs, smi):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     prefix = _prefix13(device, kernels)
-    print(f"[13/15] (c) prefix cache: PrefixCacheIndex(bits_per_key=14, "
+    print(f"[13/16] (c) prefix cache: PrefixCacheIndex(bits_per_key=14, "
           f"n_tenants=16, ttl_generations=4) over a WAL store (phase 10's "
           f"settings), {PC_SEGMENTS} segments of "
           f"{PC_SESSIONS * PC_CHUNKS} entries, {PC_LOOKUPS} lookups (half "
@@ -3267,7 +3312,7 @@ def phase_banks(device, kernels, errs, smi):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     sharded = _sharded13(device, bank_h, bank_q, ten_h, ten_q)
-    print(f"[13/15] (d) ShardedFilterBank and ShardedTenantFilterBank on an "
+    print(f"[13/16] (d) ShardedFilterBank and ShardedTenantFilterBank on an "
           f"NCCL world of 1 == their banks on {SHARD_PROBES} of (a)'s and "
           f"(b)'s points and ranges (with and without meta): "
           f"{json.dumps(sharded)} ({time.perf_counter() - t0:.1f} s)",
@@ -3657,7 +3702,7 @@ def phase_serve(device, kernels, smi):
                                                 SERVE_BAND)
         if torch.device(device).type == "cuda":
             made["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-        print(f"[14/15] (a) {SERVE_ARCH} at full width ({cfg.n_layers} "
+        print(f"[14/16] (a) {SERVE_ARCH} at full width ({cfg.n_layers} "
               f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads, "
               f"{cfg.n_kv_heads} KV heads, vocab {cfg.vocab}), f32 params "
               f"on the card, count_params == leaves in {SERVE_BAND}: "
@@ -3668,7 +3713,7 @@ def phase_serve(device, kernels, smi):
                                              params)
         serve["profile"] = _serve_profile(device, model, params, batch1,
                                           prompts, SERVE_PROMPT + SERVE_NEW)
-        print(f"[14/15] (b) ServeLoop(max_seq={SERVE_MAX_SEQ}, batch_slots="
+        print(f"[14/16] (b) ServeLoop(max_seq={SERVE_MAX_SEQ}, batch_slots="
               f"{SERVE_SLOTS}, prefix_chunk={SERVE_CHUNK}), 8 greedy "
               f"requests (sessions 0-3 twice, {SERVE_PROMPT}-token prompts, "
               f"{SERVE_NEW} new tokens): index answers and stats == the CPU "
@@ -3679,14 +3724,14 @@ def phase_serve(device, kernels, smi):
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         t0 = time.perf_counter()
         greedy = _greedy_and_consistency(device, cfg, model, params)
-        print(f"[14/15] (c, d) loop greedy tokens == manual greedy decode; "
+        print(f"[14/16] (c, d) loop greedy tokens == manual greedy decode; "
               f"decode(token T | cache(prompt[:T])) == prefill(prompt[:T+1])"
               f" within 2e-2 at full depth, f32, B {CONSIST_B}, T "
               f"{CONSIST_T}: {json.dumps(greedy)} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         t0 = time.perf_counter()
         versus = _card_vs_cpu(device, cfg, params)
-        print(f"[14/15] (e) card == CPU, {CARD_CPU_LAYERS} layers at full "
+        print(f"[14/16] (e) card == CPU, {CARD_CPU_LAYERS} layers at full "
               f"width, f32, TF32 off, prefill logits within {CARD_CPU_TOL}: "
               f"{json.dumps(versus)} ({time.perf_counter() - t0:.1f} s)",
               flush=True)
@@ -3695,7 +3740,7 @@ def phase_serve(device, kernels, smi):
         if torch.device(device).type == "cuda":
             serve["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         secs = time.perf_counter() - t_phase
-        print(f"[14/15] (f) PagedKVCache at the full KV shape == the loop's "
+        print(f"[14/16] (f) PagedKVCache at the full KV shape == the loop's "
               f"cache bit for bit: {json.dumps(paged)}; phase 14 in "
               f"{secs:.1f} s on {smi}", flush=True)
     finally:
@@ -3784,7 +3829,7 @@ def _served_family(device, kernels, smi, part, arch, card_cpu_layers,
     cfg, model, params, made = _serve_model(device, arch,
                                             FAMILY_BANDS.get(arch))
     made["max_memory_allocated"] = _peak(device)
-    print(f"[15/15] ({part}) {arch} at full width ({cfg.n_layers} layers, "
+    print(f"[15/16] ({part}) {arch} at full width ({cfg.n_layers} layers, "
           f"d_model {cfg.d_model}, vocab {cfg.vocab}), f32 params on the "
           f"card: {json.dumps(made)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
@@ -3803,7 +3848,7 @@ def _served_family(device, kernels, smi, part, arch, card_cpu_layers,
             n for _, n in drops)
     serve["profile"] = _serve_profile(device, model, params, batch1,
                                       prompts, SERVE_PROMPT + FAMILY_NEW)
-    print(f"[15/15] ({part}) ServeLoop as phase 14's, {FAMILY_NEW} new "
+    print(f"[15/16] ({part}) ServeLoop as phase 14's, {FAMILY_NEW} new "
           f"tokens: index answers and stats == the CPU twin, one B6 launch "
           f"a lookup against a segment, none before, B1 for the segments' "
           f"rows, no other launch: {json.dumps(serve)} on {smi} "
@@ -3816,7 +3861,7 @@ def _served_family(device, kernels, smi, part, arch, card_cpu_layers,
     greedy["reference_init"] = _consistency(
         device, cfg, params, np.random.default_rng(SEED + 143), hold=False,
         **_no_drop(cfg))
-    print(f"[15/15] ({part}) loop greedy tokens == manual greedy decode for "
+    print(f"[15/16] ({part}) loop greedy tokens == manual greedy decode for "
           f"{SERVE_SLOTS} prompts of each of {list(lengths)} tokens; "
           f"decode == prefill within 2e-2 at full depth, f32, attention "
           f"projections at their true fan-in (ROADMAP C.8; at the "
@@ -3825,7 +3870,7 @@ def _served_family(device, kernels, smi, part, arch, card_cpu_layers,
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     versus = _card_vs_cpu(device, cfg, tamed, card_cpu_layers)
-    print(f"[15/15] ({part}) card == CPU, {card_cpu_layers} layers at full "
+    print(f"[15/16] ({part}) card == CPU, {card_cpu_layers} layers at full "
           f"width, f32, TF32 off, prefill logits within {CARD_CPU_TOL}: "
           f"{json.dumps(versus)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
@@ -3933,7 +3978,7 @@ def _whisper(device, smi):
                                          hold=False)
     run["card_vs_cpu"] = _card_vs_cpu(device, cfg, tamed, cfg.n_layers, few)
     made["max_memory_allocated"] = _peak(device)
-    print(f"[15/15] (d) {arch} at full width ({cfg.n_enc_layers} + "
+    print(f"[15/16] (d) {arch} at full width ({cfg.n_enc_layers} + "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.enc_seq} "
           f"frames, vocab {cfg.vocab}), f32 params on the card: "
           f"{json.dumps(made)}; prefill of {WHISPER_B} x {WHISPER_T} tokens, "
@@ -3966,7 +4011,7 @@ def _moonshot(device, smi):
     consist = _consistency(device, cfg, _tamed(params), rng, **_no_drop(cfg))
     consist["reference_init"] = _consistency(device, cfg, params, rng,
                                              hold=False, **_no_drop(cfg))
-    print(f"[15/15] (e) {full.name} at full width (d_model {cfg.d_model}, "
+    print(f"[15/16] (e) {full.name} at full width (d_model {cfg.d_model}, "
           f"{cfg.n_experts} experts, top-{cfg.experts_per_token}, vocab "
           f"{cfg.vocab}) cut to {MOONSHOT_LAYERS} of {full.n_layers} "
           f"layers, f32 params on the card: {json.dumps(made)}; decode == "
@@ -3998,7 +4043,7 @@ def phase_families(device, kernels, smi):
         mamba = get_config("mamba2-130m")
         t0 = time.perf_counter()
         ssd = _ssd_on_card(device, mamba)
-        print(f"[15/15] (b) ssd_chunked on the card == the naive recurrence "
+        print(f"[15/16] (b) ssd_chunked on the card == the naive recurrence "
               f"(f64) within {SSD_TOL}, f32: {json.dumps(ssd)} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         served["mamba2-130m"] = _served_family(
@@ -4015,10 +4060,534 @@ def phase_families(device, kernels, smi):
     secs = time.perf_counter() - t_phase
     launches = {k: sum(s["launches"].get(k, 0) for s in served.values())
                 for k in ("point_stacked", "insert")}
-    print(f"[15/15] phase 15 in {secs:.1f} s on {smi}: launches "
+    print(f"[15/16] phase 15 in {secs:.1f} s on {smi}: launches "
           f"{json.dumps(launches)}", flush=True)
     return {"served": served, "whisper": whisper, "moonshot": moonshot,
             "launches": launches, "phase_s": secs}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_B, TRAIN_S = 4, 512     # examples/train_lm_dedup.py's batch, 512 tokens
+TRAIN_STEPS = 8
+TRAIN_MB = 2                  # microbatches of 2 sequences
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=8)
+DEDUP_DOCS = 1 << 14          # StreamDeduper(expected_docs), the example's
+TRAIN_WINDOW = (0, 10_000)    # the example's freshness window
+MEMO_STEPS = 6                # (b) one repeated batch
+#: (c) the reference tests' train steps: (arch, microbatches, int8 EF)
+SMOKE_STEPS = (("qwen3-1.7b", 1, False), ("granite-moe-3b-a800m", 2, True),
+               ("zamba2-2.7b", 1, False), ("whisper-base", 1, False))
+STEP_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+#: card against CPU, f32 with TF32 off: loss, grad norm and the step's
+#: clipped gradient (read from Adam's first moment) within 1e-4 of their
+#: scale; the params within 1e-4 where that gradient is resolved
+#: (|g| > RESOLVED).  Below it rounding noise (~1e-8) is of the order of
+#: Adam's eps and decides the sign of the first update g / (|g| + eps),
+#: so there the params are held to the bound of any Adam step,
+#: lr (1 + wd |p|) on each side
+STEP_TOL = 1e-4
+RESOLVED = 1e-5
+LAYER_TOL = 1e-5              # rmsnorm and flash Functions, card vs CPU, f32
+FLASH_FULL = (1, 2048, 8, 2, 128)   # qwen3-1.7b's heads: B, S, Hkv, G, hd
+FLASH_BF16_TOL = 2e-2         # bf16 grads against f32 autograd, of scale
+RESTART_ARCH = "qwen2.5-3b"   # tests/test_train.py's restart test
+RESTART_STEPS, RESTART_EVERY, RESTART_FAIL = 14, 7, 10
+
+
+def _seeded_batch(cfg, seed, B, S):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab - 1, (B, S + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(0, 1, (B, cfg.enc_seq, cfg.d_model)
+                                     ).astype(np.float32)
+    return batch
+
+
+def _samples(params) -> list:
+    """A strided sample of up to 4,096 elements of every leaf."""
+    from repro_torch.models.params import tree_leaves
+
+    return [a.detach().reshape(-1)[::max(1, a.numel() // 4096)].clone()
+            for a in tree_leaves(params)]
+
+
+def _corpus(cfg):
+    from repro_torch.data import SyntheticCorpus
+
+    return SyntheticCorpus(vocab=cfg.vocab, seed=1, dup_rate=0.3)
+
+
+def _stream(cfg, deduper, device):
+    from repro_torch.data import batch_iterator
+
+    return batch_iterator(_corpus(cfg), TRAIN_B, TRAIN_S, deduper=deduper,
+                          window=TRAIN_WINDOW, device=device)
+
+
+def _stream_twin(cfg, steps):
+    """The stream on the CPU: its batches' tokens, the deduper's stats
+    and the kept count of each admitted shard."""
+    from repro_torch.data import StreamDeduper
+
+    twin = StreamDeduper(DEDUP_DOCS, device="cpu")
+    admit, kept = twin.admit, []
+
+    def counted(ids):
+        keep = admit(ids)
+        kept.append(int(keep.sum()))
+        return keep
+
+    twin.admit = counted
+    it = _stream(cfg, twin, "cpu")
+    tokens = [next(it)["tokens"].numpy() for _ in range(steps)]
+    return tokens, dict(twin.stats), kept
+
+
+def _train_tflop(cfg, model) -> float:
+    """A step's matrix-product TFLOP from the shapes: the forward's 2
+    FLOP a token a matmul weight (every param but the embedding, a
+    gather) and its attention scores and sums (4 B S^2 H hd a layer,
+    the causal half included, as the scan computes it), three times
+    (forward and a backward of twice its work), plus the layers'
+    forward again (remat)."""
+    from repro_torch.models.params import count_params
+
+    table = model.table()
+    mm = count_params(table) - count_params({"e": table["embed"]})
+    layers = count_params(table["layers"])
+    tokens = TRAIN_B * TRAIN_S
+    attn = 4 * TRAIN_B * TRAIN_S ** 2 * cfg.n_heads * cfg.hd * cfg.n_layers
+    fwd, fwd_layers = 2 * tokens * mm + attn, 2 * tokens * layers + attn
+    return (3 * fwd + fwd_layers) / 1e12
+
+
+def _train_full(device, kernels, smi):
+    """(a) the deduped stream into full-width qwen3-1.7b: 8 steps of 2
+    microbatches with int8 error feedback; returns the numbers and the
+    first batch."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.layout import basic_layout
+    from repro_torch.data import StreamDeduper
+    from repro_torch.train import OptConfig, TrainConfig, Trainer, cosine_lr
+
+    t0 = time.perf_counter()
+    _free(device)
+    cfg, model, params, made = _serve_model(device, TRAIN_ARCH, SERVE_BAND)
+    if not cfg.remat or cfg.dtype != "bfloat16":
+        raise AssertionError(f"{cfg.name}: remat {cfg.remat}, {cfg.dtype}")
+    before = _samples(params)
+    deduper = StreamDeduper(DEDUP_DOCS, device=device)
+    seen = []
+
+    def recorded(it):
+        for b in it:
+            seen.append(b)
+            yield b
+
+    opt = OptConfig(**TRAIN_OPT)
+    tr = Trainer(model, params, opt,
+                 TrainConfig(steps=TRAIN_STEPS, microbatches=TRAIN_MB,
+                             grad_compression=True, log_every=1,
+                             checkpoint_every=1 << 30),
+                 recorded(_stream(cfg, deduper, device)))
+    read = _counted(kernels)
+    t_run = time.perf_counter()
+    log = tr.run()
+    run_s = time.perf_counter() - t_run
+    launches = read()
+    peak = _peak(device)
+
+    tokens, stats, kept = _stream_twin(cfg, TRAIN_STEPS)
+    if dict(deduper.stats) != stats or any(
+            not np.array_equal(b["tokens"].cpu().numpy(), t)
+            for b, t in zip(seen, tokens)) or len(seen) != TRAIN_STEPS:
+        raise AssertionError(f"stream != CPU twin: stats {deduper.stats} "
+                             f"vs {stats}")
+    corpus = _corpus(cfg)
+    shards = corpus.n_shards        # ShardRangeIndex: a filter a shard
+    index = basic_layout(32, corpus.docs_per_shard, 12.0, delta=6)
+    expect = {k: 0 for k in kernels}
+    expect.update(insert=shards + sum(k > 0 for k in kept),
+                  point=len(kept),
+                  range=0 if index.has_exact else shards)
+    if launches != expect:
+        raise AssertionError(f"train data launches {launches} (expected "
+                             f"{expect})")
+    for r in log:
+        want = float(cosine_lr(opt, torch.tensor(r["step"] + 1,
+                                                 dtype=torch.int32,
+                                                 device=device)))
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                and r["lr"] == want):
+            raise AssertionError(f"step {r}: lr {want}")
+        if abs(r["lr"] - float(cosine_lr(opt, r["step"] + 1))) > \
+                1e-6 * r["lr"]:
+            raise AssertionError(f"step {r}: CPU schedule differs")
+    moved = [bool((a != b).any()) for a, b in zip(before,
+                                                   _samples(tr.params))]
+    if not all(moved):
+        raise AssertionError(f"{moved.count(False)} leaves did not move")
+    times = [r["step_time_s"] for r in log]
+    batch = seen[-1]
+    busy = (_device_busy(lambda: tr.step_fn(tr.params, tr.opt_state,
+                                            tr.ef_error, batch), reps=1,
+                         top=8)
+            if torch.device(device).type == "cuda" else None)
+    info = {
+        **made, "remat": cfg.remat, "activations": cfg.dtype,
+        "batch": [TRAIN_B, TRAIN_S], "microbatches": TRAIN_MB,
+        "grad_compression": True, "steps": TRAIN_STEPS,
+        "losses": [r["loss"] for r in log],
+        "grad_norms": [r["grad_norm"] for r in log],
+        "lrs": [r["lr"] for r in log],
+        "step_ms": [1e3 * t for t in times],
+        "step_ms_median": 1e3 * float(np.median(times[1:])),
+        "tokens_per_s": TRAIN_B * TRAIN_S / float(np.median(times[1:])),
+        "matmul_tflop_per_step": _train_tflop(cfg, model),
+        "matmul_ms_at_bf16_peak": _train_tflop(cfg, model) / 989 * 1e3,
+        "dedup_stats": stats, "shards_admitted_batches": len(kept),
+        "launches": {k: v for k, v in launches.items() if v},
+        "step_profile": busy,
+        # the profiler's own cost inflates the traced wall time: the
+        # device's share of an untraced median step
+        "device_share_of_median_step": (
+            busy["device_ms"] / (1e3 * float(np.median(times[1:])))
+            if busy else None),
+        "max_memory_allocated": peak,
+        "card_memory": (torch.cuda.get_device_properties(0).total_memory
+                        if torch.device(device).type == "cuda" else None),
+        "run_s": run_s, "part_s": time.perf_counter() - t0}
+    print(f"[16/16] (a) {TRAIN_ARCH} at full width ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, remat, bf16 activations, f32 params) "
+          f"trained {TRAIN_STEPS} steps on the deduped stream (batch "
+          f"{TRAIN_B} x {TRAIN_S}, {TRAIN_MB} microbatches, int8 error "
+          f"feedback): losses and grad norms finite, lr == cosine_lr, every "
+          f"leaf moved, stream == the CPU twin, B1/B2/B3 as the data path "
+          f"implies: {json.dumps(info)} on {smi}", flush=True)
+    return info, seen[0]
+
+
+def _train_memorize(device, batch):
+    """(b) 6 steps on one repeated batch from a fresh init (the same draw
+    as (a)'s): the last loss below the first."""
+    import itertools
+
+    from repro_torch.train import OptConfig, TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    _free(device)
+    _, model, params, _ = _serve_model(device, TRAIN_ARCH, SERVE_BAND)
+    tr = Trainer(model, params, OptConfig(lr=TRAIN_OPT["lr"], warmup_steps=1,
+                                          total_steps=MEMO_STEPS),
+                 TrainConfig(steps=MEMO_STEPS, log_every=1,
+                             checkpoint_every=1 << 30),
+                 itertools.repeat(batch))
+    losses = [r["loss"] for r in tr.run()]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"memorization: losses {losses}")
+    return {"steps": MEMO_STEPS, "microbatches": 1, "losses": losses,
+            "step_ms": [1e3 * r["step_time_s"] for r in tr.metrics_log],
+            "max_memory_allocated": _peak(device),
+            "part_s": time.perf_counter() - t0}
+
+
+def _held_step(ours, ref, lr, ef):
+    """One train step's result ``ours`` against ``ref`` (each ``(params
+    before, params, first moments, metrics)``, numpy leaves): STEP_TOL's
+    rule.  Returns the worst errors."""
+    import numpy as np
+
+    wd = 0.1
+    out = {"loss_rel": abs(ours[3]["loss"] - ref[3]["loss"]) /
+           abs(ref[3]["loss"]),
+           "grad_norm_rel": abs(ours[3]["grad_norm"] - ref[3]["grad_norm"])
+           / ref[3]["grad_norm"], "grad_err_of_scale": 0.0,
+           "param_err_resolved": 0.0, "unresolved_over_tol": 0}
+    if max(out["loss_rel"], out["grad_norm_rel"]) > STEP_TOL:
+        raise AssertionError(f"train step: {out}")
+    for p0, pa, ma, pb, mb in zip(ref[0], ours[1], ours[2], ref[1], ref[2]):
+        ga, gb = ma / 0.1, mb / 0.1
+        scale = float(np.abs(gb).max())
+        gerr = float(np.abs(ga - gb).max())
+        quantum = scale / 127 if ef else 0.0
+        if gerr > STEP_TOL * scale + quantum * (1 + 1e-3):
+            raise AssertionError(f"train step gradient: {gerr} of {scale}")
+        d = np.abs(pa - pb)
+        resolved = np.abs(gb) > RESOLVED
+        if (d[resolved] > STEP_TOL).any() or (
+                d > 2 * lr * (1 + wd * np.abs(p0)) + STEP_TOL).any():
+            raise AssertionError(f"train step params: {float(d.max())}")
+        out["grad_err_of_scale"] = max(out["grad_err_of_scale"],
+                                       gerr / max(scale, 1e-30))
+        if resolved.any():
+            out["param_err_resolved"] = max(out["param_err_resolved"],
+                                            float(d[resolved].max()))
+        out["unresolved_over_tol"] += int((d[~resolved] > STEP_TOL).sum())
+    return out
+
+
+def _grads_of(fn, inputs, dout):
+    import torch
+
+    xs = [x.detach().clone().requires_grad_() for x in inputs]
+    out = fn(*xs)
+    return [out.detach()] + list(torch.autograd.grad(out, xs, dout))
+
+
+def _of_scale(a, b) -> float:
+    return float((a.float().cpu() - b.float().cpu()).abs().max()) / max(
+        1.0, float(b.float().abs().max()))
+
+
+def _train_card_vs_cpu(device):
+    """(c) one train step of each smoke family on the card == the CPU
+    (f32, TF32 off, attention at the true fan-in); the rmsnorm and flash
+    Functions on the card == the CPU; flash backward at qwen3-1.7b's head
+    shapes in bf16 against f32 autograd of the plain forward."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.compression import ef_init
+    from repro_torch.models import get_model, layers
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.train import (OptConfig, TrainConfig, adamw_init,
+                                   make_train_step)
+
+    out = {"steps": {}}
+    for arch, mb, ef in SMOKE_STEPS:
+        cfg = get_config(arch, smoke=True)
+        base = _tamed(get_model(cfg, "cpu").init(
+            torch.Generator().manual_seed(SEED)))
+        batch = _seeded_batch(cfg, SEED + 160, 4, 16)
+        runs = []
+        for dev in ("cpu", device):
+            p = tree_map(lambda a: a.clone().to(dev), base)
+            step = make_train_step(get_model(cfg, dev), OptConfig(**STEP_OPT),
+                                   TrainConfig(steps=1, microbatches=mb,
+                                               grad_compression=ef))
+            p, o, _, m = step(p, adamw_init(p), ef_init(p) if ef else {},
+                              batch)
+            runs.append(([a.numpy() for a in tree_leaves(base)],
+                         [a.cpu().numpy() for a in tree_leaves(p)],
+                         [a.cpu().numpy() for a in tree_leaves(o["m"])],
+                         {k: float(v) for k, v in m.items()}))
+        out["steps"][arch] = dict(
+            _held_step(runs[1], runs[0], runs[0][3]["lr"], ef),
+            microbatches=mb, grad_compression=ef, loss=runs[1][3]["loss"])
+
+    rng = np.random.default_rng(SEED + 161)
+
+    def pair(*shape):
+        a = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+        return a, a.to(device)
+
+    x, xd = pair(4, 64, 256)
+    w, wd = pair(256)
+    dy, dyd = pair(4, 64, 256)
+    norm = [_of_scale(a, b) for a, b in zip(
+        _grads_of(lambda a, b: layers.rmsnorm(a, b, 1e-6), (xd, wd), dyd),
+        _grads_of(lambda a, b: layers.rmsnorm(a, b, 1e-6), (x, w), dy))]
+    flash = {}
+    for causal, off, skv in ((True, 0, 96), (False, 0, 100), (True, 8, 88)):
+        q, qd = pair(2, 80, 2, 2, 64)
+        k, kd = pair(2, skv, 2, 64)
+        v, vd = pair(2, skv, 2, 64)
+        do, dod = pair(2, 80, 2, 2, 64)
+        fn = functools.partial(_flash_fn, causal=causal, q_offset=off)
+        flash[f"causal{int(causal)}_off{off}_skv{skv}"] = [
+            _of_scale(a, b) for a, b in zip(
+                _grads_of(fn, (qd, kd, vd), dod), _grads_of(fn, (q, k, v), do))]
+    errs = norm + [e for v in flash.values() for e in v]
+    if max(errs) > LAYER_TOL:
+        raise AssertionError(f"layer Functions card != CPU: {norm} {flash}")
+    out.update(rmsnorm_err_of_scale=max(norm), flash_err_of_scale=flash)
+
+    B, S, Hkv, G, hd = FLASH_FULL
+    gen = torch.Generator(device).manual_seed(SEED + 162)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    q, k, v, do = (draw(B, S, Hkv, G, hd), draw(B, S, Hkv, hd),
+                   draw(B, S, Hkv, hd), draw(B, S, Hkv, G, hd))
+
+    def plain(q, k, v):
+        s = torch.einsum("bqhgd,bkhd->bhgqk", q, k) / math.sqrt(hd)
+        keep = torch.ones(S, S, dtype=torch.bool, device=device).tril()
+        p = torch.softmax(s.masked_fill(~keep, -math.inf), -1)
+        return torch.einsum("bhgqk,bkhd->bqhgd", p, v)
+
+    bf = [t.to(torch.bfloat16) for t in (q, k, v, do)]
+    want = _grads_of(plain, [t.float() for t in bf[:3]], bf[3].float())
+    fn = functools.partial(_flash_fn, causal=True, q_offset=0)
+    got = _grads_of(fn, bf[:3], bf[3])
+    full = [_of_scale(a, b) for a, b in zip(got, want)]
+    if max(full) > FLASH_BF16_TOL or any(g.dtype != torch.bfloat16
+                                         for g in got):
+        raise AssertionError(f"bf16 flash backward at full width: {full}")
+    out["flash_full_width_bf16"] = {
+        "shape": list(FLASH_FULL), "err_of_scale": dict(zip(
+            ("out", "dq", "dk", "dv"), full)),
+        "tolerance": FLASH_BF16_TOL}
+    if torch.device(device).type == "cuda":
+        xs = [t.detach().requires_grad_() for t in bf[:3]]
+        out["flash_full_width_bf16"]["fwd_bwd_ms"] = _cuda_ms(
+            lambda: torch.autograd.grad(fn(*xs), xs, bf[3]), 5)
+    return out
+
+
+def _flash_fn(q, k, v, *, causal, q_offset):
+    from repro_torch.models import layers
+
+    return layers.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+
+
+def _train_restart(device, kernels):
+    """(d) tests/test_train.py's restart test on the card: qwen2.5-3b
+    smoke, 14 steps, a checkpoint every 7, a failure injected at step 10
+    under a Supervisor; then a layer-range restore of its checkpoint."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.layout import basic_layout
+    from repro_torch.models import get_model
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import (OptConfig, TrainConfig, Trainer,
+                                   latest_step, restore_checkpoint,
+                                   restore_layer_range)
+    from repro_torch.train.checkpoint import _flatten
+    from repro_torch.train.fault_tolerance import Supervisor
+
+    cfg = get_config(RESTART_ARCH, smoke=True)
+    model = get_model(cfg, device)
+    # the true attention fan-in (C.8): at the reference's, a rounding of
+    # the card's nondeterministic sums grows from step to step (C.9)
+    base = _tamed(model.init(torch.Generator(device).manual_seed(SEED)))
+    batch = _seeded_batch(cfg, SEED + 163, 4, 32)
+
+    def make(ckpt, fail=None):
+        return Trainer(model, tree_map(torch.clone, base),
+                       OptConfig(lr=1e-3, warmup_steps=2, total_steps=20),
+                       TrainConfig(steps=RESTART_STEPS,
+                                   checkpoint_every=RESTART_EVERY,
+                                   log_every=1),
+                       itertools.repeat(batch), ckpt_dir=ckpt,
+                       fail_at_step=fail)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        read = _counted(kernels)
+        straight = make(f"{tmp}/straight").run()
+        b1_straight = read()["insert"]
+        ckpt, sleeps = f"{tmp}/supervised", []
+        sup = Supervisor(lambda: make(ckpt, RESTART_FAIL if latest_step(
+            ckpt) is None else None), max_restarts=2, sleep=sleeps.append)
+        read = _counted(kernels)
+        res = sup.run()
+        b1_supervised = read()["insert"]
+        last = latest_step(ckpt)
+        with open(f"{ckpt}/step_{last:06d}/manifest.json") as fh:
+            manifest = json.load(fh)
+        read = _counted(kernels)
+        part, probed, loaded = restore_layer_range(ckpt, last, 1, 1,
+                                                   device=device)
+        b3 = read()["range"]
+        full = restore_checkpoint(ckpt, last, {
+            "params": base, "opt": {"m": base, "v": base,
+                                    "count": torch.zeros(())}})
+    saves = 2          # steps 6 and 13 in either run
+    n_shards = manifest["n_shards"]
+    hashed = sum(not basic_layout(m["domain_bits"], m["n_keys"],
+                                  m["bits_per_key"],
+                                  delta=m["delta"]).has_exact
+                 for m in manifest["filters"])
+    flat = _flatten(full)
+    exact = all(v.shape[0] == 1 and np.array_equal(
+        v, flat[k][1:2]) for k, v in part.items())
+    rel = abs(res["metrics"][-1]["loss"] - straight[-1]["loss"]) / \
+        straight[-1]["loss"]
+    layered = sum(m["layered"] for m in manifest["leaves"].values())
+    if (res["restarts"] != 1 or rel > STEP_TOL or len(sleeps) != 1
+            or b1_straight != saves * n_shards
+            or b1_supervised != saves * n_shards or b3 != hashed
+            or not exact or len(part) != layered):
+        raise AssertionError(f"restart: restarts {res['restarts']}, loss "
+                             f"rel {rel}, B1 {b1_straight}/{b1_supervised}, "
+                             f"B3 {b3} (hashed shards {hashed}), layer "
+                             f"range exact {exact}, {len(part)} leaves")
+    return {"restarts": res["restarts"], "final_loss": res["metrics"][-1][
+        "loss"], "straight_final_loss": straight[-1]["loss"],
+        "loss_rel": rel, "incidents": [i["error"] for i in res["incidents"]],
+        "b1_checkpoint_launches": b1_straight + b1_supervised,
+        "checkpoint_saves": 2 * saves, "shards": n_shards,
+        "layer_range": {"layers": [1, 1], "leaves": len(part),
+                        "probed": probed, "loaded": loaded,
+                        "b3_launches": b3}}
+
+
+def phase_train(device, kernels, smi):
+    """Phase 16, each part printing its line; returns its launches and
+    seconds."""
+    import torch
+
+    t_phase = time.perf_counter()
+    full, first = _train_full(device, kernels, smi)
+    memo = _train_memorize(device, first)
+    print(f"[16/16] (b) {MEMO_STEPS} steps on one repeated batch at full "
+          f"width from a fresh init (1 microbatch, no compression, warmup "
+          f"1): the last loss below the first: {json.dumps(memo)}",
+          flush=True)
+    del first
+    _free(device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        versus = _train_card_vs_cpu(device)
+        print(f"[16/16] (c) card == CPU, f32, TF32 off: one train step of "
+              f"each smoke family (attention at the true fan-in; loss, grad "
+              f"norm, gradient within {STEP_TOL} of scale, params within "
+              f"{STEP_TOL} where |g| > {RESOLVED}), rmsnorm and flash "
+              f"Functions within {LAYER_TOL}; bf16 flash backward at "
+              f"{FLASH_FULL} against f32 autograd within {FLASH_BF16_TOL}: "
+              f"{json.dumps(versus)} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        t0 = time.perf_counter()
+        restart = _train_restart(device, kernels)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    secs = time.perf_counter() - t_phase
+    print(f"[16/16] (d) Supervisor over {RESTART_ARCH} smoke, "
+          f"{RESTART_STEPS} steps, a checkpoint every {RESTART_EVERY}, a "
+          f"failure at step {RESTART_FAIL}: one restart, the final loss == "
+          f"the straight run's within {STEP_TOL}, B1 a shard filter, the "
+          f"layer-range restore exact: {json.dumps(restart)} "
+          f"({time.perf_counter() - t0:.1f} s); phase 16 in {secs:.1f} s "
+          f"on {smi}", flush=True)
+    return {"launches": {"data_insert": full["launches"].get("insert", 0),
+                         "dedup_point": full["launches"].get("point", 0),
+                         "window_range": full["launches"].get("range", 0),
+                         "checkpoint_insert": restart[
+                             "b1_checkpoint_launches"],
+                         "layer_range": restart["layer_range"][
+                             "b3_launches"]},
+            "phase_s": secs}
 
 
 def main() -> int:
@@ -4040,11 +4609,11 @@ def main() -> int:
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    print(f"[1/15] card: {smi} | torch: {name} | torch {torch.__version__} "
+    print(f"[1/16] card: {smi} | torch: {name} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
-    print(f"[1/15] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
+    print(f"[1/16] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
           flush=True)
-    print(f"[1/15] registers and spills (nvcc -Xptxas -v): "
+    print(f"[1/16] registers and spills (nvcc -Xptxas -v): "
           f"{json.dumps(_ptxas_usage())}", flush=True)
 
     src, rep = "src/repro_torch/csrc/", "src/repro/kernels/"
@@ -4085,7 +4654,7 @@ def main() -> int:
     errs = {k: 0 for k in kernels}
     t0 = time.perf_counter()
     n_lay = phase_kernels_vs_plain(device, kernels, errs, big)
-    print(f"[2/15] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
+    print(f"[2/16] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
           f"top==d, W=64+replicas, multi-segment, exact, full size; B7/B8 "
           f"also on odd batches and replicas 3 and 5, against plain "
           f"versions bucketed at blocks of 256, "
@@ -4096,22 +4665,22 @@ def main() -> int:
                                expect(insert=8, point=4, range=4), kernels)
     if main_run["layout"]["deltas"] != big.deltas:
         raise AssertionError(f"main-path layout {main_run['layout']}")
-    print(f"[3/15] main path {json.dumps(main_run)}", flush=True)
+    print(f"[3/16] main path {json.dumps(main_run)}", flush=True)
     large = phase_main_path(10_000_000, "resident", name,
                             expect(insert=39, point=4, range=4), kernels,
                             time_range=True)
-    print(f"[4/15] resident 10M {json.dumps(large)}", flush=True)
+    print(f"[4/16] resident 10M {json.dumps(large)}", flush=True)
 
     single = {k: kernels[k] for k in ("insert", "point", "range")}
     times = phase_times(device, big, single)
-    print(f"[5/15] times at {CHUNK} keys/queries, filter "
+    print(f"[5/16] times at {CHUNK} keys/queries, filter "
           f"{big.total_u32 * 4} B, on {smi}: {json.dumps(times)}", flush=True)
 
     t0 = time.perf_counter()
     stacked = phase_stacked_vs_plain(device, kernels, errs, big)
     stacked_times = stacked.pop("times")
     times.update(stacked_times)
-    print(f"[6/15] B4 == plain on {stacked['scan_cells_checked']} (scan, run) "
+    print(f"[6/16] B4 == plain on {stacked['scan_cells_checked']} (scan, run) "
           f"cells (mixed Δ, multi-segment, replicas, capacity ladder; padded "
           f"and flat stacks, rpb 0/2, quarantine, edge bounds); B5/B6 == "
           f"plain on {stacked['stacked_rows']} rows of the phase-3 layout: "
@@ -4133,7 +4702,7 @@ def main() -> int:
     store = phase_store(device, kernels, errs)
     times["store_scan"] = store.pop("times")
     b1_shapes.update(store.pop("b1_shapes"))
-    print(f"[7/15] store, {STORE_KEYS} keys loaded by put (the key count is "
+    print(f"[7/16] store, {STORE_KEYS} keys loaded by put (the key count is "
           f"set by the host's per-key Python load path, not by the card), "
           f"YCSB-E: every scan == numpy oracle, every batch's (fence, touch) "
           f"== plain touch_all, {store['launches']} B4 launches for "
@@ -4149,7 +4718,7 @@ def main() -> int:
     hbm = phase_hbm(device, kernels, errs)
     times.update(hbm.pop("times"))
     b1_shapes.update(hbm.pop("b1_shapes"))
-    print(f"[8/15] HBM-scale filter, {HBM_KEYS} keys under auto, grown x{GROW} "
+    print(f"[8/16] HBM-scale filter, {HBM_KEYS} keys under auto, grown x{GROW} "
           f"in place to {HBM_KEYS * GROW}: no false negatives over all keys "
           f"(truth sorted on the card), state and verdicts == xla twin, "
           f"launches {json.dumps(hbm['launches'])}; deletable and TTL "
@@ -4162,13 +4731,13 @@ def main() -> int:
     if errs["insert"]:
         raise AssertionError(f"B1 != plain on a traffic shape: {errs}")
     times["insert"]["shapes"] = b1_shapes
-    print(f"[8/15] B1 alone on its traffic shapes ((a) the phase-3 filter in "
+    print(f"[8/16] B1 alone on its traffic shapes ((a) the phase-3 filter in "
           f"the L2, (b) phase 8's states cold, each of {COLD_CHUNKS} chunks "
           f"captured once, (c) phase 7's flush and largest rebuild, sorted "
           f"keys) on {smi}: {json.dumps(b1_shapes)}", flush=True)
 
     call_ms = {k: t.pop("call_ms") for k, t in times.items()}
-    print(f"[8/15] kernel wrappers' ms per call by CUDA events over 200 "
+    print(f"[8/16] kernel wrappers' ms per call by CUDA events over 200 "
           f"back-to-back calls, host dispatch included (the kernels line's "
           f"ms is the kernel alone, from a CUDA graph): "
           f"{json.dumps(call_ms)}", flush=True)
@@ -4178,7 +4747,7 @@ def main() -> int:
         "insert_keys_per_s", "point_queries_per_s", "range_queries_per_s")},
               "phase7_store": {k: store[k] for k in (
                   "load_puts_per_s", "host_scans_per_s")}}
-    print(f"[9/15] 64-bit keys on the plain path on the card, no kernel "
+    print(f"[9/16] 64-bit keys on the plain path on the card, no kernel "
           f"launched: mix64 == numpy on {MIX64_KEYS} keys with the top bit "
           f"set; the default open_filter (u64) and an f64 filter of "
           f"{WIDE_KEYS} keys with no false negatives, {SUBSAMPLE} verdicts "
@@ -4205,6 +4774,7 @@ def main() -> int:
         raise AssertionError(f"B1 or B6 != plain on a bank shape: {errs}")
     serve = phase_serve(device, kernels, smi)
     families = phase_families(device, kernels, smi)
+    train = phase_train(device, kernels, smi)["launches"]
     times["point_stacked"]["bank_shapes"] = {
         "phase13_bank": bank.pop("b6"), "phase13_tenant": tenant.pop("b6")}
     for row in times["point_stacked"]["bank_shapes"].values():
@@ -4232,7 +4802,16 @@ def main() -> int:
         "phase13_ttl_tenant_rows": tenant["launches"]["ttl_build"],
         "phase13_prefix_cache": prefix["launches"]["insert"],
         "phase14_serve_freezes": serve["launches"]["insert"],
-        "phase15_serve_freezes": families["launches"]["insert"]}
+        "phase15_serve_freezes": families["launches"]["insert"],
+        "phase16_train_data": train["data_insert"],
+        "phase16_train_checkpoints": train["checkpoint_insert"]}
+    times["point"]["launches_by_path"] = {
+        "phase3_main": main_run["launches"]["point"],
+        "phase16_train_dedup": train["dedup_point"]}
+    times["range"]["launches_by_path"] = {
+        "phase3_main": main_run["launches"]["range"],
+        "phase16_train_window": train["window_range"],
+        "phase16_layer_range_restore": train["layer_range"]}
     times["store_scan"]["launches_by_path"] = {
         "phase7_store": store["launches"],
         "phase10_durable": durable["launches"],

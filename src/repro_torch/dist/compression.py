@@ -1,15 +1,25 @@
-"""Elias-Fano posting lists and filter-state snapshots.
+"""Compression for the training substrate and filter-state snapshots.
 
-A copy of the Elias-Fano half of ``repro/dist/compression.py`` (numpy
-only; the int8 error-feedback half comes with the training strata,
-ROADMAP A.11).  Elias-Fano is the classic quasi-succinct encoding of a
-sorted integer list over a universe ``u``: low ``l = floor(log2(u/n))``
-bits stored verbatim, high bits unary-coded in a bitmap of ``n + (u >> l)``
-bits, ``n * (2 + log2(u/n))`` bits in all.  Run snapshots use it twice:
-for the run's sorted keys, and for its filter's set-bit positions
-(``pack_filter_state``: the set bits of a filter are a sorted posting list
-over ``total_bits``).  Both packages write the same encodings, so a
-snapshot written by either restores in the other.
+Counterpart of ``repro/dist/compression.py``.  Two codecs live here:
+
+* **int8 error-feedback** (``ef_init`` / ``ef_compress``) -- per-leaf
+  symmetric int8 quantization of gradients with an error-feedback
+  accumulator (Seide et al. / Karimireddy et al.): the quantization
+  residual is carried into the next step, so compressed SGD keeps the
+  uncompressed fixed points.  Torch ops on the gradients' device, used by
+  ``train/train_loop.py`` when ``TrainConfig.grad_compression`` is set.
+  ``torch.round`` rounds half to even, as ``jnp.round`` does, so the int8
+  values and the residual are the reference's.
+
+* **Elias-Fano** (``elias_fano_encode`` / ``elias_fano_decode``), copied
+  (numpy only) -- the classic quasi-succinct encoding of a sorted integer
+  list over a universe ``u``: low ``l = floor(log2(u/n))`` bits stored
+  verbatim, high bits unary-coded in a bitmap of ``n + (u >> l)`` bits,
+  ``n * (2 + log2(u/n))`` bits in all.  Run snapshots use it twice: for
+  the run's sorted keys, and for its filter's set-bit positions
+  (``pack_filter_state``: the set bits of a filter are a sorted posting
+  list over ``total_bits``).  Both packages write the same encodings, so a
+  snapshot written by either restores in the other.
 """
 from __future__ import annotations
 
@@ -17,9 +27,45 @@ import math
 from typing import Optional
 
 import numpy as np
+import torch
 
-__all__ = ["elias_fano_encode", "elias_fano_decode", "elias_fano_size_bits",
-           "pack_filter_state", "unpack_filter_state"]
+from ..models.params import tree_leaves, tree_map
+
+__all__ = ["ef_init", "ef_compress", "elias_fano_encode", "elias_fano_decode",
+           "elias_fano_size_bits", "pack_filter_state", "unpack_filter_state"]
+
+
+# ---------------------------------------------------------------------------
+# int8 error-feedback gradient compression
+# ---------------------------------------------------------------------------
+
+def ef_init(params):
+    """Zero error-feedback accumulators, one f32 leaf per parameter leaf
+    (on the leaf's device)."""
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+
+
+def _quantize_leaf(g, e):
+    t = g.float() + e
+    scale = torch.clamp(t.abs().max() / 127.0, min=1e-30)
+    q = torch.clamp(torch.round(t / scale), -127.0, 127.0).to(torch.int8)
+    deq = q.float() * scale
+    return deq, t - deq
+
+
+def ef_compress(grads, error):
+    """Quantize ``grads + error`` to int8 per leaf; return (dequantized
+    gradients, new error).  8.25 bits/value on the wire (int8 + one f32
+    scale per leaf); the dequantized form keeps the train step's math
+    dtype-stable."""
+    g_leaves, e_leaves = tree_leaves(grads), tree_leaves(error)
+    if len(g_leaves) != len(e_leaves):
+        raise ValueError("grads/error tree mismatch")
+    outs = iter([_quantize_leaf(g, e) for g, e in zip(g_leaves, e_leaves)])
+    pairs = tree_map(lambda _: next(outs), grads)
+    return (tree_map(lambda _, o: o[0], grads, pairs),
+            tree_map(lambda _, o: o[1], grads, pairs))
 
 
 # ---------------------------------------------------------------------------

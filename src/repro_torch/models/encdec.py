@@ -1,6 +1,6 @@
 """Whisper-style encoder-decoder backbone.
 
-Counterpart of ``repro/models/encdec.py``, forward only, eager.  The
+Counterpart of ``repro/models/encdec.py``, eager.  The
 conv/mel frontend is a stub: ``input_specs`` asks for precomputed frame
 embeddings (B, enc_seq, d_model).  Both stacks add sinusoidal positions
 computed on the fly (decode at an offset), so the params do not depend on
@@ -17,7 +17,7 @@ import math
 
 import torch
 
-from .act import constrain
+from .act import constrain, remat
 from .act import scan as _act_scan
 from .config import ModelConfig, Shape
 from .layers import _update_at, cast, flash_attention, gelu_mlp
@@ -143,6 +143,8 @@ class EncDecModel(DenseModel):
             x = x + gelu_mlp(p["mlp"], layernorm(x, p["ln2"], cfg.norm_eps))
             return x, None
 
+        if cfg.remat:
+            body = remat(body)
         x, _ = _act_scan(body, x, params["enc_layers"])
         return layernorm(x, params["enc_ln_f"], cfg.norm_eps)
 
@@ -163,6 +165,8 @@ class EncDecModel(DenseModel):
             x = x + gelu_mlp(p["mlp"], layernorm(x, p["ln2"], cfg.norm_eps))
             return x, ((kv, xkv) if collect_cache else None)
 
+        if cfg.remat:
+            body = remat(body)
         x, caches = _act_scan(body, x, params["dec_layers"])
         return layernorm(x, params["dec_ln_f"], cfg.norm_eps), caches
 

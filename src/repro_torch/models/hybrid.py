@@ -1,6 +1,6 @@
 """Zamba2-style hybrid: Mamba2 backbone + *shared* full-attention blocks.
 
-Counterpart of ``repro/models/hybrid.py``, forward only, eager.  Every
+Counterpart of ``repro/models/hybrid.py``, eager.  Every
 ``attn_every`` SSM layers, one of ``n_shared_blocks`` shared dense
 transformer blocks is applied (parameters reused across applications,
 alternating).  Each application keeps its own KV cache.  Zamba2's per-
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from .act import remat
 from .act import scan as _act_scan
 from .config import ModelConfig, Shape
 from .layers import KVCache, dense_block, dense_block_decode, rmsnorm
@@ -76,6 +77,8 @@ class HybridModel(DenseModel):
                                 positions=positions)
             return x, ((mcaches, kv) if collect_cache else None)
 
+        if cfg.remat:
+            outer = remat(outer)
         x, caches = _act_scan(outer, x, (torch.arange(self.n_apps),
                                          grouped))
         x = rmsnorm(x, params["ln_f"], cfg.norm_eps)

@@ -1,8 +1,12 @@
 """Shared neural-net layers: RMSNorm, RoPE, GQA attention (an online
 softmax over KV blocks), SwiGLU/GELU MLPs, and the dense decoder block.
 
-Counterpart of ``repro/models/layers.py``, forward only (the custom
-backward passes of ``rmsnorm`` and the flash scan come with training).
+Counterpart of ``repro/models/layers.py``.  The reference's two custom
+VJPs are ``torch.autograd.Function``s here: ``rmsnorm`` (its backward
+keeps ``dx`` in the activation dtype, with f32 statistics only) and the
+flash scan of train and prefill (its backward recomputes the scores one
+KV block at a time from the saved ``(q, k, v, out, m, lse)``).  Both are
+plain torch inside, as the reference's are plain JAX.
 
 Conventions, as in the reference:
 * params are f32 trees; activations compute in the config's dtype (bf16
@@ -45,10 +49,44 @@ def _rms_scale(x, eps):
     return torch.rsqrt(ss / x.shape[-1] + eps)             # f32 (..., )
 
 
-def rmsnorm(x, w, eps: float = 1e-5):
-    """RMSNorm with f32 statistics and compute-dtype activations."""
+def _rmsnorm_fwd(x, w, eps):
     scale = _rms_scale(x, eps)
-    return x * scale[..., None].to(x.dtype) * w.to(x.dtype)
+    return x * scale[..., None].to(x.dtype) * w.to(x.dtype), scale
+
+
+def _rmsnorm_bwd(x, w, scale, dy):
+    """d/dx [x_i * s(x) * w_i] with s = rsqrt(mean(x^2) + eps):
+    dx = s * w * dy - x * s^3 / D * sum_j(dy_j * w_j * x_j), in x.dtype
+    with the sum and s^3 in f32; dw sums dy * x * s over every leading
+    axis in f32, cast to w.dtype."""
+    dt = x.dtype
+    dyw = dy * w.to(dt)
+    inner = (dyw.float() * x.float()).sum(-1)          # f32 stats only
+    coef = inner * scale ** 3 / x.shape[-1]
+    dx = dyw * scale[..., None].to(dt) - x * coef[..., None].to(dt)
+    xs = x * scale[..., None].to(dt)
+    dw = (dy * xs).float().sum(tuple(range(x.ndim - 1))).to(w.dtype)
+    return dx, dw
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        y, scale = _rmsnorm_fwd(x, w, eps)
+        ctx.save_for_backward(x, w, scale)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx, dw = _rmsnorm_bwd(*ctx.saved_tensors, dy)
+        return dx, dw, None
+
+
+def rmsnorm(x, w, eps: float = 1e-5):
+    """RMSNorm with f32 statistics and compute-dtype activations in both
+    directions: a plain autograd rmsnorm would carry f32 (B, S, D)
+    gradients into the residual stream through the f32 mean of squares."""
+    return _RMSNorm.apply(x, w, eps)
 
 
 def _rope_angles(positions, hd: int, theta: float):
@@ -82,25 +120,33 @@ def rope(x, positions, theta: float):
 # flash-style attention (an online softmax over KV blocks)
 # ---------------------------------------------------------------------------
 
-def _flash_scan(q, k, v, causal: bool, q_offset, kv_len, block: int):
-    """Forward online-softmax scan. Returns (out, m, lse) with out already
-    normalized; m/lse are the per-query statistics."""
-    B, Sq, Hkv, G, hd = q.shape
-    Skv = k.shape[1]
+def _kv_blocks(k, v, block: int):
+    """k/v (B, Skv, Hkv, hd) zero-padded to whole blocks of
+    ``min(block, Skv)`` keys, as (B, nblk, blk, Hkv, hd)."""
+    B, Skv, Hkv, hd = k.shape
     blk = min(block, Skv)
     nblk = (Skv + blk - 1) // blk
     pad = nblk * blk - Skv
     if pad:
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    return (k.reshape(B, nblk, blk, Hkv, hd),
+            v.reshape(B, nblk, blk, Hkv, hd), blk, nblk)
+
+
+def _flash_scan(q, k, v, causal: bool, q_offset, kv_len, block: int):
+    """Forward online-softmax scan. Returns (out, m, lse) with out already
+    normalized; m/lse are the per-query statistics."""
+    B, Sq, Hkv, G, hd = q.shape
+    Skv = k.shape[1]
+    kb, vb, blk, nblk = _kv_blocks(k, v, block)
     scale = 1.0 / math.sqrt(hd)
     dev = q.device
     q_pos = q_offset + torch.arange(Sq, device=dev)
     limit = Skv if kv_len is None else kv_len
     qf = q.float()
 
-    kb = k.reshape(B, nblk, blk, Hkv, hd).transpose(0, 1)
-    vb = v.reshape(B, nblk, blk, Hkv, hd).transpose(0, 1)
+    kb, vb = kb.transpose(0, 1), vb.transpose(0, 1)
 
     def step(carry, inp):
         m, lse, acc = carry
@@ -131,13 +177,78 @@ def _flash_scan(q, k, v, causal: bool, q_offset, kv_len, block: int):
     return out, m, torch.clamp(lse, min=1e-30)
 
 
+def _flash_bwd(q, k, v, out, m, lse, dout, causal: bool, q_offset: int,
+               block: int):
+    """Flash-attention backward: the scores recomputed one KV block at a
+    time from the saved forward statistics, ``delta = sum(dout * out)``;
+    dq accumulates in f32 across blocks, dk and dv come a block at a time
+    in the compute dtype.  Products the reference takes with
+    ``preferred_element_type=float32`` run on f32 upcasts; the others, and
+    the elementwise chain of ``ds``, round to the compute dtype after each
+    op."""
+    B, Sq, Hkv, G, hd = q.shape
+    Skv = k.shape[1]
+    dt = q.dtype
+    kb, vb, blk, nblk = _kv_blocks(k, v, block)
+    scale = 1.0 / math.sqrt(hd)
+    scale_dt = float(torch.tensor(scale, dtype=dt))   # q.dtype.type(scale)
+    dev = q.device
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    qf = q.float()
+    do = dout.permute(0, 2, 3, 1, 4).to(dt)            # (B,Hkv,G,Sq,hd)
+    delta = torch.einsum("bqhgd,bqhgd->bhgq", dout.float(), out.float())
+    delta_dt = delta[..., None].to(dt)
+    dq = torch.zeros((B, Sq, Hkv, G, hd), dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for bi in range(nblk):
+        kblk, vblk = kb[:, bi], vb[:, bi]
+        k_pos = bi * blk + torch.arange(blk, device=dev)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kblk.float()) * scale
+        mask = k_pos[None, :] < Skv
+        if causal:
+            mask = mask & (q_pos[:, None] >= k_pos[None, :])
+        s = torch.where(mask, s, -math.inf)
+        p = (torch.exp(s - m[..., None]) / lse[..., None]).to(dt)
+        dvs.append(torch.einsum("bhgqk,bhgqd->bkhd", p, do))
+        dp = torch.einsum("bhgqd,bkhd->bhgqk", do, vblk)
+        ds = p * (dp - delta_dt) * scale_dt
+        dq = dq + torch.einsum("bhgqk,bkhd->bqhgd", ds.float(),
+                               kblk.float())
+        dks.append(torch.einsum("bhgqk,bqhgd->bkhd", ds, q))
+    dk = torch.cat(dks, dim=1)[:, :Skv]
+    dv = torch.cat(dvs, dim=1)[:, :Skv]
+    return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash scan of train and prefill (a static ``q_offset``, no
+    ``kv_len``); its residuals are ``(q, k, v, out, m, lse)`` only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, block):
+        out, m, lse = _flash_scan(q, k, v, causal, q_offset, None, block)
+        ctx.save_for_backward(q, k, v, out, m, lse)
+        ctx.meta = (causal, q_offset, block)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = _flash_bwd(*ctx.saved_tensors, dout, *ctx.meta)
+        return (*grads, None, None, None)
+
+
 def flash_attention(q, k, v, *, causal: bool, q_offset=0,
                     kv_len: Optional[int] = None,
                     block: int = DEFAULT_KV_BLOCK):
     """q: (B, Sq, Hkv, G, hd); k/v: (B, Skv, Hkv, hd).
 
     ``q_offset``: absolute position of q[0] (prefill continuation / decode).
-    ``kv_len``: optional valid-KV length (decode against a cache)."""
+    ``kv_len``: optional valid-KV length (decode against a cache).
+    Train and prefill (an ``int`` offset, no ``kv_len``) take the flash
+    Function and its backward; decode keeps the plain scan (no grads)."""
+    if kv_len is None and isinstance(q_offset, int):
+        return _FlashAttention.apply(q, k, v, causal, q_offset,
+                                     min(block, k.shape[1]))
     out, _, _ = _flash_scan(q, k, v, causal, q_offset, kv_len, block)
     return out
 

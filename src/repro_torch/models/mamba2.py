@@ -1,6 +1,6 @@
 """Mamba2 (state-space duality / SSD) backbone, attention-free.
 
-Counterpart of ``repro/models/mamba2.py``, forward only, eager.  The
+Counterpart of ``repro/models/mamba2.py``, eager.  The
 chunked SSD scan (quadratic within ``ssm_chunk`` tokens, a linear state
 recurrence across chunks) runs prefill; decode is the O(1) recurrent
 state update.  Only ``ssm_groups == 1`` is supported (every SSM and hybrid

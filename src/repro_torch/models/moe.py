@@ -1,6 +1,6 @@
 """Mixture-of-Experts decoder (moonlight/granite-moe family).
 
-Counterpart of ``repro/models/moe.py``, forward only, eager.  Dispatch is
+Counterpart of ``repro/models/moe.py``, eager.  Dispatch is
 capacity-based and group-local: tokens are grouped (a group is at most
 ``_GROUP`` tokens of one sequence), each token's top-k experts are ranked
 by a group-local cumulative count, tokens past an expert's capacity are

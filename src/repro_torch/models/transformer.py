@@ -2,7 +2,7 @@
 pixtral-style VLM variant (stub vision frontend: precomputed patch
 embeddings prepended to the token sequence).
 
-Counterpart of ``repro/models/transformer.py``, forward only, eager.  The
+Counterpart of ``repro/models/transformer.py``, eager.  The
 API is the reference's functional one: a params tree of tensors is passed
 to every call, so the port's ``train/checkpoint.py`` saves and restores
 exactly this tree and either package opens the other's checkpoints.
@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.bloomrf import resolve_device
+from .act import remat
 from .act import scan as _act_scan
 from .config import ModelConfig, Shape
 from .layers import KVCache, dense_block, dense_block_decode, rmsnorm
@@ -79,9 +80,12 @@ def block_table(cfg: ModelConfig) -> dict:
 
 
 def cross_entropy(logits, labels, mask=None):
-    """CE over the vocab with f32 reductions."""
+    """CE over the vocab with f32 reductions.  The max it subtracts is
+    detached, as the reference's ``stop_gradient``: its gradient is zero
+    in exact arithmetic, and ``amax``'s backward would split it across
+    tied maxima."""
     lf = logits.float()
-    m = lf.amax(-1, keepdim=True)
+    m = lf.amax(-1, keepdim=True).detach()
     lse = torch.log(torch.exp(lf - m).sum(-1)) + m[..., 0]
     gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
     nll = lse - gold
@@ -158,6 +162,8 @@ class DenseModel:
             x, kv, a = self.apply_block(lp, x, positions=positions)
             return x, ((kv, a) if collect_cache else a)
 
+        if cfg.remat:
+            body = remat(body)
         x, ys = _act_scan(body, x, params["layers"])
         if collect_cache:
             kvs, auxs = ys

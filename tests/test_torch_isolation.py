@@ -22,6 +22,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "import repro_torch.models.transformer, repro_torch.serve.decode\n"
             "import repro_torch.models.moe, repro_torch.models.mamba2\n"
             "import repro_torch.models.hybrid, repro_torch.models.encdec\n"
+            "import repro_torch.train.optimizer, repro_torch.train.train_loop\n"
+            "import repro_torch.train.fault_tolerance\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -66,9 +68,12 @@ def test_no_module_imports_jax_or_repro():
             "configs/pixtral_12b.py", "configs/granite_moe_3b_a800m.py",
             "configs/moonshot_v1_16b_a3b.py", "configs/mamba2_130m.py",
             "configs/zamba2_2_7b.py", "configs/whisper_base.py",
-            "serve/kv_cache.py", "serve/decode.py"} <= names
+            "serve/kv_cache.py", "serve/decode.py", "train/__init__.py",
+            "train/optimizer.py", "train/train_loop.py",
+            "train/fault_tolerance.py"} <= names
     files.append(_ROOT / "chip_smoke.py")
     files += sorted((_ROOT / "benchmarks").glob("torch_*.py"))
+    files += sorted((_ROOT / "examples").glob("torch_*.py"))
     for f in files:
         roots = set(_imported_roots(ast.parse(f.read_text(), str(f))))
         assert not roots & {"jax", "jaxlib", "repro"}, f
