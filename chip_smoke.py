@@ -217,7 +217,27 @@ Phases, one line of output each:
     10 under ``Supervisor``): one restart, the final loss == the straight
     run's within 1e-4, one B1 launch per shard filter of each checkpoint,
     and ``restore_layer_range`` of layer 1 equal to that layer of the full
-    restore, one B3 launch per hashed shard filter.
+    restore, one B3 launch per hashed shard filter;
+17. sharding (the port of ``repro.dist.sharding`` / ``pipeline`` and
+    ``repro.launch``): (a) on an NCCL world of one (``file://`` init in a
+    temporary directory) and a 1 x 1 ``DeviceMesh`` ("data", "model"),
+    full-width ``moonshot-v1-16b-a3b`` cut to 4 of 48 layers, its params
+    placed by ``make_shardings`` under ``activation_mesh``: every MoE
+    layer takes the expert-parallel dispatch, and its prefill logits and
+    a decode step equal the same model's without the mesh (local
+    dispatch) within 2e-2 of scale in bf16 with equal greedy tokens, each
+    path's step ms beside the other; (b) ``launch/cost.py`` on phase 16's
+    exact step (full-width qwen3-1.7b, 4 x 512, 2 microbatches, error
+    feedback) on meta tensors: its FLOPs within 0.9-1.1 of phase 16's
+    shape count, its roofline terms beside phase 16's step ms and device
+    ms; ``elastic_restore(..., shardings=)`` of a checkpoint onto the
+    1 x 1 mesh gives the same leaves bit for bit; (c) in a subprocess
+    started with the phase (CPU only, meta tensors, fake process groups
+    of 256 and 512 ranks): ``python -m repro_torch.launch.dryrun --smoke``
+    over qwen3, mamba2 and moonshot x train_4k, decode_32k x both meshes,
+    every record ``ok``, then full-width qwen3-1.7b x train_4k x single,
+    its ``argument_bytes`` == the local-shard bytes its spec tree
+    implies.  No bloomRF kernel is launched.
 
 It prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -2284,7 +2304,7 @@ def _durable_and_obs(device, kernels, expect, smi):
         t0 = time.perf_counter()
         durable = phase_durable(device, kernels,
                                 str(Path(wal_root) / "wal"))
-        print(f"[10/16] deletable, durable store (phase 7's settings, "
+        print(f"[10/17] deletable, durable store (phase 7's settings, "
               f"mutability='deletable', durability='wal'): {STORE_KEYS} "
               f"puts through the WAL, a checkpoint, {durable['deleted']} "
               f"keys deleted in {durable['delete_batches']} delete_many "
@@ -2303,7 +2323,7 @@ def _durable_and_obs(device, kernels, expect, smi):
         obs_run = phase_obs(device, kernels,
                             expect(insert=8, point=4, range=4),
                             str(Path(wal_root) / "trace.jsonl"))
-        print(f"[11/16] obs on the main path (phase 3's filter and mix, "
+        print(f"[11/17] obs on the main path (phase 3's filter and mix, "
               f"obs.enable() and a JSONL trace sink): launches "
               f"{json.dumps(obs_run['launches_on'])} as with obs off, the "
               f"same verdicts and state, kernel/dispatch/resident == calls, "
@@ -2754,7 +2774,7 @@ def phase_tuned(device, kernels, errs, smi):
     """Phase 12, each part printing its line; returns their results."""
     t0 = time.perf_counter()
     twin = _adaptive_twin(device, kernels, errs)
-    print(f"[12/16] (a) adaptive twin: phase 7's store, tuning 'auto' and "
+    print(f"[12/17] (a) adaptive twin: phase 7's store, tuning 'auto' and "
           f"'adaptive', {TUNE_KEYS} clustered keys, {TUNE_BATCHES} batches "
           f"of near-miss scans between the halves and after: retunes "
           f"{twin['adaptive']['retunes']}, scans == static twin == oracle, "
@@ -2766,21 +2786,21 @@ def phase_tuned(device, kernels, errs, smi):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     base = _baseline_stores(device, kernels)
-    print(f"[12/16] (b) host baselines as store_backend, {BASE_KEYS} keys "
+    print(f"[12/17] (b) host baselines as store_backend, {BASE_KEYS} keys "
           f"each (phase 7's settings), {BASE_SCANS} of phase 7's scans == "
           f"oracle (bloom: {BASE_SCANS} gets), no kernel launched; bloomRF "
           f"on the same stream beside them: {json.dumps(base)} on {smi} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     cmp_ = _standalone(device, kernels)
-    print(f"[12/16] (c) standalone comparison on phase 3's {CMP_KEYS} keys at "
+    print(f"[12/17] (c) standalone comparison on phase 3's {CMP_KEYS} keys at "
           f"16 bits/key, {CMP_QUERIES} points (half present) and ranges "
           f"(2^0..2^14): no false negatives, the adapter == its xla twin: "
           f"{json.dumps(cmp_)} on {smi} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     typed = _typed_stores(device, kernels)
-    print(f"[12/16] (d) a str store of {STR_KEYS} keys (memtable "
+    print(f"[12/17] (d) a str store of {STR_KEYS} keys (memtable "
           f"{STR_MEMTABLE}, compactions asserted) and a multiattr "
           f"store of {TYPED_KEYS}, {TYPED_SCANS} scans each == sorted "
           f"oracle, no kernel launched: "
@@ -3279,7 +3299,7 @@ def phase_banks(device, kernels, errs, smi):
     """Phase 13, each part printing its line; returns their results."""
     t0 = time.perf_counter()
     bank_h, bank_q, bank = _bank13(device, kernels, errs)
-    print(f"[13/16] (a) bank: open_filter(FilterSpec(u32, n={BANK_KEYS}, 14 "
+    print(f"[13/17] (a) bank: open_filter(FilterSpec(u32, n={BANK_KEYS}, 14 "
           f"bits/key, delta 6, placement='bank', shards={BANK_SHARDS})), "
           f"{BANK_KEYS} inserts in {CHUNK}-key chunks, {BANK_QUERIES} points "
           f"and ranges, {SPAN_RANGES} ranges across 2-3 shards and the "
@@ -3289,7 +3309,7 @@ def phase_banks(device, kernels, errs, smi):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     ten_h, ten_q, tenant = _tenant13(device, kernels, errs)
-    print(f"[13/16] (b) tenant bank: FilterSpec(u32, n={TEN_KEYS}, "
+    print(f"[13/17] (b) tenant bank: FilterSpec(u32, n={TEN_KEYS}, "
           f"placement='tenant', tenants={TENANTS}, shards={TEN_SHARDS}), "
           f"{TEN_KEYS * TENANTS} inserts with random tenants, the same mix, "
           f"ranges with and without meta, meta_skip_stats, grow(4) in "
@@ -3300,7 +3320,7 @@ def phase_banks(device, kernels, errs, smi):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     prefix = _prefix13(device, kernels)
-    print(f"[13/16] (c) prefix cache: PrefixCacheIndex(bits_per_key=14, "
+    print(f"[13/17] (c) prefix cache: PrefixCacheIndex(bits_per_key=14, "
           f"n_tenants=16, ttl_generations=4) over a WAL store (phase 10's "
           f"settings), {PC_SEGMENTS} segments of "
           f"{PC_SESSIONS * PC_CHUNKS} entries, {PC_LOOKUPS} lookups (half "
@@ -3312,7 +3332,7 @@ def phase_banks(device, kernels, errs, smi):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     sharded = _sharded13(device, bank_h, bank_q, ten_h, ten_q)
-    print(f"[13/16] (d) ShardedFilterBank and ShardedTenantFilterBank on an "
+    print(f"[13/17] (d) ShardedFilterBank and ShardedTenantFilterBank on an "
           f"NCCL world of 1 == their banks on {SHARD_PROBES} of (a)'s and "
           f"(b)'s points and ranges (with and without meta): "
           f"{json.dumps(sharded)} ({time.perf_counter() - t0:.1f} s)",
@@ -3702,7 +3722,7 @@ def phase_serve(device, kernels, smi):
                                                 SERVE_BAND)
         if torch.device(device).type == "cuda":
             made["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-        print(f"[14/16] (a) {SERVE_ARCH} at full width ({cfg.n_layers} "
+        print(f"[14/17] (a) {SERVE_ARCH} at full width ({cfg.n_layers} "
               f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads, "
               f"{cfg.n_kv_heads} KV heads, vocab {cfg.vocab}), f32 params "
               f"on the card, count_params == leaves in {SERVE_BAND}: "
@@ -3713,7 +3733,7 @@ def phase_serve(device, kernels, smi):
                                              params)
         serve["profile"] = _serve_profile(device, model, params, batch1,
                                           prompts, SERVE_PROMPT + SERVE_NEW)
-        print(f"[14/16] (b) ServeLoop(max_seq={SERVE_MAX_SEQ}, batch_slots="
+        print(f"[14/17] (b) ServeLoop(max_seq={SERVE_MAX_SEQ}, batch_slots="
               f"{SERVE_SLOTS}, prefix_chunk={SERVE_CHUNK}), 8 greedy "
               f"requests (sessions 0-3 twice, {SERVE_PROMPT}-token prompts, "
               f"{SERVE_NEW} new tokens): index answers and stats == the CPU "
@@ -3724,14 +3744,14 @@ def phase_serve(device, kernels, smi):
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         t0 = time.perf_counter()
         greedy = _greedy_and_consistency(device, cfg, model, params)
-        print(f"[14/16] (c, d) loop greedy tokens == manual greedy decode; "
+        print(f"[14/17] (c, d) loop greedy tokens == manual greedy decode; "
               f"decode(token T | cache(prompt[:T])) == prefill(prompt[:T+1])"
               f" within 2e-2 at full depth, f32, B {CONSIST_B}, T "
               f"{CONSIST_T}: {json.dumps(greedy)} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         t0 = time.perf_counter()
         versus = _card_vs_cpu(device, cfg, params)
-        print(f"[14/16] (e) card == CPU, {CARD_CPU_LAYERS} layers at full "
+        print(f"[14/17] (e) card == CPU, {CARD_CPU_LAYERS} layers at full "
               f"width, f32, TF32 off, prefill logits within {CARD_CPU_TOL}: "
               f"{json.dumps(versus)} ({time.perf_counter() - t0:.1f} s)",
               flush=True)
@@ -3740,7 +3760,7 @@ def phase_serve(device, kernels, smi):
         if torch.device(device).type == "cuda":
             serve["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         secs = time.perf_counter() - t_phase
-        print(f"[14/16] (f) PagedKVCache at the full KV shape == the loop's "
+        print(f"[14/17] (f) PagedKVCache at the full KV shape == the loop's "
               f"cache bit for bit: {json.dumps(paged)}; phase 14 in "
               f"{secs:.1f} s on {smi}", flush=True)
     finally:
@@ -3829,7 +3849,7 @@ def _served_family(device, kernels, smi, part, arch, card_cpu_layers,
     cfg, model, params, made = _serve_model(device, arch,
                                             FAMILY_BANDS.get(arch))
     made["max_memory_allocated"] = _peak(device)
-    print(f"[15/16] ({part}) {arch} at full width ({cfg.n_layers} layers, "
+    print(f"[15/17] ({part}) {arch} at full width ({cfg.n_layers} layers, "
           f"d_model {cfg.d_model}, vocab {cfg.vocab}), f32 params on the "
           f"card: {json.dumps(made)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
@@ -3848,7 +3868,7 @@ def _served_family(device, kernels, smi, part, arch, card_cpu_layers,
             n for _, n in drops)
     serve["profile"] = _serve_profile(device, model, params, batch1,
                                       prompts, SERVE_PROMPT + FAMILY_NEW)
-    print(f"[15/16] ({part}) ServeLoop as phase 14's, {FAMILY_NEW} new "
+    print(f"[15/17] ({part}) ServeLoop as phase 14's, {FAMILY_NEW} new "
           f"tokens: index answers and stats == the CPU twin, one B6 launch "
           f"a lookup against a segment, none before, B1 for the segments' "
           f"rows, no other launch: {json.dumps(serve)} on {smi} "
@@ -3861,7 +3881,7 @@ def _served_family(device, kernels, smi, part, arch, card_cpu_layers,
     greedy["reference_init"] = _consistency(
         device, cfg, params, np.random.default_rng(SEED + 143), hold=False,
         **_no_drop(cfg))
-    print(f"[15/16] ({part}) loop greedy tokens == manual greedy decode for "
+    print(f"[15/17] ({part}) loop greedy tokens == manual greedy decode for "
           f"{SERVE_SLOTS} prompts of each of {list(lengths)} tokens; "
           f"decode == prefill within 2e-2 at full depth, f32, attention "
           f"projections at their true fan-in (ROADMAP C.8; at the "
@@ -3870,7 +3890,7 @@ def _served_family(device, kernels, smi, part, arch, card_cpu_layers,
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     versus = _card_vs_cpu(device, cfg, tamed, card_cpu_layers)
-    print(f"[15/16] ({part}) card == CPU, {card_cpu_layers} layers at full "
+    print(f"[15/17] ({part}) card == CPU, {card_cpu_layers} layers at full "
           f"width, f32, TF32 off, prefill logits within {CARD_CPU_TOL}: "
           f"{json.dumps(versus)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
@@ -3978,7 +3998,7 @@ def _whisper(device, smi):
                                          hold=False)
     run["card_vs_cpu"] = _card_vs_cpu(device, cfg, tamed, cfg.n_layers, few)
     made["max_memory_allocated"] = _peak(device)
-    print(f"[15/16] (d) {arch} at full width ({cfg.n_enc_layers} + "
+    print(f"[15/17] (d) {arch} at full width ({cfg.n_enc_layers} + "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.enc_seq} "
           f"frames, vocab {cfg.vocab}), f32 params on the card: "
           f"{json.dumps(made)}; prefill of {WHISPER_B} x {WHISPER_T} tokens, "
@@ -4011,7 +4031,7 @@ def _moonshot(device, smi):
     consist = _consistency(device, cfg, _tamed(params), rng, **_no_drop(cfg))
     consist["reference_init"] = _consistency(device, cfg, params, rng,
                                              hold=False, **_no_drop(cfg))
-    print(f"[15/16] (e) {full.name} at full width (d_model {cfg.d_model}, "
+    print(f"[15/17] (e) {full.name} at full width (d_model {cfg.d_model}, "
           f"{cfg.n_experts} experts, top-{cfg.experts_per_token}, vocab "
           f"{cfg.vocab}) cut to {MOONSHOT_LAYERS} of {full.n_layers} "
           f"layers, f32 params on the card: {json.dumps(made)}; decode == "
@@ -4043,7 +4063,7 @@ def phase_families(device, kernels, smi):
         mamba = get_config("mamba2-130m")
         t0 = time.perf_counter()
         ssd = _ssd_on_card(device, mamba)
-        print(f"[15/16] (b) ssd_chunked on the card == the naive recurrence "
+        print(f"[15/17] (b) ssd_chunked on the card == the naive recurrence "
               f"(f64) within {SSD_TOL}, f32: {json.dumps(ssd)} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         served["mamba2-130m"] = _served_family(
@@ -4060,7 +4080,7 @@ def phase_families(device, kernels, smi):
     secs = time.perf_counter() - t_phase
     launches = {k: sum(s["launches"].get(k, 0) for s in served.values())
                 for k in ("point_stacked", "insert")}
-    print(f"[15/16] phase 15 in {secs:.1f} s on {smi}: launches "
+    print(f"[15/17] phase 15 in {secs:.1f} s on {smi}: launches "
           f"{json.dumps(launches)}", flush=True)
     return {"served": served, "whisper": whisper, "moonshot": moonshot,
             "launches": launches, "phase_s": secs}
@@ -4268,7 +4288,7 @@ def _train_full(device, kernels, smi):
         "card_memory": (torch.cuda.get_device_properties(0).total_memory
                         if torch.device(device).type == "cuda" else None),
         "run_s": run_s, "part_s": time.perf_counter() - t0}
-    print(f"[16/16] (a) {TRAIN_ARCH} at full width ({cfg.n_layers} layers, "
+    print(f"[16/17] (a) {TRAIN_ARCH} at full width ({cfg.n_layers} layers, "
           f"d_model {cfg.d_model}, remat, bf16 activations, f32 params) "
           f"trained {TRAIN_STEPS} steps on the deduped stream (batch "
           f"{TRAIN_B} x {TRAIN_S}, {TRAIN_MB} microbatches, int8 error "
@@ -4549,7 +4569,7 @@ def phase_train(device, kernels, smi):
     t_phase = time.perf_counter()
     full, first = _train_full(device, kernels, smi)
     memo = _train_memorize(device, first)
-    print(f"[16/16] (b) {MEMO_STEPS} steps on one repeated batch at full "
+    print(f"[16/17] (b) {MEMO_STEPS} steps on one repeated batch at full "
           f"width from a fresh init (1 microbatch, no compression, warmup "
           f"1): the last loss below the first: {json.dumps(memo)}",
           flush=True)
@@ -4560,7 +4580,7 @@ def phase_train(device, kernels, smi):
     try:
         t0 = time.perf_counter()
         versus = _train_card_vs_cpu(device)
-        print(f"[16/16] (c) card == CPU, f32, TF32 off: one train step of "
+        print(f"[16/17] (c) card == CPU, f32, TF32 off: one train step of "
               f"each smoke family (attention at the true fan-in; loss, grad "
               f"norm, gradient within {STEP_TOL} of scale, params within "
               f"{STEP_TOL} where |g| > {RESOLVED}), rmsnorm and flash "
@@ -4573,7 +4593,7 @@ def phase_train(device, kernels, smi):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     secs = time.perf_counter() - t_phase
-    print(f"[16/16] (d) Supervisor over {RESTART_ARCH} smoke, "
+    print(f"[16/17] (d) Supervisor over {RESTART_ARCH} smoke, "
           f"{RESTART_STEPS} steps, a checkpoint every {RESTART_EVERY}, a "
           f"failure at step {RESTART_FAIL}: one restart, the final loss == "
           f"the straight run's within {STEP_TOL}, B1 a shard filter, the "
@@ -4587,7 +4607,321 @@ def phase_train(device, kernels, smi):
                              "b1_checkpoint_launches"],
                          "layer_range": restart["layer_range"][
                              "b3_launches"]},
-            "phase_s": secs}
+            "full": full, "phase_s": secs}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: sharding, the cost count and the dry run
+# ---------------------------------------------------------------------------
+
+EP_ARCH = "moonshot-v1-16b-a3b"
+EP_B, EP_T = 2, 64            # prefill of EP_T tokens, one decode step
+EP_TOL = 2e-2                 # of the logits' scale, bf16 activations
+COST_BAND = (0.9, 1.1)        # cost.py's FLOPs / phase 16's shape count
+DRY_ARCHS = "qwen3-1.7b,mamba2-130m,moonshot-v1-16b-a3b"
+DRY_SHAPES = "train_4k,decode_32k"
+DRY_TIMEOUT = 900
+
+
+def _dry_runs(out_dir):
+    """(c) the dry run's two invocations in one CPU-only subprocess (a
+    fake process group cannot share this process's NCCL one), started
+    with the phase; returns the Popen."""
+    code = (
+        "import json, subprocess, sys, time\n"
+        "out = sys.argv[1]\n"
+        "runs = {}\n"
+        "for tag, args in (('smoke', ['--smoke', '--arch', "
+        f"'{DRY_ARCHS}', '--shape', '{DRY_SHAPES}', '--mesh', 'both']), "
+        "('full', ['--arch', 'qwen3-1.7b', '--shape', 'train_4k', "
+        "'--mesh', 'single'])):\n"
+        "    t0 = time.perf_counter()\n"
+        "    r = subprocess.run([sys.executable, '-m', "
+        "'repro_torch.launch.dryrun', *args, '--out', "
+        "f'{out}/{tag}.json'], capture_output=True, text=True)\n"
+        "    runs[tag] = {'rc': r.returncode, 's': time.perf_counter() - t0,"
+        " 'tail': (r.stdout + r.stderr)[-3000:]}\n"
+        "json.dump(runs, open(f'{out}/runs.json', 'w'))\n")
+    env = dict(__import__("os").environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    return subprocess.Popen([sys.executable, "-c", code, str(out_dir)],
+                            env=env, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL)
+
+
+def _ep_world(device, smi, tmp):
+    """(a) the expert-parallel dispatch on an NCCL world of one."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import batch_axes_for, make_shardings
+    from repro_torch.dist.sharding import place
+    from repro_torch.models import moe
+    from repro_torch.models.act import activation_mesh
+    from repro_torch.models.config import Shape
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve import grow_cache
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    t_part = time.perf_counter()
+    full = get_config(EP_ARCH)
+    cfg, model, params, made = _serve_model(
+        device, full.name, None,
+        dataclasses.replace(full, n_layers=MOONSHOT_LAYERS))
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    rng = np.random.default_rng(SEED + 170)
+    toks = torch.tensor(rng.integers(0, cfg.vocab - 1, (EP_B, EP_T + 1)),
+                        dtype=torch.int32, device=device)
+    pre = {"tokens": toks[:, :EP_T]}
+    dec = {"token": toks[:, EP_T:], "pos": EP_T}
+    local_ms, mesh_ms = {}, {}
+
+    def timed(log, key, fn):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        log.setdefault(key, []).append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    for _ in range(3):
+        logits, cache = timed(local_ms, "prefill",
+                              lambda: model.prefill(params, pre))
+        grown = grow_cache(model, cache, EP_T + 1, EP_B)
+        dlog, _ = timed(local_ms, "decode",
+                        lambda: model.decode(params, grown, dec))
+    del cache, grown
+    sh = make_shardings(model, mesh, Shape("p", EP_T, EP_B, "prefill"))
+    sh_dec = make_shardings(model, mesh, Shape("d", EP_T + 1, EP_B,
+                                               "decode"))
+    placed = place(params, sh.params)
+    ep_calls = []
+    ep = moe._expert_apply_split
+
+    def counted(*a, **kw):
+        ep_calls.append(1)
+        return ep(*a, **kw)
+
+    moe._expert_apply_split = counted
+    try:
+        with activation_mesh(mesh, batch_axes_for(mesh)):
+            for _ in range(3):
+                m_logits, m_cache = timed(
+                    mesh_ms, "prefill",
+                    lambda: model.prefill(placed, place(pre, sh.batch)))
+                m_cache = place(grow_cache(model, tree_map(
+                    lambda t: t.full_tensor(), m_cache), EP_T + 1, EP_B),
+                    sh_dec.cache)
+                m_dlog, _ = timed(mesh_ms, "decode", lambda: model.decode(
+                    placed, m_cache, place(dec, sh_dec.batch)))
+    finally:
+        moe._expert_apply_split = ep
+    m_logits, m_dlog = m_logits.full_tensor(), m_dlog.full_tensor()
+    out = {}
+    for name, a, b in (("prefill", logits, m_logits),
+                       ("decode", dlog, m_dlog)):
+        scale = float(a.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        same = bool(torch.equal(a[:, -1].argmax(-1), b[:, -1].argmax(-1)))
+        if not (torch.isfinite(b).all() and err <= EP_TOL * scale and same):
+            raise AssertionError(f"EP {name} != local: {err} of {scale}, "
+                                 f"greedy equal {same}")
+        out[name] = {"max_abs_err": err, "logit_scale": scale,
+                     "greedy_equal": same}
+    if len(ep_calls) != 3 * 2 * cfg.n_layers:
+        raise AssertionError(f"expert-parallel dispatch taken "
+                             f"{len(ep_calls)} times, expected "
+                             f"{6 * cfg.n_layers}")
+    out.update({
+        "ep_dispatch_calls": len(ep_calls), "mesh": {"data": 1, "model": 1},
+        "activations": cfg.dtype, "batch": [EP_B, EP_T],
+        "local_ms": {k: float(np.median(v[1:])) for k, v in
+                     local_ms.items()},
+        "mesh_ms": {k: float(np.median(v[1:])) for k, v in mesh_ms.items()},
+        "params": made["params"], "max_memory_allocated": _peak(device),
+        "part_s": time.perf_counter() - t_part})
+    print(f"[17/17] (a) {EP_ARCH} at full width ({cfg.n_experts} experts, "
+          f"top-{cfg.experts_per_token}, d_model {cfg.d_model}) cut to "
+          f"{cfg.n_layers} of {full.n_layers} layers, params placed by "
+          f"make_shardings on a 1 x 1 DeviceMesh of an NCCL world of one "
+          f"under activation_mesh: every MoE layer took the expert-parallel "
+          f"dispatch, prefill logits and a decode step == the local "
+          f"dispatch within {EP_TOL} of scale, greedy tokens equal: "
+          f"{json.dumps(out)} on {smi}", flush=True)
+    del model, params, placed, m_cache
+    _free(device)
+    return mesh, out
+
+
+def _cost_and_restore(device, smi, mesh, train, tmp):
+    """(b) cost.py on phase 16's step on meta tensors; elastic_restore of
+    a checkpoint onto the 1 x 1 mesh."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import ef_init
+    from repro_torch.dist.sharding import make_shardings
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cost import measure, roofline
+    from repro_torch.models import get_model
+    from repro_torch.models.config import Shape
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import (OptConfig, TrainConfig, make_train_step,
+                                   save_checkpoint)
+    from repro_torch.train.fault_tolerance import elastic_restore
+
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    model = get_model(cfg, "meta")
+    params = dryrun.param_sds(model)
+    opt = dryrun.opt_sds(params)
+    step = make_train_step(model, OptConfig(**TRAIN_OPT),
+                           TrainConfig(microbatches=TRAIN_MB,
+                                       grad_compression=True))
+    batch = {k: torch.zeros((TRAIN_B, TRAIN_S), dtype=torch.int32,
+                            device="meta") for k in ("tokens", "labels")}
+    _, cost = measure(step, params, opt, ef_init(params), batch)
+    shape_tflop = train["matmul_tflop_per_step"]
+    ratio = cost.flops / 1e12 / shape_tflop
+    terms = roofline(cost, dryrun.PEAK_FLOPS, dryrun.HBM_BW, dryrun.LINK_BW)
+    if not COST_BAND[0] <= ratio <= COST_BAND[1]:
+        raise AssertionError(f"cost.py {cost.flops / 1e12} TFLOP vs the "
+                             f"shape count {shape_tflop}: {ratio}")
+    busy = train.get("step_profile") or {}
+    # the shape count recomputes each layer's whole forward; torch's
+    # checkpoint stops recomputing once every saved tensor is back, so the
+    # block's last product (w_down: its output feeds only the residual
+    # add) is not run again
+    skipped = 2 * TRAIN_B * TRAIN_S * cfg.d_model * cfg.d_ff * \
+        cfg.n_layers / 1e12
+    out = {"cost_tflop": cost.flops / 1e12, "shape_tflop": shape_tflop,
+           "ratio": ratio, "remat_skipped_tflop": skipped,
+           "ratio_without_skipped": cost.flops / 1e12 /
+           (shape_tflop - skipped), "bytes": cost.bytes,
+           "roofline_terms_ms": {k: 1e3 * v for k, v in terms.items()},
+           "phase16_step_ms_median": train["step_ms_median"],
+           "phase16_device_ms": busy.get("device_ms"),
+           "count_s": time.perf_counter() - t0}
+    # a checkpoint as phase 16's restart writes one, restored onto the mesh
+    t1 = time.perf_counter()
+    small = get_config(RESTART_ARCH, smoke=True)
+    smodel = get_model(small, device)
+    sparams = smodel.init(torch.Generator(device).manual_seed(SEED))
+    save_checkpoint(f"{tmp}/ckpt", 1, sparams, device="cpu")   # no B1
+    sh = make_shardings(smodel, mesh, Shape("t", 32, 4, "train"))
+    back = elastic_restore(f"{tmp}/ckpt", 1, sparams, shardings=sh.params)
+    leaves = list(zip(tree_leaves(back), tree_leaves(sparams),
+                      tree_leaves(sh.params)))
+    if not all(tuple(a.placements) == s.placements and
+               torch.equal(a.full_tensor(), b) for a, b, s in leaves):
+        raise AssertionError("elastic_restore onto the mesh != the saved "
+                             "leaves")
+    out["elastic_restore"] = {"arch": small.name, "leaves": len(leaves),
+                              "bit_equal": True,
+                              "s": time.perf_counter() - t1}
+    print(f"[17/17] (b) launch/cost.py on phase 16's step ({TRAIN_ARCH} at "
+          f"full width, {TRAIN_B} x {TRAIN_S}, {TRAIN_MB} microbatches, "
+          f"error feedback; meta tensors, one device, no mesh): FLOPs within "
+          f"{COST_BAND} of phase 16's shape count, roofline terms (H100 "
+          f"peaks: {dryrun.PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16, "
+          f"{dryrun.HBM_BW / 1e12} TB/s) beside phase 16's measured step; "
+          f"elastic_restore(..., shardings=) of a {RESTART_ARCH} smoke "
+          f"checkpoint onto the 1 x 1 mesh == the saved leaves bit for "
+          f"bit: {json.dumps(out)} on {smi}", flush=True)
+    return out
+
+
+def _dry_check(proc, out_dir, smi):
+    """(c) the dry run's records: every smoke cell ok; the full-width
+    cell's argument bytes == its spec tree's local shards."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import make_specs
+    from repro_torch.models import SHAPES, get_model
+    from repro_torch.models.params import P, tree_leaves
+
+    proc.wait(timeout=DRY_TIMEOUT)
+    runs = json.loads((out_dir / "runs.json").read_text())
+    for tag, r in runs.items():
+        if r["rc"] != 0:
+            raise AssertionError(f"dry run {tag}: rc {r['rc']}: {r['tail']}")
+    smoke = json.loads((out_dir / "smoke.json").read_text())
+    (full,) = json.loads((out_dir / "full.json").read_text())
+    if len(smoke) != 12 or any(r["status"] != "ok" for r in smoke + [full]):
+        raise AssertionError(f"dry run records: {smoke + [full]}")
+    sizes = {"data": 16, "model": 16}
+    model = get_model(get_config("qwen3-1.7b"), "meta")
+    shape = SHAPES["train_4k"]
+    specs = make_specs(model, sizes, shape)
+
+    def local(spec, dims, dtype):
+        n = 1
+        for d, e in zip(dims, tuple(spec) + (None,) * len(dims)):
+            axes = () if e is None else ((e,) if isinstance(e, str) else e)
+            n *= d // math.prod(sizes[a] for a in axes)
+        return n * torch.empty((), dtype=dtype).element_size()
+
+    table = tree_leaves(model.table(), is_leaf=lambda x: isinstance(x, P))
+    params = sum(local(s, p.shape, torch.float32)
+                 for s, p in zip(tree_leaves(specs.params), table))
+    ins = model.input_specs(shape)
+    want = 3 * params + 4 + sum(local(specs.batch[k], ins[k].shape,
+                                      ins[k].dtype) for k in ins)
+    got = full["memory_analysis"]["argument_bytes"]
+    if got != want:
+        raise AssertionError(f"full-width argument_bytes {got} != {want}")
+    keep = ("arch", "shape", "mesh", "trace_s", "flops_per_device",
+            "bytes_per_device", "collective_bytes_per_device", "dominant")
+    out = {"smoke_s": runs["smoke"]["s"], "full_s": runs["full"]["s"],
+           "smoke": [{k: r[k] for k in keep} for r in smoke],
+           "full": {**{k: full[k] for k in keep},
+                    "collective_breakdown": full["collective_breakdown"],
+                    "roofline_terms_s": full["roofline_terms_s"],
+                    "argument_bytes": got}}
+    print(f"[17/17] (c) python -m repro_torch.launch.dryrun --smoke --arch "
+          f"{DRY_ARCHS} --shape {DRY_SHAPES} --mesh both: 12 records ok; "
+          f"full-width qwen3-1.7b x train_4k x single: argument_bytes == "
+          f"its spec tree's local shards ({want}); CPU only, meta tensors, "
+          f"fake process groups: {json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_sharding(device, smi, train):
+    """Phase 17: (a) the EP dispatch on an NCCL world of one, (b) the cost
+    count against phase 16 and a restore onto the mesh, (c) the dry run
+    (its subprocess runs beside (a) and (b))."""
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = Path(tmp) / "dry"
+        out_dir.mkdir()
+        proc = _dry_runs(out_dir)
+        try:
+            dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                    rank=0, world_size=1)
+            try:
+                mesh, ep = _ep_world(device, smi, tmp)
+                cost = _cost_and_restore(device, smi, mesh, train, tmp)
+            finally:
+                dist.destroy_process_group()
+            dry = _dry_check(proc, out_dir, smi)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    secs = time.perf_counter() - t_phase
+    print(f"[17/17] phase 17 in {secs:.1f} s on {smi}", flush=True)
+    return {"ep": ep, "cost": cost, "dry": dry, "phase_s": secs}
 
 
 def main() -> int:
@@ -4609,11 +4943,11 @@ def main() -> int:
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    print(f"[1/16] card: {smi} | torch: {name} | torch {torch.__version__} "
+    print(f"[1/17] card: {smi} | torch: {name} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
-    print(f"[1/16] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
+    print(f"[1/17] nvcc build of src/repro_torch/csrc: {build_all():.1f} s",
           flush=True)
-    print(f"[1/16] registers and spills (nvcc -Xptxas -v): "
+    print(f"[1/17] registers and spills (nvcc -Xptxas -v): "
           f"{json.dumps(_ptxas_usage())}", flush=True)
 
     src, rep = "src/repro_torch/csrc/", "src/repro/kernels/"
@@ -4654,7 +4988,7 @@ def main() -> int:
     errs = {k: 0 for k in kernels}
     t0 = time.perf_counter()
     n_lay = phase_kernels_vs_plain(device, kernels, errs, big)
-    print(f"[2/16] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
+    print(f"[2/17] kernel == plain on {n_lay} layouts (d 8..32, Δ 1..7, "
           f"top==d, W=64+replicas, multi-segment, exact, full size; B7/B8 "
           f"also on odd batches and replicas 3 and 5, against plain "
           f"versions bucketed at blocks of 256, "
@@ -4665,22 +4999,22 @@ def main() -> int:
                                expect(insert=8, point=4, range=4), kernels)
     if main_run["layout"]["deltas"] != big.deltas:
         raise AssertionError(f"main-path layout {main_run['layout']}")
-    print(f"[3/16] main path {json.dumps(main_run)}", flush=True)
+    print(f"[3/17] main path {json.dumps(main_run)}", flush=True)
     large = phase_main_path(10_000_000, "resident", name,
                             expect(insert=39, point=4, range=4), kernels,
                             time_range=True)
-    print(f"[4/16] resident 10M {json.dumps(large)}", flush=True)
+    print(f"[4/17] resident 10M {json.dumps(large)}", flush=True)
 
     single = {k: kernels[k] for k in ("insert", "point", "range")}
     times = phase_times(device, big, single)
-    print(f"[5/16] times at {CHUNK} keys/queries, filter "
+    print(f"[5/17] times at {CHUNK} keys/queries, filter "
           f"{big.total_u32 * 4} B, on {smi}: {json.dumps(times)}", flush=True)
 
     t0 = time.perf_counter()
     stacked = phase_stacked_vs_plain(device, kernels, errs, big)
     stacked_times = stacked.pop("times")
     times.update(stacked_times)
-    print(f"[6/16] B4 == plain on {stacked['scan_cells_checked']} (scan, run) "
+    print(f"[6/17] B4 == plain on {stacked['scan_cells_checked']} (scan, run) "
           f"cells (mixed Δ, multi-segment, replicas, capacity ladder; padded "
           f"and flat stacks, rpb 0/2, quarantine, edge bounds); B5/B6 == "
           f"plain on {stacked['stacked_rows']} rows of the phase-3 layout: "
@@ -4702,7 +5036,7 @@ def main() -> int:
     store = phase_store(device, kernels, errs)
     times["store_scan"] = store.pop("times")
     b1_shapes.update(store.pop("b1_shapes"))
-    print(f"[7/16] store, {STORE_KEYS} keys loaded by put (the key count is "
+    print(f"[7/17] store, {STORE_KEYS} keys loaded by put (the key count is "
           f"set by the host's per-key Python load path, not by the card), "
           f"YCSB-E: every scan == numpy oracle, every batch's (fence, touch) "
           f"== plain touch_all, {store['launches']} B4 launches for "
@@ -4718,7 +5052,7 @@ def main() -> int:
     hbm = phase_hbm(device, kernels, errs)
     times.update(hbm.pop("times"))
     b1_shapes.update(hbm.pop("b1_shapes"))
-    print(f"[8/16] HBM-scale filter, {HBM_KEYS} keys under auto, grown x{GROW} "
+    print(f"[8/17] HBM-scale filter, {HBM_KEYS} keys under auto, grown x{GROW} "
           f"in place to {HBM_KEYS * GROW}: no false negatives over all keys "
           f"(truth sorted on the card), state and verdicts == xla twin, "
           f"launches {json.dumps(hbm['launches'])}; deletable and TTL "
@@ -4731,13 +5065,13 @@ def main() -> int:
     if errs["insert"]:
         raise AssertionError(f"B1 != plain on a traffic shape: {errs}")
     times["insert"]["shapes"] = b1_shapes
-    print(f"[8/16] B1 alone on its traffic shapes ((a) the phase-3 filter in "
+    print(f"[8/17] B1 alone on its traffic shapes ((a) the phase-3 filter in "
           f"the L2, (b) phase 8's states cold, each of {COLD_CHUNKS} chunks "
           f"captured once, (c) phase 7's flush and largest rebuild, sorted "
           f"keys) on {smi}: {json.dumps(b1_shapes)}", flush=True)
 
     call_ms = {k: t.pop("call_ms") for k, t in times.items()}
-    print(f"[8/16] kernel wrappers' ms per call by CUDA events over 200 "
+    print(f"[8/17] kernel wrappers' ms per call by CUDA events over 200 "
           f"back-to-back calls, host dispatch included (the kernels line's "
           f"ms is the kernel alone, from a CUDA graph): "
           f"{json.dumps(call_ms)}", flush=True)
@@ -4747,7 +5081,7 @@ def main() -> int:
         "insert_keys_per_s", "point_queries_per_s", "range_queries_per_s")},
               "phase7_store": {k: store[k] for k in (
                   "load_puts_per_s", "host_scans_per_s")}}
-    print(f"[9/16] 64-bit keys on the plain path on the card, no kernel "
+    print(f"[9/17] 64-bit keys on the plain path on the card, no kernel "
           f"launched: mix64 == numpy on {MIX64_KEYS} keys with the top bit "
           f"set; the default open_filter (u64) and an f64 filter of "
           f"{WIDE_KEYS} keys with no false negatives, {SUBSAMPLE} verdicts "
@@ -4774,7 +5108,9 @@ def main() -> int:
         raise AssertionError(f"B1 or B6 != plain on a bank shape: {errs}")
     serve = phase_serve(device, kernels, smi)
     families = phase_families(device, kernels, smi)
-    train = phase_train(device, kernels, smi)["launches"]
+    trained = phase_train(device, kernels, smi)
+    train = trained["launches"]
+    phase_sharding(device, smi, trained["full"])
     times["point_stacked"]["bank_shapes"] = {
         "phase13_bank": bank.pop("b6"), "phase13_tenant": tenant.pop("b6")}
     for row in times["point_stacked"]["bank_shapes"].values():

@@ -17,11 +17,12 @@ import math
 
 import torch
 
-from .act import constrain, remat
+from .act import constrain, gather_fsdp, remat
+from .act import einsum as _einsum
 from .act import scan as _act_scan
 from .config import ModelConfig, Shape
-from .layers import _update_at, cast, flash_attention, gelu_mlp
-from .params import P
+from .layers import attend, attend_decode, cast, embed, gelu_mlp
+from .params import PS, P
 from .transformer import DenseModel, TensorSpec, cross_entropy, stack_layers
 
 __all__ = ["EncDecModel", "layernorm", "sinusoid_positions"]
@@ -73,31 +74,26 @@ def sinusoid_positions(S, D, offset=0, device=None):
 
 
 def _project_q(p, x):
-    return torch.einsum("bsd,dhe->bshe", x, cast(p["wq"], x.dtype)) + \
+    return _einsum("bsd,dhe->bshe", x, cast(p["wq"], x.dtype)) + \
         cast(p["bq"], x.dtype)
 
 
 def _project_kv(p, x):
     dt = x.dtype
-    k = torch.einsum("bsd,dhe->bshe", x, cast(p["wk"], dt))
-    v = torch.einsum("bsd,dhe->bshe", x, cast(p["wv"], dt)) + cast(p["bv"], dt)
+    k = _einsum("bsd,dhe->bshe", x, cast(p["wk"], dt))
+    v = _einsum("bsd,dhe->bshe", x, cast(p["wv"], dt)) + cast(p["bv"], dt)
     return k, v
 
 
-def _mha(p, cfg, xq, xkv=None, *, causal, q_offset=0, kv_len=None,
-         kv_override=None):
+def _mha(p, cfg, xq, xkv=None, *, causal, q_offset=0, kv_override=None):
     """Whisper-flavoured MHA (no rope, biased q/v/o projections)."""
-    H, hd = cfg.n_heads, cfg.hd
-    B, Sq = xq.shape[:2]
     q = _project_q(p, xq)
     if kv_override is not None:
         k, v = kv_override
     else:
         k, v = _project_kv(p, xq if xkv is None else xkv)
-    out = flash_attention(q.reshape(B, Sq, H, 1, hd), k, v, causal=causal,
-                          q_offset=q_offset, kv_len=kv_len)
-    out = out.reshape(B, Sq, H, hd)
-    y = torch.einsum("bshe,hed->bsd", out, cast(p["wo"], out.dtype)) + \
+    out = attend(q, k, v, cfg.n_heads, causal=causal, q_offset=q_offset)
+    y = _einsum("bshe,hed->bsd", out, cast(p["wo"], out.dtype)) + \
         cast(p["bo"], out.dtype)
     return y, (k, v)
 
@@ -172,11 +168,13 @@ class EncDecModel(DenseModel):
 
     def _embed_tokens(self, params, tokens, offset=0):
         # gather, then cast: the reference's cast-then-gather, same values
-        x = params["embed"][self._input(tokens).long()].to(self.adtype)
+        x = embed(params["embed"], self._input(tokens).long())
+        x = x.to(self.adtype)
         return x + self._positions(x.shape[1], offset).to(x.dtype)
 
     def _tied_logits(self, params, x):
-        return torch.einsum("bsd,vd->bsv", x, params["embed"].to(self.adtype))
+        return _einsum("bsd,vd->bsv", x,
+                       gather_fsdp(params["embed"]).to(self.adtype))
 
     def loss(self, params, batch):
         enc_out = self.encode(params, batch["frames"])
@@ -201,17 +199,13 @@ class EncDecModel(DenseModel):
 
         def body(x, inp):
             p, ck, cv, xk, xv = inp
-            B = x.shape[0]
             h = layernorm(x, p["ln1"], cfg.norm_eps)
             q = _project_q(p["attn"], h)
             k_new, v_new = _project_kv(p["attn"], h)
-            ck = _update_at(ck, k_new, pos)
-            cv = _update_at(cv, v_new, pos)
-            o = flash_attention(q.reshape(B, 1, cfg.n_heads, 1, cfg.hd), ck,
-                                cv, causal=False, kv_len=pos + 1)
-            o = o.reshape(B, 1, cfg.n_heads, cfg.hd)
-            x = x + torch.einsum("bshe,hed->bsd", o,
-                                 cast(p["attn"]["wo"], o.dtype)) + \
+            o, ck, cv = attend_decode(q, k_new, v_new, ck, cv, pos,
+                                      cfg.n_heads)
+            x = x + _einsum("bshe,hed->bsd", o,
+                            cast(p["attn"]["wo"], o.dtype)) + \
                 cast(p["attn"]["bo"], o.dtype)
             h, _ = _mha(p["xattn"], cfg, layernorm(x, p["lnx"], cfg.norm_eps),
                         causal=False, kv_override=(xk, xv))
@@ -246,3 +240,7 @@ class EncDecModel(DenseModel):
         kv = TensorSpec((L, B, shape.seq, cfg.n_heads, cfg.hd), self.adtype)
         x = TensorSpec((L, B, cfg.enc_seq, cfg.n_heads, cfg.hd), self.adtype)
         return {"k": kv, "v": kv, "xk": x, "xv": x}
+
+    def cache_pspecs(self, shape: Shape, batch_axes, kv_axes):
+        ps = PS(None, batch_axes, None, kv_axes, None)
+        return {"k": ps, "v": ps, "xk": ps, "xv": ps}

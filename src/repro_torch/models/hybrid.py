@@ -14,10 +14,10 @@ import torch
 from .act import remat
 from .act import scan as _act_scan
 from .config import ModelConfig, Shape
-from .layers import KVCache, dense_block, dense_block_decode, rmsnorm
+from .layers import KVCache, dense_block, dense_block_decode, embed, rmsnorm
 from .mamba2 import (init_mamba_cache_specs, mamba_block, mamba_block_decode,
-                     mamba_block_table)
-from .params import P, tree_map
+                     mamba_block_table, mamba_cache_pspecs)
+from .params import PS, P, tree_map
 from .transformer import DenseModel, TensorSpec, block_table, stack_layers
 
 __all__ = ["HybridModel"]
@@ -96,7 +96,7 @@ class HybridModel(DenseModel):
     def decode(self, params, cache, batch):
         cfg = self.cfg
         token = self._input(batch["token"]).long()
-        x = params["embed"][token].to(self.adtype)
+        x = embed(params["embed"], token).to(self.adtype)
         pos = int(batch["pos"])
 
         def outer(x, inp):
@@ -131,3 +131,8 @@ class HybridModel(DenseModel):
             "kv_k": kv,
             "kv_v": kv,
         }
+
+    def cache_pspecs(self, shape: Shape, batch_axes, kv_axes):
+        kv = PS(None, batch_axes, None, kv_axes, None)
+        return {"ssm": mamba_cache_pspecs(batch_axes, kv_axes),
+                "kv_k": kv, "kv_v": kv}

@@ -27,7 +27,11 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from .act import constrain, legacy_f32
+from .act import constrain
+from .act import einsum as _einsum
+from .act import (from_local, fsdp_placements, gather_fsdp, grad_summed,
+                  is_dtensor, legacy_f32, local_param, local_shard,
+                  row_placements)
 from .act import scan as _act_scan
 from .config import ModelConfig
 
@@ -40,6 +44,9 @@ DEFAULT_KV_BLOCK = 1024
 
 
 def cast(x, dtype):
+    """A parameter in ``dtype``; under an activation mesh, gathered over
+    the batch (FSDP) axes first (``act.gather_fsdp``)."""
+    x = gather_fsdp(x)
     return x.to(dtype) if x.dtype != dtype else x
 
 
@@ -263,17 +270,187 @@ class KVCache(NamedTuple):
 
 
 def _pad_heads(t, target: int):
-    """Pad the head dim (axis -2) of (B, S, h, hd) up to ``target`` heads."""
+    """Pad the head dim (axis -2) of (B, S, h, hd) up to ``target`` heads
+    (a DTensor is padded whole over "model", its batch sharding kept)."""
     if t.shape[-2] >= target:
         return t
+    if is_dtensor(t):
+        pl = row_placements(t.shape[0], None)
+        local = _pad_heads(t.redistribute(t.device_mesh, pl).to_local(),
+                           target)
+        return from_local(local, t.device_mesh, pl,
+                          t.shape[:-2] + (target, t.shape[-1]))
     return F.pad(t, (0, 0, 0, target - t.shape[-2]))
+
+
+# ---------------------------------------------------------------------------
+# attention on local shards (under an activation mesh)
+# ---------------------------------------------------------------------------
+
+def embed(table, ids):
+    """``table[ids]``.  A DTensor table (vocab rows over "model", FSDP over
+    the batch axes) is read on local shards: the rows gathered over the
+    batch axes, each model rank looks up the ids in its vocab slice (zero
+    elsewhere) for its batch rows, and the result is a partial sum over
+    "model"."""
+    if not is_dtensor(table):
+        return table[ids]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    model = tuple(mesh.mesh_dim_names).index("model")
+    if is_dtensor(ids):
+        rows = row_placements(ids.shape[0], None)
+        ids_l = local_shard(ids, rows)
+    else:                     # the same ids on every rank
+        rows, ids_l = (Replicate(),) * mesh.ndim, ids
+    tpl = fsdp_placements(table)
+    w = local_param(table, tpl, rows)
+    out = list(rows)
+    if tpl[model] == Shard(0):
+        n = w.shape[0]
+        lo = mesh.get_local_rank(model) * n
+        hit = (ids_l >= lo) & (ids_l < lo + n)
+        x = w[torch.where(hit, ids_l - lo, 0)] * hit[..., None].to(w.dtype)
+        out[model] = Partial()
+    else:
+        x = w[ids_l]
+    return from_local(x, mesh, out, tuple(ids.shape) + (table.shape[1],))
+
+
+def attend(q, k, v, n_kv: int, *, causal: bool, q_offset=0):
+    """Train/prefill attention core: q (B, Sq, H, hd), k/v (B, Skv, n_kv,
+    hd) -> (B, Sq, H, hd).  DTensors run the flash scan on their local
+    shards, as the reference's does per device: batch rows over the batch
+    axes and KV heads (with their query groups) over "model" where the
+    model axis divides ``n_kv``; where it divides only the query heads
+    (qwen3-1.7b: 16 query and 8 KV heads over 16), the query heads, each
+    rank reading the KV heads its own use; else the KV heads split
+    unevenly (``_attend_uneven``)."""
+    B, Sq, H, hd = q.shape
+    if not is_dtensor(q):
+        qg = q.reshape(B, Sq, n_kv, H // n_kv, hd)
+        out = flash_attention(qg, k, v, causal=causal, q_offset=q_offset)
+        return out.reshape(B, Sq, H, hd)
+    mesh = q.device_mesh
+    model = tuple(mesh.mesh_dim_names).index("model")
+    n, G = mesh.size(model), H // n_kv
+    h_l = H // n
+    if n_kv % n and not H % n and (h_l % G == 0 or G % h_l == 0):
+        # query heads over "model", the KV heads whole: each rank reads
+        # the KV heads its query heads use, and its gradient of them is
+        # a partial sum over "model"
+        from torch.distributed.tensor import Partial
+
+        pl_q, pl_kv = row_placements(B, H), row_placements(B, None)
+        grad = [Partial() if i == model else p for i, p in enumerate(pl_kv)]
+        r = mesh.get_local_rank(model)
+        heads = slice(r * h_l // G, ((r + 1) * h_l - 1) // G + 1)
+        kl, vl = (t.redistribute(mesh, pl_kv).to_local(
+            grad_placements=grad)[:, :, heads] for t in (k, v))
+        out = attend(local_shard(q, pl_q), kl, vl, kl.shape[2],
+                     causal=causal, q_offset=q_offset)
+        return from_local(out, mesh, pl_q, q.shape)
+    if n_kv % n == 0:
+        pl = row_placements(B, n_kv)
+        kl = local_shard(k, pl)
+        out = attend(local_shard(q, pl), kl, local_shard(v, pl), kl.shape[2],
+                     causal=causal, q_offset=q_offset)
+        return from_local(out, mesh, pl, q.shape)
+    return _attend_uneven(q, k, v, n_kv, mesh, model, causal=causal,
+                          q_offset=q_offset)
+
+
+def _attend_uneven(q, k, v, n_kv: int, mesh, model: int, *, causal: bool,
+                   q_offset):
+    """``attend`` where the model axis of n ranks divides neither the KV
+    nor the query heads (whisper's 8 over 16, granite-moe's 24 / 8,
+    qwen1.5-32b's 40): the KV heads split as ``torch.chunk`` splits them,
+    ceil(n_kv / n) a rank with their query groups and the last ranks
+    short or empty, where GSPMD pads every rank to that count.  The
+    outputs are all-gathered over "model"; each rank's gradient of q, k
+    and v covers its own heads and is summed there."""
+    from torch.distributed.tensor import Shard
+
+    B, Sq, H, hd = q.shape
+    G = H // n_kv
+    rows = row_placements(B)
+    kp = -(-n_kv // mesh.size(model))
+    r = mesh.get_local_rank(model)
+    heads = slice(min(r * kp, n_kv), min((r + 1) * kp, n_kv))
+    ql, kl, vl = (grad_summed(local_shard(t, rows), mesh, rows, model)
+                  for t in (q, k, v))
+    qg = ql.reshape(ql.shape[0], Sq, n_kv, G, hd)[:, :, heads]
+    out = flash_attention(qg, kl[:, :, heads], vl[:, :, heads],
+                          causal=causal, q_offset=q_offset)
+    split = tuple(Shard(2) if i == model else p for i, p in enumerate(rows))
+    out = local_shard(from_local(out, mesh, split, (B, Sq, n_kv, G, hd)),
+                      rows)
+    return from_local(out.reshape(out.shape[0], Sq, H, hd), mesh, rows,
+                      q.shape)
+
+
+def _decode_core(q, k_new, v_new, ck, cv, pos: int, n_kv: int):
+    """Plain decode attention: the cache (B, Smax, kvc, hd) with the new
+    token's k/v (heads padded to kvc) written at ``pos``; q (B, 1, H, hd)
+    padded with zero groups to kvc KV heads; returns (out (B, 1, H, hd),
+    k, v)."""
+    B, _, H, hd = q.shape
+    G = H // n_kv
+    kvc = ck.shape[-2]
+    k = _update_at(ck, _pad_heads(k_new, kvc), pos)
+    v = _update_at(cv, _pad_heads(v_new, kvc), pos)
+    qg = q.reshape(B, 1, n_kv, G, hd)
+    if kvc > n_kv:
+        qg = F.pad(qg, (0, 0, 0, 0, 0, kvc - n_kv))
+    out = flash_attention(qg, k, v, causal=False, kv_len=pos + 1)
+    return out[:, :, :n_kv].reshape(B, 1, H, hd), k, v
+
+
+def attend_decode(q, k_new, v_new, ck, cv, pos: int, n_kv: int):
+    """One decode step's attention against a KV cache (see
+    ``_decode_core``).  A DTensor cache keeps its sharding: batch rows over
+    the batch axes, and its (padded) KV heads over "model" where the cache
+    is sharded so; the step's q/k/v (one token) are gathered whole over
+    "model", each rank attends with its own KV heads' groups, and the
+    heads' outputs are gathered back."""
+    if not is_dtensor(q):
+        return _decode_core(q, k_new, v_new, ck, cv, pos, n_kv)
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = q.device_mesh
+    B, _, H, hd = q.shape
+    G, kvc = H // n_kv, ck.shape[-2]
+    pl_c = tuple(ck.placements)
+    model = tuple(mesh.mesh_dim_names).index("model")
+    pl_r = tuple(Replicate() if isinstance(p, Shard) and p.dim == 2 else p
+                 for p in pl_c)
+    ql, kn, vn = (local_shard(t, pl_r) for t in (q, k_new, v_new))
+    ckl, cvl = local_shard(ck, pl_c), local_shard(cv, pl_c)
+    if pl_c[model] == Shard(2):
+        # this rank's KV heads [r*kl, (r+1)*kl) of the padded kvc
+        r, kl = mesh.get_local_rank(model), kvc // mesh.size(model)
+        heads = slice(r * kl, (r + 1) * kl)
+        k = _update_at(ckl, _pad_heads(kn, kvc)[:, :, heads], pos)
+        v = _update_at(cvl, _pad_heads(vn, kvc)[:, :, heads], pos)
+        qg = ql.reshape(ql.shape[0], 1, n_kv, G, hd)
+        qg = F.pad(qg, (0, 0, 0, 0, 0, kvc - n_kv))[:, :, heads]
+        out = flash_attention(qg, k, v, causal=False, kv_len=pos + 1)
+        out = local_shard(from_local(out, mesh, pl_c, (B, 1, kvc, G, hd)),
+                          pl_r)
+        out = out[:, :, :n_kv].reshape(ql.shape[0], 1, H, hd)
+    else:
+        out, k, v = _decode_core(ql, kn, vn, ckl, cvl, pos, n_kv)
+    return (from_local(out, mesh, pl_r, q.shape),
+            from_local(k, mesh, pl_c, ck.shape),
+            from_local(v, mesh, pl_c, cv.shape))
 
 
 def _project_qkv(p, cfg: ModelConfig, x, positions):
     dt = x.dtype
-    q = torch.einsum("bsd,dhe->bshe", x, cast(p["wq"], dt))
-    k = torch.einsum("bsd,dhe->bshe", x, cast(p["wk"], dt))
-    v = torch.einsum("bsd,dhe->bshe", x, cast(p["wv"], dt))
+    q = _einsum("bsd,dhe->bshe", x, cast(p["wq"], dt))
+    k = _einsum("bsd,dhe->bshe", x, cast(p["wk"], dt))
+    v = _einsum("bsd,dhe->bshe", x, cast(p["wv"], dt))
     q = constrain(q, ("batch", None, "model", None))
     k = constrain(k, ("batch", None, "model", None))
     v = constrain(v, ("batch", None, "model", None))
@@ -303,15 +480,12 @@ def attention(p, cfg: ModelConfig, x, *, positions, causal: bool = True,
         q, k, v = _project_qkv(p, cfg, x, positions)
     else:
         dt = x.dtype
-        q = torch.einsum("bsd,dhe->bshe", x, cast(p["wq"], dt))
+        q = _einsum("bsd,dhe->bshe", x, cast(p["wq"], dt))
         if cfg.qkv_bias:
             q = q + cast(p["bq"], dt)
         k, v = kv_override
-    B, S = x.shape[:2]
-    qg = q.reshape(B, S, Hkv, G, hd)
-    out = flash_attention(qg, k, v, causal=causal, q_offset=q_offset)
-    out = out.reshape(B, S, H, hd)
-    y = torch.einsum("bshe,hed->bsd", out, cast(p["wo"], x.dtype))
+    out = attend(q, k, v, Hkv, causal=causal, q_offset=q_offset)
+    y = _einsum("bshe,hed->bsd", out, cast(p["wo"], x.dtype))
     # the cache copy is padded to kv_cache_heads so it can shard evenly
     kvc = cfg.kv_cache_heads
     return y, (_pad_heads(k, kvc), _pad_heads(v, kvc))
@@ -332,21 +506,13 @@ def decode_attention(p, cfg: ModelConfig, x, cache: KVCache, pos):
 
     Supports KV caches whose head dim is padded to ``cfg.kv_cache_heads``:
     padded q rows are zero and their outputs are sliced away."""
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    G = H // Hkv
     B = x.shape[0]
-    kvc = cache.k.shape[-2]
     pos = int(pos)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)
-    k = _update_at(cache.k, _pad_heads(k_new, kvc), pos)
-    v = _update_at(cache.v, _pad_heads(v_new, kvc), pos)
-    qg = q.reshape(B, 1, Hkv, G, hd)
-    if kvc > Hkv:
-        qg = F.pad(qg, (0, 0, 0, 0, 0, kvc - Hkv))
-    out = flash_attention(qg, k, v, causal=False, kv_len=pos + 1)
-    out = out[:, :, :Hkv].reshape(B, 1, H, hd)
-    y = torch.einsum("bshe,hed->bsd", out, cast(p["wo"], x.dtype))
+    out, k, v = attend_decode(q, k_new, v_new, cache.k, cache.v, pos,
+                              cfg.n_kv_heads)
+    y = _einsum("bshe,hed->bsd", out, cast(p["wo"], x.dtype))
     return y, KVCache(k, v)
 
 
@@ -356,16 +522,16 @@ def decode_attention(p, cfg: ModelConfig, x, cache: KVCache, pos):
 
 def swiglu(p, x):
     dt = x.dtype
-    g = torch.einsum("bsd,df->bsf", x, cast(p["w_gate"], dt))
-    u = torch.einsum("bsd,df->bsf", x, cast(p["w_up"], dt))
-    return torch.einsum("bsf,fd->bsd", F.silu(g) * u, cast(p["w_down"], dt))
+    g = _einsum("bsd,df->bsf", x, cast(p["w_gate"], dt))
+    u = _einsum("bsd,df->bsf", x, cast(p["w_up"], dt))
+    return _einsum("bsf,fd->bsd", F.silu(g) * u, cast(p["w_down"], dt))
 
 
 def gelu_mlp(p, x):
     dt = x.dtype
-    h = F.gelu(torch.einsum("bsd,df->bsf", x, cast(p["w_in"], dt)) +
+    h = F.gelu(_einsum("bsd,df->bsf", x, cast(p["w_in"], dt)) +
                cast(p["b_in"], dt), approximate="tanh")
-    return (torch.einsum("bsf,fd->bsd", h, cast(p["w_out"], dt)) +
+    return (_einsum("bsf,fd->bsd", h, cast(p["w_out"], dt)) +
             cast(p["b_out"], dt))
 
 

@@ -12,14 +12,17 @@ length: a serving loop keeps them as they are and grows only KV caches.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
-from .act import constrain, legacy_f32
+from .act import (constrain, from_local, grad_summed, is_dtensor,
+                  legacy_f32, local_param, local_shard, row_placements)
 from .act import scan as _act_scan
 from .config import ModelConfig, Shape
-from .layers import cast, rmsnorm
-from .params import P
+from .layers import cast, embed, rmsnorm
+from .params import PS, P
 from .transformer import DenseModel, TensorSpec
 
 __all__ = ["MambaModel", "mamba_block_table", "ssd_chunked", "mamba_block",
@@ -152,8 +155,134 @@ def _gate_out(p, cfg: ModelConfig, x, y, z):
     return x + torch.einsum("bse,ed->bsd", y, cast(p["w_out"], x.dtype))
 
 
+# the block's weights whose last (conv, projections) or only (biases, the
+# gated norm) or first (the output projection) dim is a d_inner channel
+_CHANNEL_DIM = {"wz": 1, "wx": 1, "conv_x": 1, "conv_bias_x": 0, "norm": 0,
+                "w_out": 0}
+
+
+def _channel_sharded(cfg: ModelConfig, p, x, cache=None):
+    """``mamba_block`` (``cache`` None) or ``mamba_block_decode`` of a
+    DTensor ``x`` on local tensors, its d_inner channels split over
+    "model" as the reference's ``ssm_inner`` sharding splits them.
+
+    Model rank r owns channels [r*c, (r+1)*c), c = d_inner / n: its
+    columns of wz / wx, rows of w_out and slices of the channel convs and
+    the gated norm, with B, C and dt computed whole.  A head can straddle
+    two ranks (mamba2-130m's 24 heads over 16), so the SSD scan runs over
+    *sub-heads* of gcd(head_dim, c) channels, each with its head's dt, A
+    and D: every channel of a head evolves on its own, so the split is
+    exact.  The gated norm's sum of squares and the output projection are
+    partial sums over "model" (one all-reduce each); the input's and the
+    whole weights' gradients are too.  Each rank runs its batch rows.
+    Cache: tail_x split by channel, tail_b / tail_c whole, the state
+    (B, H, N, P) split by heads where n divides H, else whole (its
+    channels all-gathered)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    model = names.index("model") if "model" in names else None
+    n = mesh.size(model) if model is not None else 1
+    din, H, Pd, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, \
+        cfg.ssm_state
+    if din % n:
+        raise ValueError(f"d_inner {din} does not divide the model axis {n}")
+    r = mesh.get_local_rank(model) if n > 1 else 0
+    c = din // n
+    Ps = math.gcd(Pd, c)
+    hid = torch.arange(r * c, (r + 1) * c, Ps, device=x.device) // Pd
+    B, S = x.shape[0], x.shape[1]
+    rows = row_placements(B)
+
+    def on_model(q):           # ``rows`` with ``q`` on the model axis
+        return tuple(q if i == model else p_ for i, p_ in enumerate(rows))
+
+    # the computation is split over "model": a whole weight's gradient is
+    # a partial sum there, as is the input's
+    split = on_model(Shard(2))
+    lp = {k: local_param(w, tuple(
+        Shard(_CHANNEL_DIM[k]) if i == model and k in _CHANNEL_DIM
+        else Replicate() for i in range(mesh.ndim)), split)
+        for k, w in p.items()}
+    xr = x.redistribute(mesh, rows)
+    xl = grad_summed(xr.to_local(), mesh, rows, model)
+    dt_ = x.dtype
+    h = rmsnorm(xl, lp["ln"], cfg.norm_eps)
+    z, xs, Bm, Cm = (torch.einsum("bsd,de->bse", h, lp[k].to(dt_))
+                     for k in ("wz", "wx", "wb", "wc"))
+    dtr = torch.einsum("bsd,de->bse", h, lp["wdt"][:, hid].to(dt_))
+    tails = [None] * 3
+    heads_split = H % n == 0
+    if cache is not None:
+        tails = [local_shard(cache["tail_x"], on_model(Shard(2))),
+                 local_shard(cache["tail_b"], rows),
+                 local_shard(cache["tail_c"], rows)]
+        state = local_shard(cache["state"],
+                            on_model(Shard(1)) if heads_split else rows)
+        if not heads_split:    # this rank's channels as sub-heads
+            state = state.permute(0, 2, 1, 3).reshape(-1, N, din)[
+                ..., r * c:(r + 1) * c].reshape(-1, N, c // Ps, Ps).permute(
+                    0, 2, 1, 3)
+    xs, tail_x = _causal_depthwise_conv(xs, lp["conv_x"],
+                                        lp["conv_bias_x"], tails[0])
+    Bm, tail_b = _causal_depthwise_conv(Bm, lp["conv_b"],
+                                        lp["conv_bias_b"], tails[1])
+    Cm, tail_c = _causal_depthwise_conv(Cm, lp["conv_c"],
+                                        lp["conv_bias_c"], tails[2])
+    dt = softplus(dtr.float() + lp["dt_bias"][hid].float())
+    A = -torch.exp(lp["a_log"][hid].float())
+    Bl = xl.shape[0]
+    xh = xs.reshape(Bl, S, c // Ps, Ps)
+    if cache is None:
+        y, state = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
+        y = y + lp["d_skip"][hid].to(dt_)[None, None, :, None] * xh
+    else:
+        y, state = _ssd_step(dt[:, 0], A, Bm[:, 0], Cm[:, 0], xh[:, 0],
+                             lp["d_skip"][hid], state)
+        y = y[:, None].to(dt_)
+    g = y.reshape(Bl, S, c) * F.silu(z)
+    gf = g.float()
+    # the gated norm's sum over all channels, read by each rank's own
+    # channels: its gradient is a partial sum over "model" too
+    ss = from_local((gf * gf).sum(-1), mesh, on_model(Partial()),
+                    (B, S)).redistribute(mesh, rows).to_local(
+                        grad_placements=on_model(Partial()))
+    scale = torch.rsqrt(ss / din + cfg.norm_eps)
+    g = g * scale[..., None].to(dt_) * lp["norm"].to(dt_)
+    part = torch.einsum("bse,ed->bsd", g, lp["w_out"].to(dt_))
+    out = xr + from_local(part, mesh, on_model(Partial()),
+                          x.shape).redistribute(mesh, rows)
+    if not heads_split:        # gather the channels into (B, H, N, P)
+        state = local_shard(from_local(
+            state.permute(0, 2, 1, 3).reshape(Bl, N, c), mesh,
+            on_model(Shard(2)), (B, N, din)), rows)
+        state = state.reshape(Bl, N, H, Pd).permute(0, 2, 1, 3)
+    st_pl = on_model(Shard(1)) if heads_split else rows
+    return out, {
+        "state": from_local(state.float(), mesh, st_pl, (B, H, N, Pd)),
+        "tail_x": from_local(tail_x, mesh, on_model(Shard(2)),
+                             (B, tail_x.shape[1], din)),
+        "tail_b": from_local(tail_b, mesh, rows, (B,) + tail_b.shape[1:]),
+        "tail_c": from_local(tail_c, mesh, rows, (B,) + tail_c.shape[1:])}
+
+
+def _ssd_step(dt, A, Bv, Cv, xh, d_skip, state):
+    """One recurrent step of the SSM: dt (B, H) post-softplus, A (H,),
+    Bv / Cv (B, N), xh (B, H, P), state (B, H, N, P) f32.  Returns
+    (y (B, H, P) f32, the new state)."""
+    xh, Bv, Cv = xh.float(), Bv.float(), Cv.float()
+    decay = torch.exp(dt * A[None, :])                             # (B,H)
+    S_new = decay[:, :, None, None] * state + \
+        torch.einsum("bh,bn,bhp->bhnp", dt, Bv, xh)
+    y = torch.einsum("bn,bhnp->bhp", Cv, S_new)
+    return y + d_skip.float()[None, :, None] * xh, S_new
+
+
 def mamba_block(p, cfg: ModelConfig, x):
     """x: (B,S,D).  Returns (x_out, this layer's decode cache)."""
+    if is_dtensor(x):
+        return _channel_sharded(cfg, p, x)
     B, S, _ = x.shape
     H, Pd = cfg.ssm_heads, cfg.ssm_head_dim
     dt_ = x.dtype
@@ -177,6 +306,8 @@ def mamba_block(p, cfg: ModelConfig, x):
 
 def mamba_block_decode(p, cfg: ModelConfig, x, cache):
     """x: (B,1,D); cache entries per layer: state (B,H,N,P) f32 + conv tails."""
+    if is_dtensor(x):
+        return _channel_sharded(cfg, p, x, cache)
     B = x.shape[0]
     H, Pd = cfg.ssm_heads, cfg.ssm_head_dim
     dt_ = x.dtype
@@ -191,14 +322,8 @@ def mamba_block_decode(p, cfg: ModelConfig, x, cache):
 
     dt = softplus(dtr.float() + p["dt_bias"].float())[:, 0]       # (B,H)
     A = -torch.exp(p["a_log"].float())
-    xh = xs.reshape(B, H, Pd).float()
-    Bv = Bm[:, 0].float()                                          # (B,N)
-    Cv = Cm[:, 0].float()
-    decay = torch.exp(dt * A[None, :])                             # (B,H)
-    S_new = decay[:, :, None, None] * cache["state"] + \
-        torch.einsum("bh,bn,bhp->bhnp", dt, Bv, xh)
-    y = torch.einsum("bn,bhnp->bhp", Cv, S_new)
-    y = y + p["d_skip"].float()[None, :, None] * xh
+    y, S_new = _ssd_step(dt, A, Bm[:, 0], Cm[:, 0], xs.reshape(B, H, Pd),
+                         p["d_skip"], cache["state"])
     out = _gate_out(p, cfg, x, y.reshape(B, 1, cfg.d_inner).to(dt_), z)
     return out, {"state": S_new, "tail_x": tail_x, "tail_b": tail_b,
                  "tail_c": tail_c}
@@ -213,6 +338,15 @@ def init_mamba_cache_specs(cfg: ModelConfig, n_layers: int, batch: int,
         "tail_x": TensorSpec((n_layers, batch, ck - 1, cfg.d_inner), adtype),
         "tail_b": TensorSpec((n_layers, batch, ck - 1, N), adtype),
         "tail_c": TensorSpec((n_layers, batch, ck - 1, N), adtype),
+    }
+
+
+def mamba_cache_pspecs(batch_axes, kv_axes) -> dict:
+    return {
+        "state": PS(None, batch_axes, kv_axes, None, None),
+        "tail_x": PS(None, batch_axes, None, kv_axes),
+        "tail_b": PS(None, batch_axes, None, None),
+        "tail_c": PS(None, batch_axes, None, None),
     }
 
 
@@ -231,7 +365,7 @@ class MambaModel(DenseModel):
     def decode(self, params, cache, batch):
         cfg = self.cfg
         token = self._input(batch["token"]).long()
-        x = params["embed"][token].to(self.adtype)
+        x = embed(params["embed"], token).to(self.adtype)
 
         def body(x, inp):
             lp, c = inp
@@ -244,3 +378,6 @@ class MambaModel(DenseModel):
     def cache_specs(self, shape: Shape) -> dict:
         return init_mamba_cache_specs(self.cfg, self.cfg.n_layers,
                                       shape.batch, self.adtype)
+
+    def cache_pspecs(self, shape: Shape, batch_axes, kv_axes):
+        return mamba_cache_pspecs(batch_axes, kv_axes)

@@ -2,12 +2,13 @@
 
 Counterpart of ``repro/models/params.py``.  Each model defines a nested
 dict of :class:`P` leaves; ``init_params`` turns the table into tensors.
-The logical axes ride along for the sharding rules (``DEFAULT_RULES``);
-the port's ``pspecs`` comes with ``dist/sharding.py``.
+``pspecs`` turns the *same* table into partition specs through the
+logical-axis rules (``DEFAULT_RULES``), so shapes and sharding cannot
+drift apart.
 
 A tree here is a nested dict (keys visited sorted, as the reference's
 pytrees flatten), tuple, list or ``NamedTuple``; ``None`` is an empty
-subtree and anything else a leaf.
+subtree and anything else, a :class:`PS` included, a leaf.
 """
 from __future__ import annotations
 
@@ -20,8 +21,8 @@ import torch
 
 from ..core.bloomrf import resolve_device
 
-__all__ = ["P", "init_params", "params_from_numpy", "count_params",
-           "DEFAULT_RULES", "tree_map", "tree_leaves"]
+__all__ = ["P", "PS", "init_params", "params_from_numpy", "count_params",
+           "pspecs", "DEFAULT_RULES", "tree_map", "tree_leaves"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +49,19 @@ DEFAULT_RULES = {
 }
 
 
+class PS(tuple):
+    """A partition spec: one entry per tensor dim, each ``None``
+    (replicated), a mesh axis name, or a tuple of axis names (major axis
+    first), as ``jax.sharding.PartitionSpec``'s are.  A leaf of the trees
+    here (``tree_map`` does not descend into it)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"PS{tuple.__repr__(self)}"
+
+
 def _is_namedtuple(t) -> bool:
     return isinstance(t, tuple) and hasattr(t, "_fields")
 
@@ -60,7 +74,7 @@ def tree_map(fn, tree, *rest, is_leaf=None):
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest),
                             is_leaf=is_leaf) for k in sorted(tree)}
-    if isinstance(tree, (tuple, list)):
+    if isinstance(tree, (tuple, list)) and not isinstance(tree, PS):
         out = [tree_map(fn, t, *(r[i] for r in rest), is_leaf=is_leaf)
                for i, t in enumerate(tree)]
         return type(tree)(*out) if _is_namedtuple(tree) else type(tree)(out)
@@ -117,6 +131,45 @@ def params_from_numpy(tree, device=None):
     dtypes."""
     device = resolve_device(device)
     return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+def _axis_ok(mesh_axes: tuple, dim: int, mesh_shape: dict) -> bool:
+    """Argument shardings must divide the dim exactly; dims that do not
+    are replicated here."""
+    total = 1
+    for a in mesh_axes:
+        total *= mesh_shape.get(a, 1)
+    return total > 0 and dim % total == 0
+
+
+def pspecs(table, mesh_shape: dict, rules: dict | None = None,
+           fsdp_axes: tuple = ("data",)):
+    """A :class:`PS` tree of the table.
+
+    ``mesh_shape``: {axis: size} of the target mesh.  ``fsdp_axes``: the
+    physical axes behind the logical "fsdp" group (e.g. ("pod", "data")).
+    A sharding that does not divide its dim is dropped (replicated), and
+    no mesh axis shards two dims of one leaf."""
+    rules = dict(DEFAULT_RULES if rules is None else rules)
+
+    def spec_for(p: P) -> PS:
+        used = set()
+        out = []
+        for dim, ax in zip(p.shape, p.axes):
+            phys: tuple = ()
+            if ax is not None and ax in rules:
+                phys = tuple(fsdp_axes if a == "fsdp" else (a,)
+                             for a in rules[ax])
+                phys = tuple(x for grp in phys for x in grp)
+            phys = tuple(a for a in phys if a not in used)
+            if phys and _axis_ok(phys, dim, mesh_shape):
+                used.update(phys)
+                out.append(phys if len(phys) > 1 else phys[0])
+            else:
+                out.append(None)
+        return PS(*out)
+
+    return tree_map(spec_for, table, is_leaf=_is_p)
 
 
 def count_params(table) -> int:

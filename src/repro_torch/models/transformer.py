@@ -13,6 +13,7 @@ exactly this tree and either package opens the other's checkpoints.
   prefill(params, batch)       -- (last-token logits, kv cache)
   decode(params, cache, batch) -- (logits, new cache)
   input_specs(shape)           -- TensorSpecs (shape, dtype) of the inputs
+  param_pspecs / batch_pspecs / cache_pspecs -- partition specs (``PS``)
 """
 from __future__ import annotations
 
@@ -21,11 +22,13 @@ from typing import NamedTuple
 import torch
 
 from ..core.bloomrf import resolve_device
-from .act import remat
+from .act import einsum as _einsum
+from .act import (from_local, gather_fsdp, is_dtensor, local_shard, remat,
+                  row_placements)
 from .act import scan as _act_scan
 from .config import ModelConfig, Shape
-from .layers import KVCache, dense_block, dense_block_decode, rmsnorm
-from .params import P, init_params, tree_map
+from .layers import KVCache, dense_block, dense_block_decode, embed, rmsnorm
+from .params import PS, P, init_params, pspecs, tree_map
 
 __all__ = ["DenseModel", "TensorSpec"]
 
@@ -84,6 +87,8 @@ def cross_entropy(logits, labels, mask=None):
     detached, as the reference's ``stop_gradient``: its gradient is zero
     in exact arithmetic, and ``amax``'s backward would split it across
     tied maxima."""
+    if is_dtensor(logits):
+        return _sharded_cross_entropy(logits, labels, mask)
     lf = logits.float()
     m = lf.amax(-1, keepdim=True).detach()
     lse = torch.log(torch.exp(lf - m).sum(-1)) + m[..., 0]
@@ -92,6 +97,55 @@ def cross_entropy(logits, labels, mask=None):
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def _sharded_cross_entropy(logits, labels, mask=None):
+    """``cross_entropy`` of DTensor logits on local shards: each rank takes
+    its batch rows and, where "model" divides the vocab, its vocab slice;
+    the max is all-reduced (detached), the exponent sums and the gold
+    logits are partial sums over "model" combined by one redistribution,
+    and the mean is a partial sum over the batch axes, returned
+    replicated."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = logits.device_mesh
+    model = tuple(mesh.mesh_dim_names).index("model")
+    B, S, V = logits.shape
+    rows = row_placements(B, None)
+    n = mesh.size(model)
+    cols = tuple(Shard(2) if i == model and V % n == 0 else p
+                 for i, p in enumerate(rows))
+    lf = local_shard(logits, cols).float()
+    lab = (local_shard(labels, rows) if is_dtensor(labels)
+           else labels).long()
+    m = lf.amax(-1, keepdim=True).detach()
+    v_l, lo = lf.shape[-1], 0
+    if cols[model] == Shard(2):
+        dist.all_reduce(m, dist.ReduceOp.MAX, group=mesh.get_group(model))
+        lo = mesh.get_local_rank(model) * v_l
+    hit = (lab >= lo) & (lab < lo + v_l)
+    gold = torch.gather(lf, -1, torch.where(hit, lab - lo, 0)[..., None])
+    parts = torch.stack([torch.exp(lf - m).sum(-1),
+                         torch.where(hit, gold[..., 0], 0.0)])
+    if cols[model] == Shard(2):
+        pl = [Partial() if i == model else (Shard(1) if p.is_shard() else p)
+              for i, p in enumerate(rows)]
+        whole = [Replicate() if i == model else q for i, q in enumerate(pl)]
+        parts = local_shard(from_local(parts, mesh, pl, (2, B, S)), whole)
+    nll = torch.log(parts[0]) + m[..., 0] - parts[1]
+    if mask is not None:
+        mk = (local_shard(mask, rows) if is_dtensor(mask) else mask).float()
+        num, den = (nll * mk).sum(), mk.sum()
+    else:
+        num, den = nll.sum(), torch.tensor(float(B * S), device=nll.device)
+    sums = [Partial() if p.is_shard() else Replicate() for p in rows]
+    num = from_local(num, mesh, sums, ())
+    if mask is None:
+        return num.redistribute(mesh, [Replicate()] * mesh.ndim) / den
+    den = from_local(den, mesh, sums, ())
+    return num.redistribute(mesh, [Replicate()] * mesh.ndim) / torch.clamp(
+        den.redistribute(mesh, [Replicate()] * mesh.ndim), min=1.0)
 
 
 class DenseModel:
@@ -124,6 +178,9 @@ class DenseModel:
         """Params drawn from ``generator`` (on the model's device)."""
         return init_params(self.table(), generator, dtype, self.device)
 
+    def param_pspecs(self, mesh_shape: dict, fsdp_axes=("data",)):
+        return pspecs(self.table(), mesh_shape, fsdp_axes=fsdp_axes)
+
     # ------------------------------------------------------------------
     # blocks (overridden by MoE)
     # ------------------------------------------------------------------
@@ -146,7 +203,7 @@ class DenseModel:
         cfg = self.cfg
         tokens = self._input(batch["tokens"]).long()
         # gather, then cast: the reference's cast-then-gather, same values
-        x = params["embed"][tokens].to(self.adtype)
+        x = embed(params["embed"], tokens).to(self.adtype)
         if cfg.family == "vlm":
             x = torch.cat([self._input(batch["patch_embeds"], self.adtype),
                            x], dim=1)
@@ -174,10 +231,10 @@ class DenseModel:
     def _logits(self, params, x):
         cfg = self.cfg
         if cfg.tie_embeddings:
-            w = params["embed"].to(self.adtype).T
+            w = gather_fsdp(params["embed"]).to(self.adtype).T
         else:
-            w = params["lm_head"].to(self.adtype)
-        return torch.einsum("bsd,dv->bsv", x, w)
+            w = gather_fsdp(params["lm_head"]).to(self.adtype)
+        return _einsum("bsd,dv->bsv", x, w)
 
     def loss(self, params, batch):
         cfg = self.cfg
@@ -200,7 +257,7 @@ class DenseModel:
         (L, B, S, kv_cache_heads, hd)."""
         cfg = self.cfg
         token = self._input(batch["token"]).long()
-        x = params["embed"][token].to(self.adtype)
+        x = embed(params["embed"], token).to(self.adtype)
         pos = int(batch["pos"])
 
         def body(x, inp):
@@ -235,8 +292,23 @@ class DenseModel:
             return spec
         return {"token": TensorSpec((B, 1), i32), "pos": TensorSpec((), i32)}
 
+    def batch_pspecs(self, shape: Shape, batch_axes) -> dict:
+        spec = {}
+        for k in self.input_specs(shape):
+            if k == "pos":
+                spec[k] = PS()
+            elif k in ("patch_embeds", "frames"):
+                spec[k] = PS(batch_axes, None, None)
+            else:
+                spec[k] = PS(batch_axes, None)
+        return spec
+
     def cache_specs(self, shape: Shape) -> tuple:
         cfg = self.cfg
         shp = (cfg.n_layers, shape.batch, shape.seq, cfg.kv_cache_heads,
                cfg.hd)
         return (TensorSpec(shp, self.adtype), TensorSpec(shp, self.adtype))
+
+    def cache_pspecs(self, shape: Shape, batch_axes, kv_axes) -> tuple:
+        ps = PS(None, batch_axes, None, kv_axes, None)
+        return (ps, ps)

@@ -10,8 +10,8 @@ Counterpart of ``repro/train/fault_tolerance.py``.
   fleet of supervisors never restarts in lockstep); every incident is
   logged with the delay it waited.
 * :func:`elastic_restore` -- restore a checkpoint and place it on a
-  device, or leaf by leaf on a tree of devices.  The mesh-sharded
-  placement of the reference comes with the port's ``dist/sharding.py``.
+  (possibly different) mesh through a ``Shardings`` tree, on a device, or
+  leaf by leaf on a tree of devices.
 * Straggler mitigation lives in Trainer._detect_straggler (step-time
   z-score outliers flagged and surfaced for rescheduling).
 """
@@ -85,12 +85,22 @@ class Supervisor:
                 self._sleep(delay)
 
 
-def elastic_restore(ckpt_dir: str, step: int, like, devices=None):
+def elastic_restore(ckpt_dir: str, step: int, like, devices=None,
+                    shardings=None):
     """Restore checkpoint ``step`` in the structure of ``like``, then place
-    it: on ``devices`` when it is one device, leaf by leaf when it is a
-    tree of devices shaped as ``like``; left as restored (each leaf as its
-    like-leaf lies) when it is None."""
+    it: distributed by ``shardings`` (a tree of ``dist.sharding.
+    NamedSharding`` shaped as ``like``, e.g. ``make_shardings(...).params``
+    on a new mesh; every rank reads the whole checkpoint and keeps its
+    shards) when given; else on ``devices`` when it is one device, leaf by
+    leaf when it is a tree of devices shaped as ``like``; left as restored
+    (each leaf as its like-leaf lies) when both are None."""
+    if shardings is not None and devices is not None:
+        raise ValueError("pass shardings or devices, not both")
     tree = restore_checkpoint(ckpt_dir, step, like)
+    if shardings is not None:
+        from ..dist.sharding import place
+
+        return place(tree_map(torch.as_tensor, tree), shardings)
     if devices is None:
         return tree
     if isinstance(devices, (str, torch.device)):

@@ -24,9 +24,26 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "import repro_torch.models.hybrid, repro_torch.models.encdec\n"
             "import repro_torch.train.optimizer, repro_torch.train.train_loop\n"
             "import repro_torch.train.fault_tolerance\n"
+            "import repro_torch.dist.sharding, repro_torch.dist.pipeline\n"
+            "import repro_torch.launch, repro_torch.launch.mesh\n"
+            "import repro_torch.launch.cost, repro_torch.launch.dryrun\n"
+            "import repro_torch.launch.profile_cell\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(_SRC)}
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_importing_the_launchers_makes_no_process_group():
+    """The dry run makes its fake group in ``main()``; importing it, or
+    the mesh module, touches no process group."""
+    code = ("import torch.distributed as dist\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.mesh\n"
+            "import repro_torch.launch.profile_cell, repro_torch.dist\n"
+            "assert not dist.is_initialized()\n")
     env = {**os.environ, "PYTHONPATH": str(_SRC)}
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
@@ -70,7 +87,10 @@ def test_no_module_imports_jax_or_repro():
             "configs/zamba2_2_7b.py", "configs/whisper_base.py",
             "serve/kv_cache.py", "serve/decode.py", "train/__init__.py",
             "train/optimizer.py", "train/train_loop.py",
-            "train/fault_tolerance.py"} <= names
+            "train/fault_tolerance.py", "dist/sharding.py",
+            "dist/pipeline.py", "launch/__init__.py", "launch/mesh.py",
+            "launch/cost.py", "launch/dryrun.py",
+            "launch/profile_cell.py"} <= names
     files.append(_ROOT / "chip_smoke.py")
     files += sorted((_ROOT / "benchmarks").glob("torch_*.py"))
     files += sorted((_ROOT / "examples").glob("torch_*.py"))
